@@ -1,0 +1,208 @@
+"""Ragged paged attention: the CUDA kernel's wrapper and its plain version.
+
+Counterpart of ``paddle_tpu/ops/pallas/paged_attention.py``. Layout, as
+there (``serving/kv_cache.py`` owns the pool):
+
+- ``q``            ``[T, num_heads, head_dim]`` -- one row per query token
+- ``k/v pool``     ``[num_pages, page_size, num_kv_heads, head_dim]``
+- ``block_tables`` ``[T, pages_per_seq]`` int32 -- page ids, 0-padded
+  (page 0 is the pool's null page, never given to a sequence)
+- ``seq_lens``     ``[T]`` int32 -- keys each row sees (position + 1)
+- ``k_scale/v_scale`` ``[num_pages, page_size, num_kv_heads]`` f32 --
+  per-slot dequantisation scales of int8 pages, both or neither
+
+The ragged form (``ragged_paged_attention``) is the same function over
+flattened rows: a slot's prompt chunk contributes one row per token, each
+with the slot's block table and its own position, so the step that has
+already written the chunk's KV gets causal attention over it.
+
+Dispatch is on the tensors' device, never on what is installed: CPU
+tensors take :func:`ref_paged_attention`; CUDA tensors launch the kernel
+in ``csrc/paged_attention.cu`` or raise. ``kernel_launches`` and
+``plain_calls`` count the two paths.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+__all__ = ["paged_attention", "ragged_paged_attention",
+           "ref_paged_attention", "reset_counters", "NEG_INF"]
+
+NEG_INF = -1e30
+
+# plain-integer counts of the two paths (read and zeroed by chip_smoke.py)
+kernel_launches = 0
+plain_calls = 0
+
+# f32 bytes of gathered K the plain version holds at once; rows beyond
+# it are processed in blocks (the math is per row, so blocking is exact)
+_REF_BLOCK_BYTES = 512 << 20
+
+_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def reset_counters() -> None:
+    global kernel_launches, plain_calls
+    kernel_launches = 0
+    plain_calls = 0
+
+
+# ───────────────────────── plain PyTorch version ─────────────────────────
+
+
+def _ref_rows(q, k_pool, v_pool, bt, lens, scale, k_scale, v_scale):
+    B, nh, hd = q.shape
+    nkv = k_pool.shape[2]
+    groups = nh // nkv
+    k = k_pool[bt].reshape(B, -1, nkv, hd)
+    v = v_pool[bt].reshape(B, -1, nkv, hd)
+    if k_scale is not None:
+        ks = k_scale[bt].reshape(B, -1, nkv)
+        vs = v_scale[bt].reshape(B, -1, nkv)
+        k = k.float() * ks[..., None]
+        v = v.float() * vs[..., None]
+    if groups > 1:  # GQA: repeat kv per query group
+        k = k.repeat_interleave(groups, dim=2)
+        v = v.repeat_interleave(groups, dim=2)
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) * scale
+    pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    valid = pos < lens.to(torch.int64)[:, None]
+    s = s.masked_fill(~valid[:, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhk,bkhd->bhd", p, v.float())
+    return out.to(q.dtype)
+
+
+def ref_paged_attention(q, k_pool, v_pool, block_tables, seq_lens,
+                        scale: float = None, k_scale=None, v_scale=None):
+    """Gather-based paged attention in plain PyTorch: the CPU path and the
+    kernel's yardstick. Gathers each row's pages, masks keys at or past
+    ``seq_lens`` to -1e30, softmax in f32, GQA by repeating kv heads,
+    int8 pages widened by their scales; output in q's dtype. Rows are
+    processed in blocks so the gathered f32 pages stay within a fixed
+    size."""
+    T, nh, hd = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    bt = block_tables.to(torch.int64)
+    row_bytes = 4 * bt.shape[1] * k_pool.shape[1] * nh * hd
+    block = max(1, _REF_BLOCK_BYTES // max(row_bytes, 1))
+    outs = [_ref_rows(q[r:r + block], k_pool, v_pool, bt[r:r + block],
+                      seq_lens[r:r + block], scale, k_scale, v_scale)
+            for r in range(0, T, block)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+# ───────────────────────── CUDA kernel ─────────────────────────
+
+
+def _lib():
+    lib = _build.load("paged_attention")
+    fn = lib.paged_attention_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, p,
+                       i, i, i, i, i, i, ctypes.c_float, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"paged_attention kernel: {msg}")
+
+
+def _paged_attention_cuda(q, k_pool, v_pool, block_tables, seq_lens, scale,
+                          k_scale, v_scale):
+    global kernel_launches
+    T, nh, hd = q.shape
+    num_pages, page_size, nkv, hd_kv = k_pool.shape
+    quantized = k_scale is not None
+    tensors = [q, k_pool, v_pool, block_tables, seq_lens]
+    if quantized:
+        tensors += [k_scale, v_scale]
+    _check(all(t.device == q.device for t in tensors),
+           "every tensor must be on q's device")
+    _check(q.dtype in _Q_CODES, f"q dtype {q.dtype} (f32 or bf16)")
+    _check(k_pool.dtype in _KV_CODES and v_pool.dtype == k_pool.dtype,
+           f"page dtypes {k_pool.dtype}/{v_pool.dtype} (f32, bf16 or int8, "
+           "k and v alike)")
+    _check(k_pool.dtype != torch.int8 or quantized,
+           "int8 pages need k_scale and v_scale")
+    _check(tuple(v_pool.shape) == tuple(k_pool.shape),
+           "k and v pools differ in shape")
+    _check(hd_kv == hd, f"head_dim {hd} of q vs {hd_kv} of the pages")
+    _check(nkv > 0 and nh % nkv == 0 and nh // nkv <= 16,
+           f"{nh} query heads over {nkv} kv heads (groups <= 16)")
+    _check(hd % 8 == 0 and hd <= 256, f"head_dim {hd} (multiple of 8, <= 256)")
+    _check(1 <= page_size <= 64, f"page_size {page_size} (1..64)")
+    _check(block_tables.dtype == torch.int32 and block_tables.dim() == 2
+           and block_tables.shape[0] == T and block_tables.shape[1] >= 1,
+           "block_tables must be int32 [T, pages_per_seq]")
+    _check(seq_lens.dtype == torch.int32 and tuple(seq_lens.shape) == (T,),
+           "seq_lens must be int32 [T]")
+    if quantized:
+        _check(k_scale.dtype == torch.float32 and v_scale.dtype == torch.float32
+               and tuple(k_scale.shape) == (num_pages, page_size, nkv)
+               and tuple(v_scale.shape) == (num_pages, page_size, nkv),
+               "scales must be f32 [num_pages, page_size, nkv]")
+    _check(all(t.is_contiguous() for t in tensors),
+           "every tensor must be contiguous")
+    out = torch.empty_like(q)
+    if T == 0:
+        return out
+    fn = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                k_scale.data_ptr() if quantized else None,
+                v_scale.data_ptr() if quantized else None,
+                block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+                T, nh, nkv, hd, page_size, block_tables.shape[1],
+                float(scale), _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype],
+                stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"paged_attention kernel launch failed: cudaError_t {rc}")
+    kernel_launches += 1
+    return out
+
+
+# ───────────────────────── public op ─────────────────────────
+
+
+def paged_attention(q, k_pool, v_pool, block_tables, seq_lens,
+                    scale: float = None, k_scale=None, v_scale=None):
+    """Paged attention of each row of ``q`` over its block table (module
+    docstring). CPU tensors take the plain version; CUDA tensors launch
+    the kernel, raising on a shape, dtype or launch it does not take."""
+    global plain_calls
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        plain_calls += 1
+        return ref_paged_attention(q, k_pool, v_pool, block_tables, seq_lens,
+                                   scale, k_scale=k_scale, v_scale=v_scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"paged_attention: no path for device {q.device}")
+    return _paged_attention_cuda(q, k_pool, v_pool, block_tables, seq_lens,
+                                 scale, k_scale, v_scale)
+
+
+def ragged_paged_attention(q, k_pool, v_pool, row_block_tables, row_lens,
+                           scale: float = None, k_scale=None, v_scale=None):
+    """Mixed query-length paged attention over a flattened token grid:
+    ``q`` ``[T, nh, hd]`` holds decode tokens and prompt-chunk tokens
+    alike, ``row_block_tables`` repeats a slot's table for each of its
+    rows, ``row_lens`` is each row's position + 1. The caller has already
+    written this step's KV into the pool."""
+    return paged_attention(q, k_pool, v_pool, row_block_tables, row_lens,
+                           scale=scale, k_scale=k_scale, v_scale=v_scale)

@@ -1,0 +1,21 @@
+"""paddle_tpu_torch.serving: the continuous-batching engine on the card.
+
+The paged KV pool (kv_cache.py), the chunked-prefill scheduler
+(scheduler.py), the per-request sampling keys (sampling.py) and the
+engine's unified ragged step (engine.py), whose attention is the CUDA
+kernel of ``ops/paged_attention.py``.
+
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.serving import ServingEngine
+
+    model = LlamaForCausalLM(llama_tiny(), dtype=torch.bfloat16)
+    engine = ServingEngine(model, page_size=16, kv_dtype=torch.bfloat16)
+    rid = engine.add_request(prompt_ids, max_new_tokens=32)
+    out = engine.run()[rid].token_ids
+"""
+from .engine import ServingEngine
+from .kv_cache import PagedKVCachePool, normalize_kv_dtype, page_bytes
+from .scheduler import FCFSScheduler, Request, RequestOutput
+
+__all__ = ["ServingEngine", "PagedKVCachePool", "FCFSScheduler", "Request",
+           "RequestOutput", "page_bytes", "normalize_kv_dtype"]

@@ -1,0 +1,82 @@
+"""Where the serving step's device time goes, for Llama-0.76B on the card.
+
+    python -m paddle_tpu_torch.tools.profile_serve [--steps 8]
+
+Builds the model and engine that ``chip_smoke.py`` serves (Llama-0.76B,
+seeded random bf16 weights, bf16 pages of 16, 8 slots, token budget
+1024), fills all 8 slots with prompts of 64-1024 tokens, runs until
+every slot decodes, then times ``--steps`` decode-only steps without
+the profiler and ``--steps`` more under it. Prints, as one JSON line: the
+unprofiled step time, the device time of every kernel the profiled steps
+launched (a kernel's duration, once; not its parent operator's share),
+the idle share of the unprofiled step that leaves, and the kernels that
+took the most device time, with their launch counts and shares.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from ..models import LlamaConfig, LlamaForCausalLM
+from ..serving import ServingEngine
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=8)
+    args = ap.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=2048, num_layers=12,
+                      num_heads=16, num_key_value_heads=16,
+                      max_position_embeddings=2048)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    engine = ServingEngine(model, page_size=16, max_batch_slots=8,
+                           max_model_len=2048, token_budget=1024,
+                           kv_dtype=torch.bfloat16, device="cuda")
+    rng = np.random.default_rng(0)
+    for n in rng.integers(64, 1025, 8):
+        engine.add_request(rng.integers(0, cfg.vocab_size, int(n)),
+                           max_new_tokens=args.steps + 40)
+    while any(s is None or s.prefilling for s in engine.slots):
+        engine.step()
+    for _ in range(3):  # warm, decode-only
+        engine.step()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        engine.step()
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            engine.step()
+        torch.cuda.synchronize()
+        profiled_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted(((e.key, e.device_time_total / 1e3 / args.steps,
+                    e.count / args.steps) for e in kernels),
+                  key=lambda r: -r[1])
+    busy_ms = sum(ms for _k, ms, _c in rows)
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "decode_steps": args.steps, "batch": engine.max_batch_slots,
+        "step_ms": step_ms, "profiled_step_ms": profiled_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
+        "kernels": len(rows),
+        "launches_per_step": sum(c for _k, _ms, c in rows),
+        "top": [{"kernel": k[:90], "ms_per_step": ms, "per_step": c,
+                 "share_of_busy": ms / busy_ms}
+                for k, ms, c in rows[:12]],
+    }))
+
+
+if __name__ == "__main__":
+    main()
