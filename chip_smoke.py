@@ -8,25 +8,45 @@ Phases, in order; any failure exits non-zero before the result line:
 1. Device: the card's name and power limit (nvidia-smi); TF32 off.
 2. Build: every CUDA source under paddle_tpu_torch/csrc/, one nvcc each,
    all started together, into build/paddle_tpu_torch/.
-3. Kernels against their plain PyTorch versions on the card, at the
-   serving path's shapes (Llama-0.76B attention: 16 heads of 128, pages
-   of 16, rows up to 2048 tokens), with timings and the card's bound.
+3. Kernels against their plain PyTorch versions on the card, with
+   timings, the card's bound and, where one PyTorch call computes the
+   same function, its time:
+   a. paged attention at the serving path's shapes (Llama-0.76B
+      attention: 16 heads of 128, pages of 16, rows up to 2048 tokens);
+   b. flash attention forward (K1), dQ (K2) and dK/dV (K3) at GPT-3
+      1.3B's training shape (B 8, H 16, S 1024, D 128, causal; q/k/v
+      strided views of one QKV projection) in bf16 and f32, and at
+      Sq != Sk, S = 1000, key padding with an empty row, dropout, D 32
+      and D 64; each output held elementwise and by its norm
+      (``FLASH_TOL``), and at gpt13 bf16 the same check must reject the
+      plain versions run at a scale 1% off; SDPA's forward and backward
+      time the library.
 4. Serve: Llama-0.76B (vocab 32000, hidden 2048, 12 layers, 16 heads,
    intermediate 5632) with seeded random bf16 weights, bf16 KV pages,
    8 requests of 64-1024 prompt tokens and 64 new tokens through
    ServingEngine. The kernel launch counts are zeroed just before and
    read just after; every layer of every step must have launched the
    kernel, and the plain version never.
-5. Checks: one mixed step (3 decode rows + a 256-token chunk) run with
-   the kernel and with the plain version on the same inputs, in bf16
-   (held per layer) and in f32 (held per layer and at the logits); a
-   small f32 model served on the card and on the CPU (plain path) gives
-   the same token streams.
+5. Serve checks: one mixed step (3 decode rows + a 256-token chunk) run
+   with the kernel and with the plain version on the same inputs, in
+   bf16 (held per layer) and in f32 (held per layer and at the logits);
+   a small f32 model served on the card and on the CPU (plain path)
+   gives the same token streams.
+6. Train: GPT-3 1.3B (vocab 50304, hidden 2048, 24 layers, 16 heads)
+   through ``paddle_tpu_torch.bench`` (B 8, S 1024, O2 bf16 without
+   master weights, fused cross entropy, AdamW), 8 steps (1 + 2 warm + 5
+   timed), every loss finite. The flash counts are zeroed just before
+   and read just after: each of K1, K2 and K3 launched 24 times a step,
+   the plain versions never.
+7. Train check: a small f32 GPT (2 layers, hidden 256, 2 heads of 128,
+   S 512) takes three AdamW steps on the card (kernels) and on the CPU
+   (plain versions): the losses and the parameters agree.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -166,7 +186,7 @@ def make_case(torch, dev, *, q_lens, starts, nh, nkv, q_dtype, kv_dtype,
     return q, k, v, bt, lens, ks, vs
 
 
-def phase_kernels(torch):
+def phase_paged_kernels(torch):
     from paddle_tpu_torch.ops import paged_attention as pa
 
     dev = torch.device("cuda")
@@ -218,6 +238,240 @@ def phase_kernels(torch):
             fail(f"kernel case {name} disagrees with its plain version")
         results[name] = rec
     return results
+
+
+# ───────────────────────────── flash attention ─────────────────────────────
+
+
+def flash_pairs(torch, B, sq, sk, causal, kpad):
+    """(q, k) pairs the masks leave valid, over the batch, per head: the
+    work a flash kernel needs on these inputs."""
+    ok = torch.ones((sq, sk), dtype=torch.bool, device="cuda")
+    if causal:
+        ok = ok.tril(sk - sq)
+    if kpad is None:
+        return B * int(ok.sum())
+    return int((ok[None] & (kpad[:, None, :] > 0.5)).sum())
+
+
+def flash_bounds(torch, q, k, causal, kpad):
+    """Least time of K1, K2 and K3 on these inputs: the larger of (bytes
+    each must move / memory rate) and (its flops / the peak rate of its
+    type). Bytes: each input read once, each output written once (K1: q,
+    k, v, kpad in; O, LSE out. K2: q, k, v, dO, LSE, Delta, kpad in; dQ
+    out. K3: the same in; dK, dV out). Flops per valid (q, k) pair and
+    head: K1 4 D (q.k and p.v), K2 6 D (q.k, dO.v, dS.k), K3 8 D (q.k,
+    dO.v, p^T.dO, dS^T.q)."""
+    B, sq, H, D = q.shape
+    sk = k.shape[1]
+    e = q.element_size()
+    qb, kb = B * sq * H * D * e, B * sk * H * D * e
+    rows = 4 * B * H * sq
+    kp = 4 * B * sk if kpad is not None else 0
+    pairs = H * flash_pairs(torch, B, sq, sk, causal, kpad)
+    kind = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    out = {}
+    for name, nbytes, flops in (
+            ("flash_fwd", 2 * qb + 2 * kb + kp + rows, 4 * D * pairs),
+            ("flash_dq", 3 * qb + 2 * kb + kp + 2 * rows, 6 * D * pairs),
+            ("flash_dkv", 2 * qb + 4 * kb + kp + 2 * rows, 8 * D * pairs)):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_OPS[kind]
+        out[name] = (1e3 * max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def flash_case(torch, gen, B, sq, sk, H, D, dtype, kpad_rows=False):
+    """q as a strided [B, Sq, H, D] view of a [B, Sq, 3, H, D] QKV
+    tensor (GPT's layout), k and v the same at Sk, dO contiguous."""
+    dev = "cuda"
+    qkv = torch.randn((B, sq, 3, H, D), generator=gen, device=dev).to(dtype)
+    kvx = torch.randn((B, sk, 3, H, D), generator=gen, device=dev).to(dtype)
+    q, k, v = qkv[:, :, 0], kvx[:, :, 1], kvx[:, :, 2]
+    do = torch.randn((B, sq, H, D), generator=gen, device=dev).to(dtype)
+    kpad = None
+    if kpad_rows:
+        kpad = torch.ones((B, sk), device=dev)
+        kpad[0, sk // 2:] = 0.0
+        kpad[-1] = 0.0  # the last batch row keeps no key
+    return q, k, v, do, kpad
+
+
+# (atol, rtol, norm-relative) of the flash checks. bf16: the kernels and
+# the plain versions round p and dS to bf16 at the same points, so an
+# element may land at most a bf16 ulp (2^-8..2^-7 of its size) apart;
+# rtol 2^-6 allows two, atol 2e-3 the elements near zero, and the whole
+# tensor's error must stay within 5e-3 of its norm.
+FLASH_TOL = {"f32": (5e-5, 5e-5, 1e-5), "bf16": (2e-3, 2.0 ** -6, 5e-3)}
+
+
+def held(torch, got, want, tol):
+    """``(ok, max abs err, norm-relative err)`` of ``got`` against
+    ``want``: every element within ``atol + rtol |want|`` and
+    ``||got - want|| / ||want||`` within ``rel``."""
+    atol, rtol, rel = tol
+    want = want.float()
+    err = (got.float() - want).abs()
+    rel_err = float(torch.linalg.vector_norm(err)
+                    / torch.linalg.vector_norm(want).clamp_min(1e-30))
+    ok = bool((err <= atol + rtol * want.abs()).all()) and rel_err <= rel
+    return ok, float(err.max()), rel_err
+
+
+def flash_plain(fa, q, k, v, do, causal, scale, drop, seed, kpad):
+    """The plain versions' O, LSE, dQ, dK, dV on these inputs, the
+    backward from their own forward's LSE and Delta."""
+    pargs = (causal, scale, drop, seed, kpad)
+    o, lse = fa.ref_flash_fwd(q, k, v, *pargs)
+    delta = fa.flash_delta(o, do)
+    bargs = (q, k, v, do, lse, delta) + pargs
+    return (o, lse, fa.ref_flash_dq(*bargs), *fa.ref_flash_dkv(*bargs))
+
+
+def flash_controls(torch, fa, got, q, k, v, do, kw, tol):
+    """The bf16 check's reach, on gpt13's kernel outputs ``got`` (O, LSE,
+    dQ, dK, dV): against the plain versions with the scale 1% off (what a
+    kernel with a wrong constant would give), which the check must
+    reject, and against the plain versions on f32 copies of the inputs
+    (p, dS and the outputs unrounded), which it reports."""
+    scale = kw["scale"]
+    drop, seed, kpad = (kw["dropout_p"], kw["dropout_seed"],
+                        kw["key_padding_mask"])
+    f32 = [t.float() for t in (q, k, v, do)]
+    out = {}
+    for label, want in (
+            ("scale_1pct_off", flash_plain(fa, q, k, v, do, kw["causal"],
+                                           scale * 1.01, drop, seed, kpad)),
+            ("f32_p", flash_plain(fa, *f32, kw["causal"], scale, drop, seed,
+                                  kpad))):
+        res = {n: held(torch, g, w, tol) for n, g, w in
+               zip(("o", "lse", "dq", "dk", "dv"), got, want)}
+        out[label] = res
+        log(f"  control {label}: " + ", ".join(
+            f"{n} {'passes' if ok else 'rejected'} (max {m:.2e}, rel "
+            f"{r:.2e})" for n, (ok, m, r) in res.items()))
+    if all(ok for ok, _m, _r in out["scale_1pct_off"].values()):
+        fail("flash check: a 1% scale error passes the bf16 tolerance")
+    return out
+
+
+def phase_flash_kernels(torch):
+    """K1, K2 and K3 against their plain versions on the same inputs,
+    per case: O, LSE, dQ, dK, dV, each held elementwise and by its norm at
+    ``FLASH_TOL``. The gpt13 cases are timed; the bf16 one also reads the
+    check's reach (``flash_controls``)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = [
+        # name, B, Sq, Sk, H, D, dtype, causal, kpad, dropout, timed
+        ("gpt13_bf16", 8, 1024, 1024, 16, 128, bf16, True, False, 0.0, True),
+        ("gpt13_f32", 8, 1024, 1024, 16, 128, f32, True, False, 0.0, True),
+        ("sq256_sk1024_bf16", 2, 256, 1024, 16, 128, bf16, True, False, 0.0,
+         False),
+        ("s1000_bf16", 2, 1000, 1000, 16, 128, bf16, True, False, 0.0, False),
+        ("kpad_f32", 3, 512, 512, 4, 128, f32, False, True, 0.0, False),
+        ("dropout_bf16", 2, 1024, 1024, 4, 128, bf16, True, False, 0.1,
+         False),
+        ("d32_f32", 2, 300, 300, 8, 32, f32, True, False, 0.0, False),
+        ("d64_bf16", 2, 512, 512, 8, 64, bf16, True, False, 0.0, False),
+    ]
+    results = {}
+    for (name, B, sq, sk, H, D, dt, causal, kp, drop, timed) in cases:
+        q, k, v, do, kpad = flash_case(torch, gen, B, sq, sk, H, D, dt, kp)
+        kw = dict(causal=causal, scale=D ** -0.5, dropout_p=drop,
+                  dropout_seed=4321 if drop else 0, key_padding_mask=kpad)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        delta = fa.flash_delta(o, do)
+        dq = fa.flash_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        pargs = (causal, D ** -0.5, drop, kw["dropout_seed"], kpad)
+        o_r, lse_r = fa.ref_flash_fwd(q, k, v, *pargs)
+        bargs = (q, k, v, do, lse, delta) + pargs
+        dq_r = fa.ref_flash_dq(*bargs)
+        dk_r, dv_r = fa.ref_flash_dkv(*bargs)
+        tol = FLASH_TOL["f32" if dt == f32 else "bf16"]
+        errs, rels, ok = {}, {}, True
+        for label, got, want in (("o", o, o_r), ("lse", lse, lse_r),
+                                 ("dq", dq, dq_r), ("dk", dk, dk_r),
+                                 ("dv", dv, dv_r)):
+            good, errs[label], rels[label] = held(torch, got, want, tol)
+            ok &= good
+        rec = {"max_abs_err": {"flash_fwd": max(errs["o"], errs["lse"]),
+                               "flash_dq": errs["dq"],
+                               "flash_dkv": max(errs["dk"], errs["dv"])},
+               "rel_err": rels}
+        line = (f"flash {name}: B={B} Sq={sq} Sk={sk} H={H} D={D} "
+                f"causal={causal} kpad={kp} dropout={drop} max_abs_err "
+                + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+                + " rel " + " ".join(f"{n}={e:.2e}" for n, e in rels.items())
+                + f" (atol {tol[0]:g}, rtol {tol[1]:g}, rel {tol[2]:g}) "
+                + ("ok" if ok else "MISMATCH"))
+        log(line)
+        if not ok:
+            fail(f"flash case {name}: a kernel disagrees with its plain "
+                 "version")
+        if name == "gpt13_bf16":
+            rec["controls"] = flash_controls(
+                torch, fa, (o, lse, dq, dk, dv), q, k, v, do, kw, tol)
+        if timed:
+            rec.update(time_flash(torch, fa, q, k, v, do, o, lse, delta, kw,
+                                  pargs))
+            bounds = flash_bounds(torch, q, k, causal, kpad)
+            for kname in fa.KERNELS:
+                r = rec[kname]
+                r["bound_ms"], r["bound_by"] = bounds[kname]
+                log(f"  {kname}: kernel {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of "
+                    f"bound; SDPA {r['library_ms']:.4f} ms "
+                    f"({r['library_of']})")
+        results[name] = rec
+        del q, k, v, do, o, lse, delta, dq, dk, dv, o_r, lse_r, dq_r, dk_r
+        del dv_r
+        torch.cuda.empty_cache()
+    return results
+
+
+def time_flash(torch, fa, q, k, v, do, o, lse, delta, kw, pargs):
+    """Device ms of each kernel, its plain version, and SDPA's forward
+    and backward (one call each: the library's flash attention on the
+    same q, k, v, dO; its backward computes dQ, dK and dV together)."""
+    F = torch.nn.functional
+    bargs = (q, k, v, do, lse, delta) + pargs
+    out = {
+        "flash_fwd": dict(
+            ms=cuda_ms(torch, lambda: fa.flash_fwd(q, k, v, **kw)),
+            plain_ms=cuda_ms(torch, lambda: fa.ref_flash_fwd(q, k, v, *pargs),
+                             launches=2, rounds=3)),
+        "flash_dq": dict(
+            ms=cuda_ms(torch, lambda: fa.flash_dq(q, k, v, do, lse, delta,
+                                                  **kw)),
+            plain_ms=cuda_ms(torch, lambda: fa.ref_flash_dq(*bargs),
+                             launches=2, rounds=3)),
+        "flash_dkv": dict(
+            ms=cuda_ms(torch, lambda: fa.flash_dkv(q, k, v, do, lse, delta,
+                                                   **kw)),
+            plain_ms=cuda_ms(torch, lambda: fa.ref_flash_dkv(*bargs),
+                             launches=2, rounds=3)),
+    }
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    doh = do.transpose(1, 2)
+    causal = kw["causal"]
+    fwd_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=causal))
+    oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+    bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        oh, (qh, kh, vh), doh, retain_graph=True))
+    out["flash_fwd"].update(library_ms=fwd_ms, library_of="forward")
+    for kname in ("flash_dq", "flash_dkv"):
+        out[kname].update(library_ms=bwd_ms,
+                          library_of="backward, dQ+dK+dV in one call")
+    return out
 
 
 def llama_076b():
@@ -417,6 +671,92 @@ def phase_reference(torch):
         fail(f"streams differ: {streams}")
 
 
+# ───────────────────────────── training ─────────────────────────────
+
+
+def phase_train(torch, card):
+    """GPT-3 1.3B through the bench's entry point, full width and depth.
+    The flash counts are zeroed just before and read just after."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    layers = bench.gpt13_setup(False)[0].num_layers
+    fa.reset_counters()
+    t0 = time.perf_counter()
+    rec = bench.bench_gpt13(small=False, device="cuda", steps=5, reps=1)
+    wall = time.perf_counter() - t0
+    launches, plain = dict(fa.kernel_launches), dict(fa.plain_calls)
+    losses = rec.pop("losses")
+    steps = rec.pop("steps_run")
+    summary = dict(rec, steps_run=steps, wall_s=wall, losses=losses,
+                   kernel_launches=launches, plain_calls=plain, card=card)
+    log("train: " + json.dumps(summary))
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: a loss is not finite: {losses}")
+    want = layers * steps
+    if any(launches[n] != want for n in fa.KERNELS) or any(plain.values()):
+        fail(f"train: flash launches {launches} != {layers} layers x "
+             f"{steps} steps each, or plain calls {plain} != 0")
+    return launches
+
+
+def phase_train_reference(torch):
+    """A small f32 GPT takes three AdamW steps on the card (the flash
+    kernels) and on the CPU (their plain versions) from the same weights
+    and tokens. Tolerance atol = rtol = 1e-4 on the losses and on every
+    parameter: both run the same f32 math with summation orders of their
+    own (TF32 is off), and ``epsilon=1e-6`` keeps Adam from turning the
+    sign of a near-zero grad into a full step."""
+    import copy
+
+    import numpy as np
+
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = gpt_tiny(vocab_size=2048, hidden_size=256, num_layers=2,
+                   num_heads=2, max_position_embeddings=512, fused_loss=True)
+    base = GPTForCausalLM(cfg, device="cpu", seed=11)
+    ids_np = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 512))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(base).to(dev)
+        opt = AdamW(learning_rate=1e-3, epsilon=1e-6,
+                    parameters=model.named_parameters())
+        ids = torch.from_numpy(ids_np).to(dev)
+        labels = torch.from_numpy(np.roll(ids_np, -1, axis=1)).to(dev)
+        fa.reset_counters()
+        losses = []
+        for _ in range(3):
+            _, loss = model(ids, labels=labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.item())
+        used = dict(fa.kernel_launches if dev == "cuda" else fa.plain_calls)
+        runs[dev] = (losses, {n: p.detach().cpu() for n, p in
+                              model.named_parameters()}, used)
+    (l_gpu, p_gpu, used_gpu), (l_cpu, p_cpu, used_cpu) = (runs["cuda"],
+                                                          runs["cpu"])
+    tol = 1e-4
+    loss_err = max(abs(a - b) for a, b in zip(l_gpu, l_cpu))
+    ok = all(abs(a - b) <= tol + tol * abs(b) for a, b in zip(l_gpu, l_cpu))
+    param_err = 0.0
+    for n, want in p_cpu.items():
+        err = (p_gpu[n] - want).abs()
+        param_err = max(param_err, float(err.max()))
+        ok &= bool((err <= tol + tol * want.abs()).all())
+    log(f"train reference: small f32 GPT, 3 AdamW steps, card (kernels "
+        f"{used_gpu}) vs CPU (plain {used_cpu}): losses {l_gpu} vs {l_cpu}, "
+        f"max loss err {loss_err:.2e}, max param err {param_err:.2e} "
+        f"(atol=rtol={tol:g}) {'ok' if ok else 'MISMATCH'}")
+    if not ok or any(used_gpu[n] != 6 for n in fa.KERNELS) \
+            or any(used_cpu[n] != 6 for n in fa.KERNELS):
+        fail("train reference: card and CPU runs disagree, or a run did "
+             "not take its path")
+
+
 def main():
     try:
         import torch
@@ -428,22 +768,41 @@ def main():
     sys.path.insert(0, HERE)
     name, card = phase_device(torch)
     phase_build()
-    kernels = phase_kernels(torch)
-    engine, launches = phase_serve(torch, card)
+    paged = phase_paged_kernels(torch)
+    flash = phase_flash_kernels(torch)
+    engine, paged_launches = phase_serve(torch, card)
     phase_mixed_steps(torch, engine)
     phase_reference(torch)
-    head = kernels["a_decode_bf16"]
-    record = {"kernels": [{
+    del engine
+    torch.cuda.empty_cache()
+    flash_launches = phase_train(torch, card)
+    phase_train_reference(torch)
+    head = paged["a_decode_bf16"]
+    kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/paged_attention.py:124",
-        "launches": launches,
+        "launches": paged_launches,
         "max_abs_err": head["max_abs_err"],
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
-    }]}
-    print(json.dumps(record), flush=True)
+    }]
+    gpt13 = flash["gpt13_bf16"]
+    for kname, line in (("flash_fwd", 128), ("flash_dq", 290),
+                        ("flash_dkv", 351)):
+        r = gpt13[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            "launches": flash_launches[kname],
+            "max_abs_err": gpt13["max_abs_err"][kname],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

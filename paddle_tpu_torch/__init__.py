@@ -10,6 +10,14 @@ Slice 1 is the serving data plane: ``serving.ServingEngine`` serves
 scheduler and one ragged step per engine iteration, whose attention is
 the hand-written CUDA kernel ``csrc/paged_attention.cu``.
 
+Slice 2 is the GPT training step of the root ``bench.py``'s
+``bench_gpt13``: ``models.GPTForCausalLM`` under ``amp`` O2 bf16 (the
+JAX package's per-op cast rule), the fused chunked cross entropy and
+``optimizer.AdamW``, run by ``python -m paddle_tpu_torch.bench``, whose
+attention is the hand-written CUDA flash kernels of
+``csrc/flash_attention.cu`` (forward, dQ, dK/dV) behind one
+``torch.autograd.Function``.
+
 Every entry point runs on ``cuda`` unless given ``device="cpu"``
 (:mod:`.device`); kernels are built from ``csrc/`` with ``nvcc`` at first
 use (:mod:`.ops._build`).

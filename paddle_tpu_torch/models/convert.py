@@ -1,11 +1,17 @@
 """Carry weights across from the JAX package's ``state_dict``.
 
 The JAX package and the port name every parameter alike
-(``llama.layers.0.self_attn.q_proj.weight``, ...). Its ``Linear`` stores
+(``llama.layers.0.self_attn.q_proj.weight``,
+``gpt.layers.0.attn.qkv_proj.weight``, ...). Its ``Linear`` stores
 ``[in, out]`` and ``torch.nn.Linear`` ``[out, in]``, so every Linear
-weight is transposed on the way in; embeddings and norms copy as they
-are. Loading is strict: every key on both sides is used and every shape
-must match.
+weight is transposed on the way in; embeddings, biases and norms copy as
+they are. Loading is strict: every key on both sides is used and every
+shape must match.
+
+bf16 arrays (``ml_dtypes.bfloat16``, what the JAX package's ``state_dict``
+holds after ``amp.decorate(level="O2")``) cross as their 16-bit patterns:
+numpy ``uint16`` -> ``torch.int16`` -> ``.view(torch.bfloat16)``, so the
+values arrive bit for bit and never pass through f32.
 """
 from __future__ import annotations
 
@@ -42,4 +48,13 @@ def load_reference_state_dict(model: nn.Module,
                 f"{key}: reference shape {tuple(np.asarray(ref[key]).shape)}"
                 f" does not fit {tuple(p.shape)}"
                 f"{' (transposed Linear)' if key in linear else ''}")
-        p.copy_(torch.from_numpy(np.array(src, copy=True)).to(p.dtype))
+        p.copy_(_to_torch(src).to(p.dtype))
+
+
+def _to_torch(a: np.ndarray) -> torch.Tensor:
+    """``a`` as a CPU tensor of its own dtype; bf16 by bit pattern."""
+    if a.dtype.name == "bfloat16":  # ml_dtypes.bfloat16: torch refuses it
+        bits = np.ascontiguousarray(a).view(np.uint16)
+        return torch.from_numpy(bits.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))

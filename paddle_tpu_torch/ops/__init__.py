@@ -1,5 +1,7 @@
-"""Kernels of the port (``csrc/``) with their wrappers and plain versions.
+"""Kernels of the port (``csrc/``) with their wrappers and plain versions,
+and the fused linear-cross-entropy.
 
-``ops.paged_attention`` is the module (its launch counters live there);
-import the functions from it.
+``ops.paged_attention`` (K4) and ``ops.flash_attention`` (K1-K3) are the
+modules (their launch counters live there); import the functions from
+them.
 """

@@ -29,6 +29,8 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 __all__ = ["PagedKVCachePool", "page_bytes", "normalize_kv_dtype"]
 
 _KV_DTYPE_ALIASES = {
@@ -62,14 +64,16 @@ class PagedKVCachePool:
     """Fixed K/V page pool per layer + block-table allocator.
 
     Device state: ``k_pools``/``v_pools``, one tensor per layer of shape
-    ``[num_pages, page_size, n_kv_heads, head_dim]`` on ``device``.
+    ``[num_pages, page_size, n_kv_heads, head_dim]`` on ``device``
+    (default ``cuda``; ``RuntimeError`` without a card unless
+    ``device="cpu"``, as every entry point of the port).
     Host state: free list, per-sequence block tables, worst-case
     reservations, and the high-water mark ``peak_used``.
     """
 
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
                  n_kv_heads: int, head_dim: int, dtype=torch.float32,
-                 device="cpu"):
+                 device=None):
         if num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
         self.num_layers = int(num_layers)
@@ -78,7 +82,7 @@ class PagedKVCachePool:
         self.n_kv_heads = int(n_kv_heads)
         self.head_dim = int(head_dim)
         self.dtype = normalize_kv_dtype(dtype)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         shape = (self.num_pages, self.page_size, self.n_kv_heads,
                  self.head_dim)
         self.k_pools: List[torch.Tensor] = [

@@ -7,10 +7,12 @@ seeded random bf16 weights, bf16 pages of 16, 8 slots, token budget
 1024), fills all 8 slots with prompts of 64-1024 tokens, runs until
 every slot decodes, then times ``--steps`` decode-only steps without
 the profiler and ``--steps`` more under it. Prints, as one JSON line: the
-unprofiled step time, the device time of every kernel the profiled steps
-launched (a kernel's duration, once; not its parent operator's share),
-the idle share of the unprofiled step that leaves, and the kernels that
-took the most device time, with their launch counts and shares.
+unprofiled step time; over the profiled steps, their wall time, the
+device's busy time (the union of its kernels' intervals) and idle share
+within that same window, and the summed duration of every kernel they
+launched (a kernel's duration, once; not its parent operator's share);
+and the kernels that took the most device time, with their launch
+counts and shares.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 
 from ..models import LlamaConfig, LlamaForCausalLM
 from ..serving import ServingEngine
+from . import device_busy
 
 
 def main(argv=None):
@@ -57,23 +60,25 @@ def main(argv=None):
         for _ in range(args.steps):
             engine.step()
         torch.cuda.synchronize()
-        profiled_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+        profiled_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     rows = sorted(((e.key, e.device_time_total / 1e3 / args.steps,
                     e.count / args.steps) for e in kernels),
                   key=lambda r: -r[1])
-    busy_ms = sum(ms for _k, ms, _c in rows)
+    kernel_ms = sum(ms for _k, ms, _c in rows)
+    busy_ms, idle = device_busy(prof.events(), profiled_ms)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "decode_steps": args.steps, "batch": engine.max_batch_slots,
-        "step_ms": step_ms, "profiled_step_ms": profiled_ms,
-        "device_busy_ms_per_step": busy_ms,
-        "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
+        "step_ms": step_ms, "profiled_step_ms": profiled_ms / args.steps,
+        "device_busy_ms_per_step": busy_ms / args.steps,
+        "device_idle_share": idle,
+        "kernel_ms_per_step": kernel_ms,
         "kernels": len(rows),
         "launches_per_step": sum(c for _k, _ms, c in rows),
         "top": [{"kernel": k[:90], "ms_per_step": ms, "per_step": c,
-                 "share_of_busy": ms / busy_ms}
+                 "share_of_kernel_ms": ms / kernel_ms}
                 for k, ms, c in rows[:12]],
     }))
 

@@ -37,14 +37,19 @@ def test_importing_every_module_loads_no_jax():
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "
         "'paddle_tpu')]\n"
         "assert not bad, bad\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(
             os.pathsep) if p]))
     r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
                        text=True, cwd=str(REPO), env=env, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 10  # the walk saw the package
+    walked = set(r.stdout.split())
+    # the walk saw the package, the training slice's modules included
+    assert {f"paddle_tpu_torch.{m}" for m in (
+        "amp", "bench", "generator", "models.gpt", "ops.flash_attention",
+        "ops.fused_loss", "nn.functional.attention", "nn.layer.norm",
+        "optimizer.optimizers", "tools.profile_train")} <= walked
 
 
 def _imports(path: Path):
@@ -91,6 +96,27 @@ def test_entry_points_need_a_card_unless_told_cpu(no_cuda):
     assert engine.pool.k_pools[0].device.type == "cpu"
 
 
+def test_pool_and_training_entry_points_need_a_card(no_cuda):
+    """``PagedKVCachePool`` without a device resolves to the card, as
+    every entry point does; so do the GPT model and the bench."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
+    from paddle_tpu_torch.serving import PagedKVCachePool
+
+    with pytest.raises(RuntimeError):
+        PagedKVCachePool(num_layers=1, num_pages=4, page_size=4,
+                         n_kv_heads=1, head_dim=8)
+    pool = PagedKVCachePool(num_layers=1, num_pages=4, page_size=4,
+                            n_kv_heads=1, head_dim=8, device="cpu")
+    assert pool.k_pools[0].device.type == "cpu"
+    with pytest.raises(RuntimeError):
+        GPTForCausalLM(gpt_tiny(num_layers=1))
+    with pytest.raises(RuntimeError):
+        bench.bench_gpt13(small=True)
+    assert GPTForCausalLM(gpt_tiny(num_layers=1), device="cpu").device.type \
+        == "cpu"
+
+
 def test_engine_refuses_a_model_on_another_device():
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
     from paddle_tpu_torch.serving import ServingEngine
@@ -115,4 +141,6 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.build(["paged_attention"])
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load("paged_attention")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build(["flash_attention"])
     assert not (tmp_path / "build").exists()

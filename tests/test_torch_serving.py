@@ -202,7 +202,7 @@ def test_pool_allocator_matches_reference():
     jax_pool = JaxPool(num_layers=1, num_pages=7, page_size=4, n_kv_heads=2,
                        head_dim=8)
     pool = PagedKVCachePool(num_layers=1, num_pages=7, page_size=4,
-                            n_kv_heads=2, head_dim=8)
+                            n_kv_heads=2, head_dim=8, device="cpu")
     got = _pool_ops(pool)
     assert got == _pool_ops(jax_pool)
     assert "exhausted" in got and 0 not in got[0]
@@ -231,7 +231,7 @@ def _sched_ops(sched, pool, req_cls):
 
 def test_scheduler_matches_reference():
     got = _sched_ops(FCFSScheduler(max_batch_slots=4, token_budget=16),
-                     PagedKVCachePool(1, 12, 4, 2, 8), Request)
+                     PagedKVCachePool(1, 12, 4, 2, 8, device="cpu"), Request)
     want = _sched_ops(JaxScheduler(max_batch_slots=4, token_budget=16),
                       JaxPool(1, 12, 4, 2, 8), JaxRequest)
     assert got == want
