@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero before the result line:
    timings, the card's bound and, where one PyTorch call computes the
    same function, its time:
    a. paged attention at the serving path's shapes (Llama-0.76B
-      attention: 16 heads of 128, pages of 16, rows up to 2048 tokens);
+      attention: 16 heads of 128, pages of 16, rows up to 2048 tokens),
+      the serving path's f32 q over bf16 pages first;
    b. flash attention forward (K1), dQ (K2) and dK/dV (K3) at GPT-3
       1.3B's training shape (B 8, H 16, S 1024, D 128, causal; q/k/v
       strided views of one QKV projection) in bf16 and f32, and at
@@ -20,18 +21,26 @@ Phases, in order; any failure exits non-zero before the result line:
       and D 64; each output held elementwise and by its norm
       (``FLASH_TOL``), and at gpt13 bf16 the same check must reject the
       plain versions run at a scale 1% off; SDPA's forward and backward
-      time the library.
+      time the library;
+   c. fused AdamW (K5) at N = 10,000 (step 5), 2,000,000 (step 10), an
+      odd N off 16-byte alignment (step 1, zero moments) and 354,942,976
+      (step 10, timed): w', m', v' held elementwise (``ADAMW_TOL``) and
+      the update w - w' at rtol 1e-5; the same check must reject the
+      plain version run with Paddle AdamW's epsilon (eps / sqrt(bc2));
+      PyTorch's fused AdamW times the library.
 4. Serve: Llama-0.76B (vocab 32000, hidden 2048, 12 layers, 16 heads,
-   intermediate 5632) with seeded random bf16 weights, bf16 KV pages,
-   8 requests of 64-1024 prompt tokens and 64 new tokens through
-   ServingEngine. The kernel launch counts are zeroed just before and
-   read just after; every layer of every step must have launched the
-   kernel, and the plain version never.
+   intermediate 5632) with seeded random weights cast by
+   ``amp.decorate(level="O2")``'s rule (bf16, the norms f32, so the
+   activations f32 from the first layer on, as the JAX package serves
+   it), bf16 KV pages, 8 requests of 64-1024 prompt tokens and 64 new
+   tokens through ServingEngine. The kernel launch counts are zeroed
+   just before and read just after; every layer of every step must have
+   launched the kernel, and the plain version never.
 5. Serve checks: one mixed step (3 decode rows + a 256-token chunk) run
-   with the kernel and with the plain version on the same inputs, in
-   bf16 (held per layer) and in f32 (held per layer and at the logits);
-   a small f32 model served on the card and on the CPU (plain path)
-   gives the same token streams.
+   with the kernel and with the plain version on the same inputs, on the
+   served model (held per layer) and on the same model in f32 (held per
+   layer and at the logits); a small f32 model served on the card and on
+   the CPU (plain path) gives the same token streams.
 6. Train: GPT-3 1.3B (vocab 50304, hidden 2048, 24 layers, 16 heads)
    through ``paddle_tpu_torch.bench`` (B 8, S 1024, O2 bf16 without
    master weights, fused cross entropy, AdamW), 8 steps (1 + 2 warm + 5
@@ -41,6 +50,18 @@ Phases, in order; any failure exits non-zero before the result line:
 7. Train check: a small f32 GPT (2 layers, hidden 256, 2 heads of 128,
    S 512) takes three AdamW steps on the card (kernels) and on the CPU
    (plain versions): the losses and the parameters agree.
+8. K5's path: ``paddle_tpu_torch.tools.bench_adamw`` (K5 against
+   PyTorch's fused AdamW at 2,000,000 elements, then both timed at
+   354,942,976). K5's counts are zeroed just before and read just after:
+   it launched, its plain version never.
+9. Train Llama-0.76B (vocab 32000, hidden 2048, 12 layers, 16 heads)
+   through ``paddle_tpu_torch.bench --model llama`` (B 8, S 1024, full
+   recompute, O2 bf16 with master weights, fused cross entropy, AdamW), 8
+   steps, every loss finite. K1 launched 24 times a step (forward and
+   recomputation), K2 and K3 12 times each, the plain versions never.
+10. Train check: a small f32 Llama with GQA (2 layers, hidden 256, 4
+   heads of 64 over 2 KV heads, S 512, recompute on) takes three AdamW
+   steps on the card and on the CPU: the losses and parameters agree.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
@@ -195,6 +216,10 @@ def phase_paged_kernels(torch):
     decode = dict(q_lens=[1] * 8, starts=[n - 1 for n in decode_lens])
     chunk = dict(q_lens=[1, 1, 1, 256], starts=[900, 2047, 33, 1500])
     cases = [
+        # the serving path's pairing: f32 q (rope'd by f32 tables) over
+        # bf16 pages; both versions widen the pages and compute in f32
+        ("a_decode_f32q_bf16kv", dict(decode, nh=16, nkv=16, q_dtype=f32,
+                                      kv_dtype=bf16), 5e-5, True),
         ("a_decode_f32", dict(decode, nh=16, nkv=16, q_dtype=f32,
                               kv_dtype=f32), 5e-5, True),
         ("a_decode_bf16", dict(decode, nh=16, nkv=16, q_dtype=bf16,
@@ -474,6 +499,103 @@ def time_flash(torch, fa, q, k, v, do, o, lse, delta, kw, pargs):
     return out
 
 
+# ───────────────────────────── fused AdamW ─────────────────────────────
+
+# (atol, rtol) on w', m', v' (the JAX package's tolerance between its
+# kernel and its XLA form) and rtol on the update w - w': the kernel runs
+# the plain version's f32 operations in its order, each rounded once, so
+# the two agree to the bit; a wrong constant or formula moves the update
+# of every element with a small v by far more than 1e-5 of itself.
+ADAMW_TOL = (1e-7, 1e-6)
+ADAMW_UPDATE_RTOL = 1e-5
+ADAMW_FLOPS = 16  # per element: m' 3, v' 4, the Adam term 5, w' 4
+
+
+def adamw_held(torch, w, got, want):
+    """``(ok, max abs err over w', m', v', max relative err of the
+    update)`` of ``got`` against ``want`` on inputs with weights ``w``."""
+    atol, rtol = ADAMW_TOL
+    ok, max_err = True, 0.0
+    for a, b in zip(got, want):
+        err = (a - b).abs()
+        max_err = max(max_err, float(err.max()))
+        ok &= bool((err <= atol + rtol * b.abs()).all())
+    du_got, du_want = w - got[0], w - want[0]
+    du_err = (du_got - du_want).abs()
+    ok &= bool((du_err <= ADAMW_UPDATE_RTOL * du_want.abs()).all())
+    rel = float((du_err / du_want.abs().clamp_min(1e-30)).max())
+    return ok, max_err, rel
+
+
+def phase_adamw_kernels(torch):
+    """K5 against its plain version on the same inputs (w normal, g 1e-3
+    x normal, moments zero or warm), a control that must be rejected, and
+    at the bench's size the kernel, plain and library times."""
+    from paddle_tpu_torch.ops import fused_adamw as k5
+    from paddle_tpu_torch.tools.bench_adamw import N_TIMED, library_adamw
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [
+        # name, N, step, lr, warm moments, offset (1: not 16-byte aligned)
+        ("n10000_step5", 10_000, 5, 1e-3, False, 0),
+        ("n2m_step10", 2_000_000, 10, 1e-4, True, 0),
+        ("odd_unaligned_step1", 1_000_003, 1, 1e-3, False, 1),
+        ("n355m_step10", N_TIMED, 10, 1e-4, True, 0),
+    ]
+    results = {}
+    for name, n, step, lr, warm, off in cases:
+        def vec(scale):
+            return (torch.randn(n + off, generator=gen, device="cuda")
+                    * scale)[off:]
+        w, g = vec(1.0), vec(1e-3)
+        m, v = ((vec(1e-4), vec(1e-3).square()) if warm
+                else (torch.zeros_like(w), torch.zeros_like(w)))
+        got = k5.fused_adamw_flat(w, m, v, g, lr, step)
+        torch.cuda.synchronize()
+        want = k5.ref_adamw_flat(w, m, v, g, lr, step)
+        ok, max_err, du_rel = adamw_held(torch, w, got, want)
+        bc2 = 1.0 - 0.999 ** step
+        paddle_eps = k5.ref_adamw_flat(w, m, v, g, lr, step,
+                                       eps=1e-8 / math.sqrt(bc2))
+        c_ok, _c_err, c_rel = adamw_held(torch, w, got, paddle_eps)
+        line = (f"adamw {name}: N={n} step={step} lr={lr:g} max_abs_err "
+                f"{max_err:.2e}, update max rel err {du_rel:.2e} (atol "
+                f"{ADAMW_TOL[0]:g}, rtol {ADAMW_TOL[1]:g}; update rtol "
+                f"{ADAMW_UPDATE_RTOL:g}) {'ok' if ok else 'MISMATCH'}; "
+                f"control paddle_eps {'passes' if c_ok else 'rejected'} "
+                f"(update rel {c_rel:.2e})")
+        log(line)
+        if not ok:
+            fail(f"adamw case {name}: the kernel disagrees with its plain "
+                 "version")
+        if c_ok:
+            fail(f"adamw case {name}: Paddle's epsilon passes the check")
+        rec = {"max_abs_err": max_err, "update_rel_err": du_rel,
+               "control_update_rel_err": c_rel}
+        del got, want, paddle_eps
+        if name == "n355m_step10":
+            rec["ms"] = cuda_ms(torch, lambda: k5.fused_adamw_flat(
+                w, m, v, g, lr, step))
+            rec["plain_ms"] = cuda_ms(torch, lambda: k5.ref_adamw_flat(
+                w, m, v, g, lr, step), launches=2, rounds=3)
+            opt, _p = library_adamw(w.clone(), m.clone(), v.clone(), g, lr,
+                                    step)
+            rec["library_ms"] = cuda_ms(torch, opt.step)
+            del opt, _p
+            t_bytes = 28 * n / HBM_BYTES_PER_S
+            t_ops = ADAMW_FLOPS * n / PEAK_OPS["f32"]
+            rec["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+            rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            log(f"  fused_adamw: kernel {rec['ms']:.4f} ms, plain "
+                f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']}), {rec['bound_ms'] / rec['ms']:.1%} of "
+                f"bound; torch fused AdamW {rec['library_ms']:.4f} ms")
+        results[name] = rec
+        del w, m, v, g
+        torch.cuda.empty_cache()
+    return results
+
+
 def llama_076b():
     from paddle_tpu_torch.models import LlamaConfig
 
@@ -497,9 +619,11 @@ def phase_serve(torch, card):
                            max_model_len=2048, token_budget=1024,
                            kv_dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
-    log(f"serve: Llama-0.76B {n_params / 1e9:.3f} B params bf16, intermediate "
-        f"{cfg.intermediate_size}, pool {engine.pool.num_pages} pages, "
-        f"set up in {time.perf_counter() - t0:.1f} s")
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    log(f"serve: Llama-0.76B {n_params / 1e9:.3f} B params ({', '.join(dtypes)}"
+        f": O2's rule, norms f32), intermediate {cfg.intermediate_size}, "
+        f"pool {engine.pool.num_pages} pages, set up in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(0)
     lengths = rng.integers(64, 1025, 8)
@@ -610,19 +734,21 @@ def mixed_step(torch, engine, layer_tol):
 
 
 def phase_mixed_steps(torch, engine):
-    """The mixed step on the served bf16 model, then on the same model in
-    f32 (weights and pages). In bf16 the two runs' logits differ by bf16
-    rounding that 12 layers amplify (the runs part ways at the first
-    attention output that rounds differently), so the bf16 run is held
-    per layer on identical inputs and its logit gap is reported; the f32
-    run, free of that rounding, holds the end-to-end logits too."""
+    """The mixed step on the served model (bf16 weights and pages, f32
+    activations: the attention is f32 q over bf16 pages, computed in f32
+    by both versions, so it is held per layer at the f32 tolerance), then
+    on the same model in f32 (weights and pages). In the served model the
+    two runs' logits may still part where a k or v sits at a bf16
+    rounding midpoint as it is written to the pages, so its logit gap is
+    reported; the f32 run, free of that rounding, holds the end-to-end
+    logits too."""
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.serving import ServingEngine
 
-    layer_err, k_logits, p_logits = mixed_step(torch, engine, 2e-2)
-    log(f"mixed step bf16: 3 decode rows + 256 chunk rows; attention kernel "
-        f"vs plain on the same inputs, max over 12 layers "
-        f"{layer_err:.3e} (atol=rtol=2e-2) ok; sample logits gap "
+    layer_err, k_logits, p_logits = mixed_step(torch, engine, 5e-5)
+    log(f"mixed step bf16 pages: 3 decode rows + 256 chunk rows; attention "
+        f"kernel vs plain on the same inputs, max over 12 layers "
+        f"{layer_err:.3e} (atol=rtol=5e-5) ok; sample logits gap "
         f"{float((k_logits - p_logits).abs().max()):.3e}")
     model = LlamaForCausalLM(llama_076b(), device="cuda", dtype=torch.float32,
                              seed=0)
@@ -674,36 +800,44 @@ def phase_reference(torch):
 # ───────────────────────────── training ─────────────────────────────
 
 
-def phase_train(torch, card):
-    """GPT-3 1.3B through the bench's entry point, full width and depth.
-    The flash counts are zeroed just before and read just after."""
+def phase_train(torch, card, model):
+    """``model``'s bench through its entry point, full width and depth,
+    8 steps. The flash counts are zeroed just before and read just after:
+    each kernel launched as often a step as the model's layers run it
+    (``per_layer``: K1 twice under recompute), the plain versions never."""
     from paddle_tpu_torch import bench
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    layers = bench.gpt13_setup(False)[0].num_layers
+    cfg = bench.SETUPS[model](False)[0]
+    rc = bool(getattr(cfg, "recompute", False))
+    per_layer = {"flash_fwd": 2 if rc else 1, "flash_dq": 1, "flash_dkv": 1}
     fa.reset_counters()
     t0 = time.perf_counter()
-    rec = bench.bench_gpt13(small=False, device="cuda", steps=5, reps=1)
+    rec = bench.bench_model(model, small=False, device="cuda", steps=5,
+                            reps=1)
     wall = time.perf_counter() - t0
     launches, plain = dict(fa.kernel_launches), dict(fa.plain_calls)
     losses = rec.pop("losses")
     steps = rec.pop("steps_run")
     summary = dict(rec, steps_run=steps, wall_s=wall, losses=losses,
                    kernel_launches=launches, plain_calls=plain, card=card)
-    log("train: " + json.dumps(summary))
+    log(f"train {model}: " + json.dumps(summary))
     if not all(math.isfinite(x) for x in losses):
-        fail(f"train: a loss is not finite: {losses}")
-    want = layers * steps
-    if any(launches[n] != want for n in fa.KERNELS) or any(plain.values()):
-        fail(f"train: flash launches {launches} != {layers} layers x "
-             f"{steps} steps each, or plain calls {plain} != 0")
+        fail(f"train {model}: a loss is not finite: {losses}")
+    want = {n: k * cfg.num_layers * steps for n, k in per_layer.items()}
+    if launches != want or any(plain.values()):
+        fail(f"train {model}: flash launches {launches} != {want} "
+             f"({cfg.num_layers} layers x {steps} steps), or plain calls "
+             f"{plain} != 0")
     return launches
 
 
-def phase_train_reference(torch):
-    """A small f32 GPT takes three AdamW steps on the card (the flash
+def phase_train_reference(torch, model):
+    """A small f32 model takes three AdamW steps on the card (the flash
     kernels) and on the CPU (their plain versions) from the same weights
-    and tokens. Tolerance atol = rtol = 1e-4 on the losses and on every
+    and tokens: GPT (2 layers, hidden 256, 2 heads of 128) or Llama (2
+    layers, hidden 256, 4 heads of 64 over 2 KV heads, recompute on), S
+    512. Tolerance atol = rtol = 1e-4 on the losses and on every
     parameter: both run the same f32 math with summation orders of their
     own (TF32 is off), and ``epsilon=1e-6`` keeps Adam from turning the
     sign of a near-zero grad into a full step."""
@@ -711,32 +845,43 @@ def phase_train_reference(torch):
 
     import numpy as np
 
-    from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                         gpt_tiny, llama_tiny)
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    cfg = gpt_tiny(vocab_size=2048, hidden_size=256, num_layers=2,
-                   num_heads=2, max_position_embeddings=512, fused_loss=True)
-    base = GPTForCausalLM(cfg, device="cpu", seed=11)
+    if model == "gpt":
+        cfg = gpt_tiny(vocab_size=2048, hidden_size=256, num_layers=2,
+                       num_heads=2, max_position_embeddings=512,
+                       fused_loss=True)
+        base = GPTForCausalLM(cfg, device="cpu", seed=11)
+        per_step = dict.fromkeys(fa.KERNELS, 2)
+    else:
+        cfg = llama_tiny(vocab_size=2048, hidden_size=256, num_layers=2,
+                         num_heads=4, num_key_value_heads=2,
+                         max_position_embeddings=512, recompute=True,
+                         fused_loss=True)
+        base = LlamaForCausalLM(cfg, device="cpu", seed=11)
+        per_step = {"flash_fwd": 4, "flash_dq": 2, "flash_dkv": 2}
     ids_np = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 512))
     runs = {}
     for dev in ("cuda", "cpu"):
-        model = copy.deepcopy(base).to(dev)
+        net = copy.deepcopy(base).to(dev)
         opt = AdamW(learning_rate=1e-3, epsilon=1e-6,
-                    parameters=model.named_parameters())
+                    parameters=net.named_parameters())
         ids = torch.from_numpy(ids_np).to(dev)
         labels = torch.from_numpy(np.roll(ids_np, -1, axis=1)).to(dev)
         fa.reset_counters()
         losses = []
         for _ in range(3):
-            _, loss = model(ids, labels=labels)
+            _, loss = net(ids, labels=labels)
             loss.backward()
             opt.step()
             opt.clear_grad()
             losses.append(loss.item())
         used = dict(fa.kernel_launches if dev == "cuda" else fa.plain_calls)
         runs[dev] = (losses, {n: p.detach().cpu() for n, p in
-                              model.named_parameters()}, used)
+                              net.named_parameters()}, used)
     (l_gpu, p_gpu, used_gpu), (l_cpu, p_cpu, used_cpu) = (runs["cuda"],
                                                           runs["cpu"])
     tol = 1e-4
@@ -747,14 +892,31 @@ def phase_train_reference(torch):
         err = (p_gpu[n] - want).abs()
         param_err = max(param_err, float(err.max()))
         ok &= bool((err <= tol + tol * want.abs()).all())
-    log(f"train reference: small f32 GPT, 3 AdamW steps, card (kernels "
+    log(f"train reference: small f32 {model}, 3 AdamW steps, card (kernels "
         f"{used_gpu}) vs CPU (plain {used_cpu}): losses {l_gpu} vs {l_cpu}, "
         f"max loss err {loss_err:.2e}, max param err {param_err:.2e} "
         f"(atol=rtol={tol:g}) {'ok' if ok else 'MISMATCH'}")
-    if not ok or any(used_gpu[n] != 6 for n in fa.KERNELS) \
-            or any(used_cpu[n] != 6 for n in fa.KERNELS):
-        fail("train reference: card and CPU runs disagree, or a run did "
-             "not take its path")
+    want_used = {n: 3 * k for n, k in per_step.items()}
+    if not ok or used_gpu != want_used or used_cpu != want_used:
+        fail(f"train reference {model}: card and CPU runs disagree, or a "
+             "run did not take its path")
+
+
+def phase_adamw_path(torch):
+    """K5's path, ``tools.bench_adamw``, with K5's counts zeroed just
+    before and read just after."""
+    from paddle_tpu_torch.ops import fused_adamw as k5
+    from paddle_tpu_torch.tools import bench_adamw
+
+    k5.reset_counters()
+    rec = bench_adamw.bench_adamw(device="cuda")
+    launches, plain = k5.kernel_launches, k5.plain_calls
+    log("adamw path: " + json.dumps(dict(rec, kernel_launches=launches,
+                                         plain_calls=plain)))
+    if launches == 0 or plain != 0:
+        fail(f"adamw path: K5 launched {launches} times, plain version "
+             f"{plain} times")
+    return launches
 
 
 def main():
@@ -770,14 +932,18 @@ def main():
     phase_build()
     paged = phase_paged_kernels(torch)
     flash = phase_flash_kernels(torch)
+    adamw = phase_adamw_kernels(torch)
     engine, paged_launches = phase_serve(torch, card)
     phase_mixed_steps(torch, engine)
     phase_reference(torch)
     del engine
     torch.cuda.empty_cache()
-    flash_launches = phase_train(torch, card)
-    phase_train_reference(torch)
-    head = paged["a_decode_bf16"]
+    flash_launches = phase_train(torch, card, "gpt13")
+    phase_train_reference(torch, "gpt")
+    adamw_launches = phase_adamw_path(torch)
+    phase_train(torch, card, "llama")
+    phase_train_reference(torch, "llama")
+    head = paged["a_decode_f32q_bf16kv"]
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -802,6 +968,17 @@ def main():
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    k5 = adamw["n355m_step10"]
+    kernels.append({
+        "name": "fused_adamw", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/fused_adamw.cu",
+        "replaces": "paddle_tpu/ops/pallas/fused_adamw.py:62",
+        "launches": adamw_launches,
+        "max_abs_err": k5["max_abs_err"],
+        "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+        "library_ms": k5["library_ms"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -18,6 +18,14 @@ attention is the hand-written CUDA flash kernels of
 ``csrc/flash_attention.cu`` (forward, dQ, dK/dV) behind one
 ``torch.autograd.Function``.
 
+Slice 3 trains Llama as the root ``bench.py``'s ``bench_llama`` does
+(``models.LlamaForCausalLM.forward`` with every layer under
+``distributed.fleet.recompute``, O2 bf16 with master weights, through
+the same flash kernels; ``python -m paddle_tpu_torch.bench --model
+llama``), and ports the last Pallas kernel, the fused AdamW step, as
+``csrc/fused_adamw.cu`` behind ``ops.fused_adamw`` and its A/B tool
+``python -m paddle_tpu_torch.tools.bench_adamw``.
+
 Every entry point runs on ``cuda`` unless given ``device="cpu"``
 (:mod:`.device`); kernels are built from ``csrc/`` with ``nvcc`` at first
 use (:mod:`.ops._build`).

@@ -29,8 +29,8 @@ from typing import FrozenSet, Optional, Sequence
 import torch
 from torch import nn
 
-__all__ = ["auto_cast", "decorate", "cast_inputs", "WHITE_LIST",
-           "BLACK_LIST"]
+__all__ = ["auto_cast", "decorate", "cast_inputs", "current_state",
+           "restored_state", "WHITE_LIST", "BLACK_LIST"]
 
 # the JAX package's amp lists (paddle_tpu/amp/__init__.py:31, :40)
 WHITE_LIST = frozenset({
@@ -94,6 +94,20 @@ def auto_cast(enable: bool = True,
     white = (set(WHITE_LIST) | custom_white) - black
     state = (_State(target, level, frozenset(white), frozenset(black))
              if enable and level != "O0" else None)
+    with restored_state(state):
+        yield
+
+
+def current_state() -> Optional[_State]:
+    """The active ``auto_cast`` state (None outside one), for code that
+    runs an op again later (``recompute``) under the state it first ran
+    in."""
+    return _state.get()
+
+
+@contextlib.contextmanager
+def restored_state(state: Optional[_State]):
+    """Run the block under ``state`` (from :func:`current_state`)."""
     token = _state.set(state)
     try:
         yield

@@ -1,0 +1,4 @@
+"""``paddle_tpu/distributed/fleet``: activation recompute."""
+from .recompute import recompute
+
+__all__ = ["recompute"]

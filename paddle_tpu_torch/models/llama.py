@@ -1,22 +1,48 @@
-"""Llama for serving: RoPE, RMSNorm, SwiGLU and grouped-query attention.
+"""Llama: RoPE, RMSNorm, SwiGLU and grouped-query attention.
 
-Counterpart of ``paddle_tpu/models/llama.py``, serving half: the paged
-forward (``forward_paged``) that the serving engine's ragged step runs.
-Module and parameter names match the JAX package, so its ``state_dict``
-loads here key for key (``models/convert.py``).
+Counterpart of ``paddle_tpu/models/llama.py``: the dense forward with its
+loss (``LlamaForCausalLM.forward(input_ids, labels=...)``), each layer
+optionally under ``recompute``, with flash attention (``nn.functional.
+flash_attention``, the CUDA kernels K1-K3) and the fused chunked cross
+entropy; and the paged forward (``forward_paged``) that the serving
+engine's ragged step runs, with the paged-attention kernel K4. Module
+and parameter names match the JAX package, so its ``state_dict`` loads
+here key for key (``models/convert.py``).
+
+Every op goes through the port's layers and functionals, and so through
+the amp cast rule under the JAX package's op names (``amp.py``):
+``rms_norm`` (black list), ``linear``, ``llama_rope_gqa``,
+``flash_attention``, ``merge_heads``, ``silu``, ``multiply``, ``add``,
+``fused_linear_cross_entropy``, ``tied_lm_head``, ``recompute``. The
+dtypes follow the JAX package's:
+
+- dense forward under O2: RMSNorm computes in f32 (on its f32 weight)
+  and gives f32; RoPE's f32 tables are cast to the activations' dtype,
+  so RoPE runs in bf16; everything else not on the black list runs in
+  bf16;
+- paged step (no ``auto_cast``): a bf16 input over an f32 norm weight
+  gives f32, a linear with an f32 input over bf16 weights computes in f32
+  (``nn.functional.linear``), RoPE's f32 tables keep q and k f32, k and v
+  are rounded to the page dtype as they are written, and K4 takes the f32
+  q over the pages and gives f32. So from the first layer on a bf16
+  model's residual stream is f32, as in the JAX package;
+- a model built with ``dtype=torch.bfloat16`` keeps its norm weights in
+  f32, as ``amp.decorate(level="O2")`` does.
 
 Differences from the JAX package, by design of the port:
 
 - Linear weights are ``[out, in]`` (``torch.nn.Linear``); the JAX package
-  stores ``[in, out]``.
+  stores ``[in, out]``. So ``lm_head.weight`` is already the ``[V, H]``
+  the fused cross entropy takes, where the JAX package transposes.
 - The KV pools are updated in place by ``forward_paged``; the JAX version
   returns new pools.
 - Parameters are drawn from an explicit ``torch.Generator`` on the target
   device (Normal(0, 0.02); output projections std 0.02 / sqrt(2 * layers);
   norms 1), never from the global RNG.
 
-The dense ``forward`` (training, and the flash-attention kernel behind
-it) belongs to a later slice.
+Not ported yet: the KV-cache forward (``cache=``, behind ``generate()``),
+sequence parallelism (``sequence_parallel=True`` raises), tensor
+parallelism, LoRA adapters and int8 pages on the paged path.
 """
 from __future__ import annotations
 
@@ -25,10 +51,14 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from .. import amp
 from ..device import resolve_device
+from ..distributed.fleet.recompute import recompute
+from ..nn import Embedding, Linear, RMSNorm
+from ..nn import functional as F
+from ..ops.fused_loss import fused_linear_cross_entropy
 from ..ops.paged_attention import ragged_paged_attention
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny"]
@@ -46,7 +76,19 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-6
     initializer_range: float = 0.02
+    # kept for the JAX config's sake: both of its routes are one path here
+    # (nn.functional.scaled_dot_product_attention sends an unmasked call to
+    # flash attention)
+    use_flash_attention: bool = True
+    sequence_parallel: bool = False
     tie_word_embeddings: bool = False
+    recompute: bool = False
+    # recompute policy: None/'full' recompute everything; the JAX
+    # package's named policies raise (distributed/fleet/recompute.py)
+    recompute_policy: Optional[str] = None
+    # fused chunked linear + CE (ops/fused_loss.py): forward(labels=...)
+    # then returns (None, loss), never forming the [B*S, V] logits
+    fused_loss: bool = False
 
     def __post_init__(self):
         if self.intermediate_size is None:
@@ -59,6 +101,10 @@ class LlamaConfig:
             raise ValueError("num_heads must divide hidden_size")
         if self.num_heads % self.num_key_value_heads:
             raise ValueError("num_key_value_heads must divide num_heads")
+        if self.sequence_parallel:
+            raise NotImplementedError(
+                "sequence_parallel (ring attention over a 'sep' mesh axis) "
+                "is not ported yet")
 
 
 def llama_tiny(**kw) -> LlamaConfig:
@@ -74,7 +120,7 @@ def llama_tiny(**kw) -> LlamaConfig:
 def _rope_rows(positions: torch.Tensor, dim: int, theta: float):
     """cos/sin ``[T, 1, dim/2]`` f32 at each row's position: the rows of
     the JAX package's ``_rope_tables`` (the same f32 products), computed
-    for the step's positions only."""
+    for the given positions only."""
     inv_freq = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
                                              device=positions.device) / dim))
     freqs = positions.to(torch.float32)[:, None] * inv_freq[None, :]
@@ -82,32 +128,24 @@ def _rope_rows(positions: torch.Tensor, dim: int, theta: float):
 
 
 def _apply_rope(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
-    """Rotate the (even, odd) pairs of ``t`` ``[T, heads, dim]``; the
-    result is f32, as the f32 tables promote it."""
+    """Rotate the (even, odd) pairs of ``t`` (last dim) by tables that
+    broadcast against its pairs; the result takes the promoted dtype."""
     t1, t2 = t[..., 0::2], t[..., 1::2]
     return torch.stack([t1 * cos - t2 * sin, t1 * sin + t2 * cos],
                        dim=-1).reshape(t.shape)
 
 
+def _add(a, b):
+    a, b = amp.cast_inputs("add", a, b)
+    return a + b
+
+
+def _mul(a, b):
+    a, b = amp.cast_inputs("multiply", a, b)
+    return a * b
+
+
 # ------------------------------------------------------------- layers
-
-
-class RMSNorm(nn.Module):
-    """``a * (1 / sqrt(mean(a.f32 ** 2) + eps)).to(a.dtype) * w``, the JAX
-    package's formula (``nn/layer/norm.py`` RMSNorm)."""
-
-    def __init__(self, hidden_size: int, eps: float = 1e-6):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(hidden_size))
-        self.eps = eps
-
-    def forward(self, a: torch.Tensor) -> torch.Tensor:
-        var = a.to(torch.float32).pow(2).mean(dim=-1, keepdim=True)
-        return a * (1.0 / torch.sqrt(var + self.eps)).to(a.dtype) * self.weight
-
-
-def _linear(n_in: int, n_out: int) -> nn.Linear:
-    return nn.Linear(n_in, n_out, bias=False)
 
 
 class LlamaAttention(nn.Module):
@@ -118,22 +156,45 @@ class LlamaAttention(nn.Module):
         self.num_heads = config.num_heads
         self.num_kv_heads = config.num_key_value_heads
         self.head_dim = h // config.num_heads
-        self.q_proj = _linear(h, self.num_heads * self.head_dim)
-        self.k_proj = _linear(h, self.num_kv_heads * self.head_dim)
-        self.v_proj = _linear(h, self.num_kv_heads * self.head_dim)
-        self.o_proj = _linear(self.num_heads * self.head_dim, h)
+        self.q_proj = Linear(h, self.num_heads * self.head_dim, bias=False)
+        self.k_proj = Linear(h, self.num_kv_heads * self.head_dim, bias=False)
+        self.v_proj = Linear(h, self.num_kv_heads * self.head_dim, bias=False)
+        self.o_proj = Linear(self.num_heads * self.head_dim, h, bias=False)
+
+    def forward(self, x):
+        """Causal self-attention over ``x`` ``[B, S, H]``: q/k/v shaped to
+        ``[B, S, heads, D]``, RoPE at positions 0..S-1 with the f32 tables
+        cast to the activations' dtype (``llama_rope_gqa``), kv heads
+        repeated per query group, then flash attention."""
+        B, S, _ = x.shape
+        nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        q, k, v = amp.cast_inputs("llama_rope_gqa", self.q_proj(x),
+                                  self.k_proj(x), self.v_proj(x))
+        cos, sin = _rope_rows(torch.arange(S, device=x.device), hd,
+                              self.cfg.rope_theta)
+        cos, sin = cos[None].to(q.dtype), sin[None].to(q.dtype)
+        q = _apply_rope(q.view(B, S, nh, hd), cos, sin)
+        k = _apply_rope(k.view(B, S, nkv, hd), cos, sin)
+        v = v.view(B, S, nkv, hd)
+        if nh != nkv:  # GQA: repeat kv heads per query group
+            k = k.repeat_interleave(nh // nkv, dim=2)
+            v = v.repeat_interleave(nh // nkv, dim=2)
+        ctx, _ = F.flash_attention(q, k, v, causal=True)
+        (ctx,) = amp.cast_inputs("merge_heads", ctx)
+        return self.o_proj(ctx.reshape(B, S, nh * hd))
 
     def forward_paged(self, x, positions, block_tables, k_pool, v_pool,
                       rope, attention=ragged_paged_attention):
         """Paged-KV ragged step: one query token per row of ``x`` ``[T, H]``
         at ``positions`` ``[T]`` (int32), each with its owner's block table
         ``[T, pages]`` (int32). Writes every row's rope'd k/v into its page
-        slot (in place), then runs ``attention`` for each row over its
-        pages masked at its own position, which makes a chunk's rows
-        causal over their freshly written chunk-mates. Padding rows carry
-        the null table and position 0, so their writes land on page 0.
-        ``rope`` is ``(cos, sin)`` from ``_rope_rows``. Returns
-        ``[T, H]``."""
+        slot (in place, rounded to the page dtype), then runs
+        ``attention`` for each row over its pages masked at its own
+        position, which makes a chunk's rows causal over their freshly
+        written chunk-mates. Padding rows carry the null table and
+        position 0, so their writes land on page 0. ``rope`` is ``(cos,
+        sin)`` from ``_rope_rows``: f32, so q and k are f32 from here on,
+        and so is the attention output. Returns ``[T, H]``."""
         T = x.shape[0]
         nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
         cos, sin = rope
@@ -147,10 +208,9 @@ class LlamaAttention(nn.Module):
         offs = pos % page_size
         k_pool[page_ids, offs] = k.to(k_pool.dtype)
         v_pool[page_ids, offs] = v.to(v_pool.dtype)
-        ctx = attention(q.to(x.dtype).contiguous(), k_pool, v_pool,
-                        block_tables, positions + 1,
-                        scale=1.0 / math.sqrt(hd))
-        return self.o_proj(ctx.reshape(T, nh * hd).to(x.dtype))
+        ctx = attention(q.contiguous(), k_pool, v_pool, block_tables,
+                        positions + 1, scale=1.0 / math.sqrt(hd))
+        return self.o_proj(ctx.reshape(T, nh * hd))
 
 
 class LlamaMLP(nn.Module):
@@ -159,39 +219,56 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig):
         super().__init__()
         h, ff = config.hidden_size, config.intermediate_size
-        self.gate_proj = _linear(h, ff)
-        self.up_proj = _linear(h, ff)
-        self.down_proj = _linear(ff, h)
+        self.gate_proj = Linear(h, ff, bias=False)
+        self.up_proj = Linear(h, ff, bias=False)
+        self.down_proj = Linear(ff, h, bias=False)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return self.down_proj(_mul(F.silu(self.gate_proj(x)),
+                                   self.up_proj(x)))
 
 
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, config: LlamaConfig):
         super().__init__()
-        self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+        eps = config.rms_norm_eps
+        self.input_layernorm = RMSNorm(config.hidden_size, epsilon=eps)
         self.self_attn = LlamaAttention(config)
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
-                                                config.rms_norm_eps)
+                                                epsilon=eps)
         self.mlp = LlamaMLP(config)
+
+    def forward(self, x):
+        x = _add(x, self.self_attn(self.input_layernorm(x)))
+        return _add(x, self.mlp(self.post_attention_layernorm(x)))
 
     def forward_paged(self, x, positions, block_tables, k_pool, v_pool, rope,
                       attention=ragged_paged_attention):
-        x = x + self.self_attn.forward_paged(
+        x = _add(x, self.self_attn.forward_paged(
             self.input_layernorm(x), positions, block_tables, k_pool, v_pool,
-            rope, attention=attention)
-        return x + self.mlp(self.post_attention_layernorm(x))
+            rope, attention=attention))
+        return _add(x, self.mlp(self.post_attention_layernorm(x)))
 
 
 class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig):
         super().__init__()
         self.config = config
-        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size)
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size)
         self.layers = nn.ModuleList([LlamaDecoderLayer(config)
                                      for _ in range(config.num_layers)])
-        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+        self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps)
+
+    def forward(self, input_ids):
+        """Dense trunk: ``input_ids`` ``[B, S]`` -> the final-norm hidden
+        states ``[B, S, H]``; each layer under ``recompute`` when
+        ``config.recompute``."""
+        cfg = self.config
+        x = self.embed_tokens(input_ids)
+        for layer in self.layers:
+            x = (recompute(layer, x, policy=cfg.recompute_policy)
+                 if cfg.recompute else layer(x))
+        return self.norm(x)
 
     def forward_paged(self, input_ids, positions, block_tables,
                       caches: Sequence[Tuple[torch.Tensor, torch.Tensor]],
@@ -212,9 +289,10 @@ class LlamaModel(nn.Module):
 
 class LlamaForCausalLM(nn.Module):
     """Llama with its vocab head. Built on ``device`` (default ``cuda``;
-    ``RuntimeError`` without a card unless ``device="cpu"``) in ``dtype``,
-    parameters drawn in f32 from ``torch.Generator(device).manual_seed(
-    seed)`` and then cast."""
+    ``RuntimeError`` without a card unless ``device="cpu"``), parameters
+    drawn in f32 from ``torch.Generator(device).manual_seed(seed)``. With
+    ``dtype`` bf16 or fp16 they are then cast by ``amp.decorate(level=
+    "O2")``'s rule: every parameter but the norms' (which stay f32)."""
 
     def __init__(self, config: LlamaConfig, *, device=None,
                  dtype: torch.dtype = torch.float32, seed: int = 0):
@@ -224,12 +302,14 @@ class LlamaForCausalLM(nn.Module):
         with torch.device("meta"):
             self.llama = LlamaModel(config)
             self.lm_head = (None if config.tie_word_embeddings
-                            else _linear(config.hidden_size,
-                                         config.vocab_size))
+                            else Linear(config.hidden_size, config.vocab_size,
+                                        bias=False))
         self.to_empty(device=device)
         self._init_weights(torch.Generator(device=device).manual_seed(seed))
-        self.to(dtype)
-        self.eval()
+        if dtype in (torch.bfloat16, torch.float16):
+            amp.decorate(self, level="O2", dtype=dtype)
+        elif dtype != torch.float32:
+            raise ValueError(f"dtype {dtype}: float32, bfloat16 or float16")
 
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator) -> None:
@@ -251,7 +331,27 @@ class LlamaForCausalLM(nn.Module):
     def logits(self, hidden):
         if self.lm_head is not None:
             return self.lm_head(hidden)
-        return hidden @ self.llama.embed_tokens.weight.T
+        h, w = amp.cast_inputs("tied_lm_head", hidden,
+                               self.llama.embed_tokens.weight)
+        dt = torch.promote_types(h.dtype, w.dtype)
+        return h.to(dt) @ w.to(dt).T
+
+    def forward(self, input_ids, labels=None):
+        """Logits ``[B, S, V]`` without ``labels``; with them ``(logits,
+        mean loss)``, or ``(None, loss)`` when ``config.fused_loss``."""
+        hidden = self.llama(input_ids)
+        if labels is not None and self.config.fused_loss:
+            w = (self.lm_head.weight if self.lm_head is not None
+                 else self.llama.embed_tokens.weight)
+            h, w = amp.cast_inputs("fused_linear_cross_entropy", hidden, w)
+            return None, fused_linear_cross_entropy(
+                h.reshape(-1, self.config.hidden_size), w, labels.reshape(-1))
+        logits = self.logits(hidden)
+        if labels is None:
+            return logits
+        loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
+                               labels.reshape(-1))
+        return logits, loss
 
     def _decode_trunk(self):
         return self.llama

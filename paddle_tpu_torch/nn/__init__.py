@@ -1,4 +1,4 @@
-"""The layers and functionals of the port that GPT's training step uses.
+"""The layers and functionals of the port that the GPT and Llama models use.
 
 Counterpart of ``paddle_tpu/nn``: each functional casts its inputs by
 the amp rule under the JAX package's op name (:func:`..amp.cast_inputs`),
@@ -7,6 +7,6 @@ calls that functional.
 """
 from . import functional
 from .layer.common import Embedding, Linear
-from .layer.norm import LayerNorm
+from .layer.norm import LayerNorm, RMSNorm
 
-__all__ = ["functional", "Embedding", "Linear", "LayerNorm"]
+__all__ = ["functional", "Embedding", "Linear", "LayerNorm", "RMSNorm"]

@@ -14,8 +14,17 @@ __all__ = ["linear", "embedding", "dropout"]
 
 
 def linear(x, weight, bias=None):
-    """``x @ weight.T + bias``; ``weight`` is ``[out, in]``."""
+    """``x @ weight.T + bias``; ``weight`` is ``[out, in]``. Mixed dtypes
+    (an f32 input over bf16 weights, outside ``auto_cast``) compute in
+    the promoted dtype, as ``jnp.matmul`` promotes: the weight is up-cast
+    for the call, and no copy is kept."""
     x, weight, bias = cast_inputs("linear", x, weight, bias)
+    dt = x.dtype
+    for t in (weight, bias):
+        if t is not None:
+            dt = torch.promote_types(dt, t.dtype)
+    x, weight, bias = (t.to(dt) if t is not None else None
+                       for t in (x, weight, bias))
     return tF.linear(x, weight, bias)
 
 

@@ -3,8 +3,9 @@
     python -m paddle_tpu_torch.tools.profile_serve [--steps 8]
 
 Builds the model and engine that ``chip_smoke.py`` serves (Llama-0.76B,
-seeded random bf16 weights, bf16 pages of 16, 8 slots, token budget
-1024), fills all 8 slots with prompts of 64-1024 tokens, runs until
+seeded random weights in bf16 by ``amp.decorate(level="O2")``'s rule, so
+the norms f32 and the activations f32, as the JAX package serves it;
+bf16 pages of 16, 8 slots, token budget 1024), fills all 8 slots with prompts of 64-1024 tokens, runs until
 every slot decodes, then times ``--steps`` decode-only steps without
 the profiler and ``--steps`` more under it. Prints, as one JSON line: the
 unprofiled step time; over the profiled steps, their wall time, the
@@ -23,6 +24,7 @@ import time
 import numpy as np
 import torch
 
+from .. import bench
 from ..models import LlamaConfig, LlamaForCausalLM
 from ..serving import ServingEngine
 from . import device_busy
@@ -69,7 +71,7 @@ def main(argv=None):
     kernel_ms = sum(ms for _k, ms, _c in rows)
     busy_ms, idle = device_busy(prof.events(), profiled_ms)
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0),
+        "device": bench.card_label(torch.device("cuda")),
         "decode_steps": args.steps, "batch": engine.max_batch_slots,
         "step_ms": step_ms, "profiled_step_ms": profiled_ms / args.steps,
         "device_busy_ms_per_step": busy_ms / args.steps,

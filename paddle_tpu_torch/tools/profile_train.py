@@ -1,9 +1,12 @@
-"""Where the GPT-3 1.3B training step's device time goes, on the card.
+"""Where a training step's device time goes, on the card.
 
-    python -m paddle_tpu_torch.tools.profile_train [--steps 3]
+    python -m paddle_tpu_torch.tools.profile_train [--model llama] [--steps 3]
 
-Builds the bench's model and optimizer (``bench.build``: gpt13, B 8, S
-1024, O2 bf16 without master weights, fused cross entropy, AdamW), warms
+Builds the bench's model and optimizer (``bench.build``; ``--model
+gpt13``, the default: GPT-3 1.3B, B 8, S 1024, O2 bf16 without master
+weights, fused cross entropy, AdamW; ``--model llama``: Llama-0.76B, B 8,
+S 1024, full recompute, O2 bf16 with master weights, fused cross
+entropy, AdamW), warms
 two steps, times ``--steps`` steps without the profiler (one
 synchronisation at the end), then ``--steps`` more under
 ``torch.profiler``. Prints, as one JSON line: the unprofiled step time,
@@ -18,8 +21,11 @@ launched, launches per step, and device time per step by group:
 - ``optimizer``: every kernel launched inside ``Optimizer.step``;
 - ``gemm``: the other matrix-product kernels (cuBLAS: the model's bf16
   linears, forward and backward);
-- ``other``: the rest (layer norm, GELU, adds, casts, copies,
+- ``other``: the rest (norms, activations, RoPE, adds, casts, copies,
   reductions, the embedding).
+
+Under recompute the forward's kernels run again in the backward; they
+count in their groups like any other launch.
 
 It also lists the kernels that took the most device time.
 """
@@ -65,12 +71,13 @@ def _ranges(evt):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(bench.SETUPS), default="gpt13")
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg, B, S, _ = bench.gpt13_setup(False)
-    model, opt = bench.build(cfg, dev)
+    cfg, B, S, _ = bench.SETUPS[args.model](False)
+    model, opt = bench.build(cfg, dev, bench.MASTER_WEIGHT[args.model])
     step = bench.make_train_fn(model, opt)
     rng = np.random.default_rng(0)
     ids_np = rng.integers(0, cfg.vocab_size, (B, S))
@@ -115,7 +122,7 @@ def main(argv=None):
             group_launches[g] += 1 / args.steps
     print(json.dumps({
         "device": bench.card_label(dev),
-        "config": f"gpt13-h{cfg.hidden_size}-l{cfg.num_layers}-b{B}-s{S}",
+        "config": bench.config_name(args.model, cfg, B, S),
         "steps": args.steps, "loss": loss.item(),
         "step_ms": step_ms, "profiled_step_ms": profiled_ms / args.steps,
         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,

@@ -45,11 +45,13 @@ def test_importing_every_module_loads_no_jax():
                        text=True, cwd=str(REPO), env=env, timeout=120)
     assert r.returncode == 0, r.stderr
     walked = set(r.stdout.split())
-    # the walk saw the package, the training slice's modules included
+    # the walk saw the package, the training slices' modules included
     assert {f"paddle_tpu_torch.{m}" for m in (
         "amp", "bench", "generator", "models.gpt", "ops.flash_attention",
         "ops.fused_loss", "nn.functional.attention", "nn.layer.norm",
-        "optimizer.optimizers", "tools.profile_train")} <= walked
+        "optimizer.optimizers", "tools.profile_train", "ops.fused_adamw",
+        "tools.bench_adamw", "distributed.fleet.recompute",
+        "nn.functional.activation")} <= walked
 
 
 def _imports(path: Path):
@@ -117,6 +119,22 @@ def test_pool_and_training_entry_points_need_a_card(no_cuda):
         == "cpu"
 
 
+def test_llama_training_and_adamw_entry_points_need_a_card(no_cuda):
+    """``bench --model llama`` and ``tools.bench_adamw`` resolve to the
+    card; ``bench_adamw`` runs on nothing else."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.tools import bench_adamw
+
+    with pytest.raises(RuntimeError):
+        bench.bench_llama(small=True)
+    with pytest.raises(RuntimeError):
+        bench.main(["--model", "llama", "--small"])
+    with pytest.raises(RuntimeError):
+        bench_adamw.bench_adamw()
+    with pytest.raises(RuntimeError):
+        bench_adamw.main([])
+
+
 def test_engine_refuses_a_model_on_another_device():
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
     from paddle_tpu_torch.serving import ServingEngine
@@ -143,4 +161,6 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.load("paged_attention")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build(["flash_attention"])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build(["fused_adamw"])
     assert not (tmp_path / "build").exists()

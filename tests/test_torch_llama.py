@@ -128,3 +128,58 @@ def test_forward_paged_mixed_rows_match_jax(models):
                                    atol=ATOL, rtol=RTOL)
     # and they did write: slot B's chunk landed in its pages
     assert not np.allclose(tcaches[0][0].numpy()[6], pools[0][0][6])
+
+
+def test_bf16_paged_step_follows_jax_dtypes():
+    """The O2-decorated bf16 model, one mixed paged step over bf16 pools.
+    In the JAX package RMSNorm's f32 weight makes the normed input f32,
+    the f32 RoPE tables keep q and k f32, the paged kernel returns q's
+    dtype and a linear promotes an f32 input over bf16 weights: the
+    hidden state is f32, and so must it be here. Only the KV written to
+    the pages rounds to bf16, in both alike. Tolerance atol = rtol = 1e-5,
+    as in f32 (measured: 6e-7)."""
+    import ml_dtypes
+
+    from paddle_tpu import amp as jamp
+    from paddle_tpu_torch.models.convert import _to_torch
+
+    paddle.seed(0)
+    jm = jamp.decorate(JaxLlama(jax_llama_tiny(**WIDTHS)), level="O2",
+                       dtype="bfloat16")
+    ref = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
+    tm = LlamaForCausalLM(llama_tiny(**WIDTHS), device="cpu",
+                          dtype=torch.bfloat16)
+    load_reference_state_dict(tm, ref)
+    for n, p in tm.named_parameters():  # decorate's rule: norms stay f32
+        assert p.dtype == (torch.float32 if "norm" in n else torch.bfloat16)
+        assert ref[n].dtype == (np.float32 if "norm" in n
+                                else ml_dtypes.bfloat16)
+    ids, pos, bt, pools = _mixed_step()
+    pools = [(k.astype(ml_dtypes.bfloat16), v.astype(ml_dtypes.bfloat16))
+             for k, v in pools]
+    jh, jcaches = jm.llama.forward_paged(
+        paddle.to_tensor(ids[:, None]), paddle.to_tensor(pos),
+        paddle.to_tensor(bt),
+        [(paddle.to_tensor(k), paddle.to_tensor(v)) for k, v in pools])
+    tcaches = [(_to_torch(k), _to_torch(v)) for k, v in pools]
+    with torch.no_grad():
+        th = tm.llama.forward_paged(torch.from_numpy(ids),
+                                    torch.from_numpy(pos),
+                                    torch.from_numpy(bt), tcaches)
+    assert str(jh.dtype) == "float32" and th.dtype == torch.float32
+    jh = np.asarray(jh.numpy()).reshape(ids.size, -1)
+    np.testing.assert_allclose(th.numpy(), jh, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(
+        tm.logits(th).detach().numpy(),
+        np.asarray(jm.logits(paddle.to_tensor(jh)).numpy()),
+        atol=ATOL, rtol=RTOL)
+    # the written pages: the same bf16 values, but for a k or v whose f32
+    # value lies within an ulp or two of a bf16 rounding midpoint, which
+    # may round either way (one bf16 ulp, rtol 2^-7)
+    for (jk, jv), (tk, tv) in zip(jcaches, tcaches):
+        assert tk.dtype == tv.dtype == torch.bfloat16
+        for t, j in ((tk, jk), (tv, jv)):
+            np.testing.assert_allclose(
+                t.float().numpy()[1:],
+                np.asarray(j.numpy())[1:].astype(np.float32),
+                rtol=2.0 ** -7, atol=0)

@@ -112,6 +112,33 @@ def test_temperature_streams_identical(reference, seed):
     assert got != greedy  # the noise really was applied
 
 
+def test_bf16_greedy_streams_identical(reference):
+    """An O2-decorated bf16 model over bf16 pages (what the card serves):
+    the port's engine and the JAX engine give the same greedy and
+    temperature streams. Both keep the norms f32 and, from the first
+    layer on, the activations f32 (tests/test_torch_llama.py holds the
+    hidden state), so only the pages round to bf16, in both alike."""
+    import jax.numpy as jnp
+
+    from paddle_tpu import amp as jamp
+
+    paddle.seed(0)
+    jm = jamp.decorate(JaxLlama(jax_llama_tiny(**WIDTHS)), level="O2",
+                       dtype="bfloat16")
+    tm = LlamaForCausalLM(llama_tiny(**WIDTHS), device="cpu",
+                          dtype=torch.bfloat16)
+    load_reference_state_dict(
+        tm, {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()})
+    jeng = JaxEngine(jm, page_size=4, max_batch_slots=2, prefix_cache=False,
+                     kv_dtype=jnp.bfloat16)
+    teng = _engine(tm, kv_dtype=torch.bfloat16)
+    eos = reference["eos"]
+    want = _workload(jeng, eos)
+    assert _workload(teng, eos) == want
+    assert _temp_workload(teng, 7) == _temp_workload(jeng, 7)
+    assert teng.pool.k_pools[0].dtype == torch.bfloat16
+
+
 def test_pool_drains_and_reuses_pages(reference):
     """Retired sequences' pages serve later requests: the high-water mark
     stays under the dense equivalent."""
