@@ -16,12 +16,15 @@ Phases, in order; any failure exits non-zero before the result line:
       the serving path's f32 q over bf16 pages first;
    b. flash attention forward (K1), dQ (K2) and dK/dV (K3) at GPT-3
       1.3B's training shape (B 8, H 16, S 1024, D 128, causal; q/k/v
-      strided views of one QKV projection) in bf16 and f32, and at
-      Sq != Sk, S = 1000, key padding with an empty row, dropout, D 32
-      and D 64; each output held elementwise and by its norm
-      (``FLASH_TOL``), and at gpt13 bf16 the same check must reject the
-      plain versions run at a scale 1% off; SDPA's forward and backward
-      time the library;
+      strided views of one QKV projection) in bf16 (K1 and K3 on tensor
+      cores) and f32, and at Sq != Sk, S = 1000, key padding with an
+      empty batch row (f32 and bf16), dropout, D 32 (f32 and bf16) and D
+      64; each output held elementwise and by its norm (``FLASH_TOL``),
+      and at gpt13 bf16 the same check must reject the plain versions run
+      at a scale 1% off; a bf16 input whose sequence stride is off 16
+      bytes must be refused with ValueError before any launch; SDPA's
+      forward and backward time the library, and each timed kernel's
+      factor against it is printed beside its share of the bound;
    c. fused AdamW (K5) at N = 10,000 (step 5), 2,000,000 (step 10), an
       odd N off 16-byte alignment (step 1, zero moments) and 354,942,976
       (step 10, timed): w', m', v' held elementwise (``ADAMW_TOL``) and
@@ -168,10 +171,40 @@ def phase_build():
         + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items()))
     for n in secs:
         log_path = _build.library_path(n).with_suffix(".log")
-        if log_path.exists():
-            for line in log_path.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas[{n}]: {line.strip()}")
+        if not log_path.exists():
+            continue
+        kernel = "?"
+        for line in log_path.read_text().splitlines():
+            if "Compiling entry function" in line:
+                kernel = kernel_label(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas[{n}] {kernel}: "
+                    f"{line.replace('ptxas info    :', '').strip()}")
+
+
+def kernel_label(mangled):
+    """``flash_fwd_bf16_kernel<128>`` from a mangled kernel name: its
+    length-prefixed names read in order up to the one that ends in
+    ``kernel``, then its template arguments (``f`` f32,
+    ``13__nv_bfloat16`` bf16, ``a`` int8, ``Li128E`` an int, ``S0_`` or
+    ``S1_``, a back-reference, the bf16 named before it)."""
+    import re
+
+    pos = len("_ZN") if mangled.startswith("_ZN") else len("_Z")
+    while (n := re.match(r"\d+", mangled[pos:])) is not None:
+        pos += n.end()
+        name = mangled[pos:pos + int(n.group())]
+        pos += len(name)
+        if not name.endswith("kernel"):
+            continue
+        args = re.match(r"I(.*?)E+v", mangled[pos:])
+        if args is None:
+            return name
+        kinds = {"f": "f32", "a": "int8", "13__nv_bfloat16": "bf16"}
+        return name + "<" + ", ".join(
+            t.group(1) or kinds.get(t.group(0), "bf16") for t in re.finditer(
+                r"Li(\d+)E?|13__nv_bfloat16|S\d*_|f|a", args.group(1))) + ">"
+    return mangled
 
 
 def _pool(torch, gen, shape, dtype, dev):
@@ -401,7 +434,9 @@ def phase_flash_kernels(torch):
         ("dropout_bf16", 2, 1024, 1024, 4, 128, bf16, True, False, 0.1,
          False),
         ("d32_f32", 2, 300, 300, 8, 32, f32, True, False, 0.0, False),
+        ("d32_bf16", 2, 300, 300, 8, 32, bf16, True, False, 0.0, False),
         ("d64_bf16", 2, 512, 512, 8, 64, bf16, True, False, 0.0, False),
+        ("kpad_bf16", 3, 512, 512, 4, 128, bf16, False, True, 0.0, False),
     ]
     results = {}
     for (name, B, sq, sk, H, D, dt, causal, kp, drop, timed) in cases:
@@ -453,12 +488,46 @@ def phase_flash_kernels(torch):
                     f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
                     f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of "
                     f"bound; SDPA {r['library_ms']:.4f} ms "
-                    f"({r['library_of']})")
+                    f"({r['library_of']}), kernel "
+                    f"{r['ms'] / r['library_ms']:.2f}x SDPA")
         results[name] = rec
         del q, k, v, do, o, lse, delta, dq, dk, dv, o_r, lse_r, dq_r, dk_r
         del dv_r
         torch.cuda.empty_cache()
+    flash_refuses_misaligned(torch, fa)
     return results
+
+
+def flash_refuses_misaligned(torch, fa):
+    """A bf16 q whose sequence stride (132 elements, 264 bytes) is off 16
+    bytes: K1's and K3's wrappers must raise ValueError before any
+    launch."""
+    B, S, H, D = 1, 64, 2, 64
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    base = torch.randn((B, S, H * D + 4), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q = base.as_strided((B, S, H, D), (S * (H * D + 4), H * D + 4, D, 1))
+    k, v, do = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+    lse = torch.zeros((B * H, S), device="cuda")
+    before = dict(fa.kernel_launches)
+    refused = []
+    for kname, call in (
+            ("flash_fwd", lambda: fa.flash_fwd(q, k, v, causal=True)),
+            ("flash_dkv", lambda: fa.flash_dkv(q, k, v, do, lse, lse,
+                                               causal=True))):
+        try:
+            call()
+        except ValueError as e:
+            refused.append(kname)
+            msg = str(e)
+    torch.cuda.synchronize()
+    ok = refused == ["flash_fwd", "flash_dkv"] and fa.kernel_launches == before
+    log(f"flash misaligned bf16 q (sequence stride {q.stride(1) * 2} bytes): "
+        f"refused by {refused}, launches {fa.kernel_launches} "
+        f"{'ok' if ok else 'NOT REFUSED'}" + (f" ({msg})" if refused else ""))
+    if not ok:
+        fail("flash wrappers took a bf16 input off 16-byte alignment")
 
 
 def time_flash(torch, fa, q, k, v, do, o, lse, delta, kw, pargs):

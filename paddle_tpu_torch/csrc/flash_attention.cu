@@ -2,9 +2,11 @@
 // dQ (K2) and dK/dV (K3).
 //
 // Replaces, in paddle_tpu/ops/pallas/flash_attention.py:
-//   flash_fwd_kernel -> _attn_kernel (launched by _flash_fwd_bhsd)
-//   flash_dq_kernel  -> _dq_kernel   (launched by _flash_bwd_bhsd)
-//   flash_dkv_kernel -> _dkv_kernel  (launched by _flash_bwd_bhsd)
+//   flash_fwd_kernel      -> _attn_kernel (launched by _flash_fwd_bhsd), f32
+//   flash_fwd_bf16_kernel -> _attn_kernel, bf16
+//   flash_dq_kernel       -> _dq_kernel   (launched by _flash_bwd_bhsd)
+//   flash_dkv_kernel      -> _dkv_kernel  (launched by _flash_bwd_bhsd), f32
+//   flash_dkv_bf16_kernel -> _dkv_kernel, bf16
 //
 // What they compute, per (batch b, head h) with bh = b*H + h, over
 // q/k/v [B, S, H, D] read through their strides (the head dim contiguous):
@@ -16,8 +18,8 @@
 //   (q, k, LSE), dS = p * (dP - Delta), dP = dO.V^T. K3: dV = sum_q
 //   p_eff^T.dO and dK = scale * sum_q dS^T.Q. Delta = rowsum(dO * O) comes
 //   from the caller. Dropout: keep bits from keep_bit(), a hash of the
-//   global (seed, bh, row, col), identical in all three kernels and in
-//   the plain version; kept p is divided by (1 - p_drop); the softmax
+//   global (seed, bh, row, col), identical in all the kernels and in the
+//   plain version; kept p is divided by (1 - p_drop); the softmax
 //   denominator l uses the undropped p.
 //
 // Rounding (bf16 inputs), as the Pallas kernels do: q.k, dO.v and every
@@ -27,24 +29,51 @@
 //
 // What bounds them on this card. At GPT-3 1.3B's shape (B 8, H 16, S
 // 1024, D 128, causal, bf16) the forward moves ~134 MB (0.040 ms at 3.35
-// TB/s) and does ~3.4e10 flops (0.035 ms on bf16 tensor cores), the
-// backward ~8.6e10 flops: at the card's roofline they would be balanced
-// between bytes and tensor-core operations. These kernels use no tensor
-// cores: f32 FMAs on CUDA cores (67 TFLOP/s peak) fed from shared memory,
-// so they are bound by the CUDA cores' FMA rate and shared-memory
-// bandwidth, far above the roofline bound. That is the simple first
-// design; mma/wgmma tiles and TMA loads are later work.
+// TB/s) and does ~3.4e10 flops (0.035 ms on bf16 tensor cores), dK/dV
+// ~6.9e10 flops (0.070 ms): at the roofline the forward is bound by bytes
+// and the backward by tensor-core operations. A kernel built from
+// mma.sync tiles is bound, short of that, by the tensor-core issue rate
+// of mma.sync (below wgmma's), by the shared-memory reads that feed the
+// B operands (every warp reads the whole k/v tile in K1, the whole q/dO
+// tile twice in K3) and by the exponentials of the softmax.
 //
-// Design (first, simple version). One block of 256 threads per (bh, 64-row
-// tile): a q tile for K1 and K2, a k tile for K3, so a block owns its whole
-// loop over the other side's 64-row tiles (the TPU grid's sequential axis
-// and VMEM carries become that loop and registers). Tiles are staged in
-// shared memory as f32, rows padded to D + 1 floats so that the 16 threads
-// that share a row group read 16 different banks. Each thread owns a 4 x 4
-// block of the 64 x 64 score tile (rows ty + 16 i, cols tx + 16 j) and a
-// 4 x D/16 block of the 64 x D accumulators; row maxima and sums are
-// reduced across the 16 lanes of a half-warp. Causal tiles entirely above
-// the diagonal are skipped. K1 launches its heaviest (last) q tiles first.
+// bf16 design (K1 and K3, flash_*_bf16_kernel): tensor cores for every
+// product, mma.sync.m16n8k16 with bf16 operands and f32 accumulators.
+// A block of 4 warps owns a 64-row tile, 16 rows a warp: q rows in K1,
+// keys in K3 (so keys are the M dimension of all four K3 products and
+// dK/dV need no transpose or atomics: deterministic). Tiles are bf16 in
+// shared memory with rows padded to D + 8 elements (a row stride of 16
+// bytes modulo 128, so the 8 rows an ldmatrix phase reads fall in 8
+// different bank groups), filled by 16-byte cp.async.cg copies
+// (zero-filled past the sequence, src-size 0, so masked rows never
+// multiply garbage) through a 2-stage ring: the next tile loads while the
+// current one is multiplied. K1: the warp's q fragments stay in registers
+// for the whole key loop; S = Q.K^T with K through ldmatrix; the online
+// softmax runs on the accumulator fragments in the log2 domain (row max
+// and sum over the 4 lanes of a quad, the sum reduced once at the end);
+// P is packed to bf16 A fragments in registers (the m16n8 C layout is the
+// m16n8k16 A layout) and O += P.V takes V through ldmatrix.trans; O goes
+// out through shared memory as 16-byte stores, LSE once per row. K3: K
+// and V are loaded once; q tiles stream through the ring from the first
+// causal one, each in two 32-row halves (which keeps dK and dV, 2 x D/2
+// f32 a thread, in registers across the loop): S^T = K.Q^T and dP^T =
+// V.dO^T, p and dS in registers, p_eff^T and dS^T re-packed as A
+// fragments, dV += p_eff^T.dO and dK += dS^T.Q with B through
+// ldmatrix.trans. Masks are applied only on tiles that need them (the
+// causal diagonal, the sequence tail, key padding); a warp skips a tile
+// or half that the causal mask hides from it; K1 launches its heaviest
+// (last) q tiles first. The wrapper refuses bf16 inputs off 16-byte
+// alignment (data pointer, batch, sequence and head strides).
+//
+// f32 and K2 (flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel) are the
+// first, simple design, without tensor cores (TF32 would move f32 results
+// past their 5e-5 check): f32 FMAs on CUDA cores fed from shared memory,
+// one block of 256 threads per (bh, 64-row tile), tiles staged as f32
+// with rows padded to D + 1 floats; each thread owns a 4 x 4 block of the
+// 64 x 64 score tile and a 4 x D/16 block of the accumulators. Known
+// losses: K2 (bf16 too) and every f32 kernel still run on CUDA cores;
+// the bf16 kernels use mma.sync, not wgmma with TMA and warp
+// specialisation.
 //
 // Interface: plain C functions returning cudaError_t, bound with ctypes.
 // The caller allocates every output and passes PyTorch's current stream.
@@ -52,6 +81,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -562,6 +593,589 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ─────────────────── bf16 on tensor cores: K1 and K3 ───────────────────
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaThreads = 128;  // 4 warps, 16 rows of a 64-row tile each
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !ok
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+// 4 bytes global -> shared, asynchronously; zero-filled when !ok
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// the same, each matrix transposed
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a.b on tensor cores: a 16x16 bf16 (row), b 16x8 bf16 (col), c f32.
+// Fragments, with g = lane / 4 and t = lane % 4: a {(g, 2t..2t+1), (g+8,
+// 2t..), (g, 2t+8..), (g+8, 2t+8..)}; b {(k 2t..2t+1, n g), (k 2t+8..,
+// n g)}; c {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to bf16 and packed, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A fragments of a 16-row x 16-column chunk from the C fragments of
+// its two 8-column blocks c0 (columns 0-7) and c1 (8-15), rounded to bf16
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Rows r0 .. r0+63 of one (b, h) slice (row stride ss elements, 16-byte
+// aligned) into dst[64][D + 8] by 16-byte cp.async, rows at or past
+// n_rows zero-filled. Not waited for: the caller commits and waits.
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          long long ss, int r0, int n_rows) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int i = 0; i < kTile * kChunks / kMmaThreads; ++i) {
+    const int e = threadIdx.x + i * kMmaThreads;
+    const int r = e / kChunks, c = e - (e / kChunks) * kChunks;
+    const bool ok = r0 + r < n_rows;
+    const bf16* g = ok ? src + static_cast<long long>(r0 + r) * ss + c * 8 : src;
+    cp_async16(smem_addr(dst + r * (D + 8) + c * 8), g, ok);
+  }
+}
+
+// A warp's 16 rows x D of a [64][D + 8] tile out to global memory as
+// 16-byte stores: rows row0 + r < n_rows go to dst + (row0 + r) * ss
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, long long ss,
+                                           const bf16* src, int row0,
+                                           int n_rows) {
+  constexpr int kChunks = D / 8;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < 16 * kChunks / 32; ++i) {
+    const int e = lane + i * 32;
+    const int r = e / kChunks, c = e - (e / kChunks) * kChunks;
+    if (row0 + r < n_rows)
+      *reinterpret_cast<int4*>(dst + static_cast<long long>(row0 + r) * ss +
+                               c * 8) =
+          *reinterpret_cast<const int4*>(src + r * (D + 8) + c * 8);
+  }
+}
+
+// A warp's C fragments acc[D/8][4] (16 rows x D) as bf16 into rows
+// 0..15 of dst[.][D + 8], rows 0-7 multiplied by mul0, rows 8-15 by mul1
+template <int D>
+__device__ __forceinline__ void frags_to_smem(bf16* dst,
+                                              const float (&acc)[D / 8][4],
+                                              float mul0, float mul1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(dst + g * (D + 8) + j * 8 + 2 * t4) =
+        pack_bf16(acc[j][0] * mul0, acc[j][1] * mul0);
+    *reinterpret_cast<uint32_t*>(dst + (g + 8) * (D + 8) + j * 8 + 2 * t4) =
+        pack_bf16(acc[j][2] * mul1, acc[j][3] * mul1);
+  }
+}
+
+// ── K1, bf16: one 64-key tile of a warp's 16 q rows ──
+//
+// s[j][2i + e] is (row row0 + g + 8 i, key k0 + 8 j + 2 t + e). kMasked:
+// the tile reaches past Sk, the causal diagonal or a padded key.
+template <int D, bool kMasked>
+__device__ __forceinline__ void fwd_tile(
+    const uint32_t (&qf)[D / 16][4], float (&acc)[D / 8][4], float (&m)[2],
+    float (&l)[2], const bf16* ks, const bf16* vs, const float* kpad_b,
+    int Sk, int k0, int row0, int offset, int causal, float sl2,
+    float drop_p, float inv_keep, int seed, int bh) {
+  constexpr int LD = D + 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+
+  // S = Q.K^T: K rows are keys, so plain ldmatrix gives its B fragments
+  float s[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) s[j][x] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      uint32_t b[4];
+      ldsm_x4(smem_addr(ks + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                        kk * 16 + (((lane >> 3) & 1) << 3)),
+              b);
+      mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
+      mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
+    }
+  }
+
+  // validity bits, bit 2 j + e, for rows g and g + 8
+  uint32_t ok[2] = {0xffffu, 0xffffu};
+  if (kMasked) {
+    uint32_t kbits = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = k0 + 8 * j + 2 * t4 + e;
+        const bool kv = c < Sk && (kpad_b == nullptr || kpad_b[c] > 0.5f);
+        kbits |= kv ? 1u << (2 * j + e) : 0u;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      ok[i] = kbits;
+      if (causal) {
+        const int r = row0 + g + 8 * i;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (r + offset < k0 + 8 * j + 2 * t4 + e)
+              ok[i] &= ~(1u << (2 * j + e));
+      }
+    }
+  }
+
+  // online softmax in the log2 domain: x = s * scale * log2(e)
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = x >> 1, bit = 2 * j + (x & 1);
+      float y = s[j][x] * sl2;
+      if (kMasked && !((ok[i] >> bit) & 1u)) y = kNegInf;
+      s[j][x] = y;
+      mx[i] = fmaxf(mx[i], y);
+    }
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(m[i], quad_max(mx[i]));
+    alpha[i] = exp2f(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= alpha[i];  // this lane's part of the row sum
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = x >> 1, bit = 2 * j + (x & 1);
+      float p = (!kMasked || ((ok[i] >> bit) & 1u)) ? exp2f(s[j][x] - m[i])
+                                                    : 0.f;
+      l[i] += p;
+      if (drop_p > 0.f)
+        p = keep_bit(seed, bh, row0 + g + 8 * i, k0 + 8 * j + 2 * t4 + (x & 1),
+                     drop_p)
+                ? p / inv_keep
+                : 0.f;
+      s[j][x] = p;
+    }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[j][x] *= alpha[x >> 1];
+
+  // O += P.V: P from registers, V rows are keys, so ldmatrix.trans
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    uint32_t pa[4];
+    pack_a(pa, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+    for (int jp = 0; jp < D / 16; ++jp) {
+      uint32_t b[4];
+      ldsm_x4_t(smem_addr(vs + (kc * 16 + (lane & 7) +
+                                (((lane >> 3) & 1) << 3)) * LD +
+                          jp * 16 + ((lane >> 4) << 3)),
+                b);
+      mma_bf16(acc[2 * jp], pa, b[0], b[1]);
+      mma_bf16(acc[2 * jp + 1], pa, b[2], b[3]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const float* __restrict__ kpad, bf16* __restrict__ o,
+                      float* __restrict__ lse, Layout lay, int H, int Sq,
+                      int Sk, float scale, int causal, float drop_p,
+                      float inv_keep, int seed) {
+  constexpr int LD = D + 8;
+  constexpr int kTileElems = kTile * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [64][LD], then O
+  bf16* k_s = q_s + kTileElems;                   // [2][64][LD] ring
+  bf16* v_s = k_s + 2 * kTileElems;               // [2][64][LD] ring
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - (bh / H) * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heaviest first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = q0 + 16 * warp;  // this warp's first q row
+  const int offset = Sk - Sq;
+
+  const Strides sq = lay.t[0], sk = lay.t[1], sv = lay.t[2], so = lay.t[3];
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const float* kpad_b =
+      kpad != nullptr ? kpad + static_cast<long long>(b) * Sk : nullptr;
+  const int n_tiles = k_tiles_for(q0, Sq, Sk, causal);
+
+  load_tile<D>(q_s, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
+  cp_async_commit();
+  if (n_tiles > 0) {
+    load_tile<D>(k_s, kb, sk.s, 0, Sk);
+    load_tile<D>(v_s, vb, sv.s, 0, Sk);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // the q tile
+  __syncthreads();
+
+  // the warp's q fragments, in registers for the whole key loop
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(smem_addr(q_s + (16 * warp + (lane & 15)) * LD + kk * 16 +
+                      ((lane >> 4) << 3)),
+            qf[kk]);
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[j][x] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float sl2 = scale * kLog2e;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kTile;
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {  // the next tile loads while this one computes
+      load_tile<D>(k_s + (st ^ 1) * kTileElems, kb, sk.s, k0 + kTile, Sk);
+      load_tile<D>(v_s + (st ^ 1) * kTileElems, vb, sv.s, k0 + kTile, Sk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t
+    __syncthreads();
+    // a warp whose rows see no key of the tile (causal) adds nothing
+    if (!causal || row0 + 15 + offset >= k0) {
+      const bf16* ks = k_s + st * kTileElems;
+      const bf16* vs = v_s + st * kTileElems;
+      const bool masked = kpad != nullptr || k0 + kTile > Sk ||
+                          (causal && row0 + offset < k0 + kTile - 1);
+      if (masked)
+        fwd_tile<D, true>(qf, acc, m, l, ks, vs, kpad_b, Sk, k0, row0,
+                          offset, causal, sl2, drop_p, inv_keep, seed, bh);
+      else
+        fwd_tile<D, false>(qf, acc, m, l, ks, vs, kpad_b, Sk, k0, row0,
+                           offset, causal, sl2, drop_p, inv_keep, seed, bh);
+    }
+    __syncthreads();  // every warp is done with stage st
+  }
+  cp_async_wait<0>();
+
+  // O = acc / l through the warp's own rows of the q tile (its q
+  // fragments are in registers): 16-byte stores; LSE once per row
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = quad_sum(l[i]);
+  bf16* o_s = q_s + 16 * warp * LD;
+  __syncwarp();
+  frags_to_smem<D>(o_s, acc, 1.f / fmaxf(l[0], 1e-30f),
+                   1.f / fmaxf(l[1], 1e-30f));
+  __syncwarp();
+  store_rows<D>(o + b * so.b + h * so.h, so.s, o_s, row0, Sq);
+  if (t4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + g + 8 * i;
+      // l > 0 is the row's validity bit: some key passed its masks
+      if (r < Sq)
+        lse[static_cast<long long>(bh) * Sq + r] =
+            l[i] > 0.f ? m[i] * kLn2 + logf(l[i]) : kNegInf;
+    }
+  }
+}
+
+// ── K3, bf16: one 32-row half of a q tile against a warp's 16 keys ──
+//
+// s[j][2i + e] is (key kw0 + g + 8 i, q row q0 + c0 + 8 j + 2 t + e), c0
+// = 32 * half. kMasked: the half reaches past Sq, the causal diagonal or
+// a padded key.
+template <int D, bool kMasked>
+__device__ __forceinline__ void dkv_half(
+    float (&dka)[D / 8][4], float (&dva)[D / 8][4], const bf16* ks,
+    const bf16* vs, const bf16* qs, const bf16* dos, const float* ls,
+    const float* dls, int c0, int q0, int kw0, int Sq, int offset,
+    int causal, const bool (&kok)[2], float sl2, float drop_p,
+    float inv_keep, int seed, int bh) {
+  constexpr int LD = D + 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+
+  // S^T = K.Q^T and dP^T = V.dO^T: the warp's K and V rows are the A
+  // fragments, q and dO rows (plain ldmatrix) the B fragments
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) s[j][x] = dp[j][x] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t ka[4], va[4];
+    const int a_off = (lane & 15) * LD + kk * 16 + ((lane >> 4) << 3);
+    ldsm_x4(smem_addr(ks + a_off), ka);
+    ldsm_x4(smem_addr(vs + a_off), va);
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      const int b_off = (c0 + jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                        kk * 16 + (((lane >> 3) & 1) << 3);
+      uint32_t b[4];
+      ldsm_x4(smem_addr(qs + b_off), b);
+      mma_bf16(s[2 * jp], ka, b[0], b[1]);
+      mma_bf16(s[2 * jp + 1], ka, b[2], b[3]);
+      ldsm_x4(smem_addr(dos + b_off), b);
+      mma_bf16(dp[2 * jp], va, b[0], b[1]);
+      mma_bf16(dp[2 * jp + 1], va, b[2], b[3]);
+    }
+  }
+
+  // p = exp(scale s - LSE) (log2 domain), p_eff, dS = p (dP_eff - Delta)
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int qi = c0 + 8 * j + 2 * t4 + e;
+      const float lse2 = ls[qi] * kLog2e;
+      const float dl = dls[qi];
+      const int r = q0 + qi;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int x = 2 * i + e;
+        const int c = kw0 + g + 8 * i;
+        bool valid = true;
+        if (kMasked)
+          valid = kok[i] && r < Sq && (!causal || r + offset >= c);
+        const float p = valid ? exp2f(s[j][x] * sl2 - lse2) : 0.f;
+        float p_eff = p, gd = dp[j][x];
+        if (drop_p > 0.f) {
+          const bool kept = keep_bit(seed, bh, r, c, drop_p);
+          p_eff = kept ? p / inv_keep : 0.f;
+          gd = kept ? gd / inv_keep : 0.f;
+        }
+        s[j][x] = p_eff;
+        dp[j][x] = p * (gd - dl);
+      }
+    }
+
+  // dV += p_eff^T.dO and dK += dS^T.Q: the half's q rows are the K
+  // dimension, so dO and Q come through ldmatrix.trans
+#pragma unroll
+  for (int kc = 0; kc < 2; ++kc) {
+    uint32_t pa[4], da[4];
+    pack_a(pa, s[2 * kc], s[2 * kc + 1]);
+    pack_a(da, dp[2 * kc], dp[2 * kc + 1]);
+#pragma unroll
+    for (int jp = 0; jp < D / 16; ++jp) {
+      const int b_off =
+          (c0 + kc * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * LD +
+          jp * 16 + ((lane >> 4) << 3);
+      uint32_t b[4];
+      ldsm_x4_t(smem_addr(dos + b_off), b);
+      mma_bf16(dva[2 * jp], pa, b[0], b[1]);
+      mma_bf16(dva[2 * jp + 1], pa, b[2], b[3]);
+      ldsm_x4_t(smem_addr(qs + b_off), b);
+      mma_bf16(dka[2 * jp], da, b[0], b[1]);
+      mma_bf16(dka[2 * jp + 1], da, b[2], b[3]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const float* __restrict__ kpad, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, Layout lay, int H, int Sq,
+                      int Sk, float scale, int causal, float drop_p,
+                      float inv_keep, int seed) {
+  constexpr int LD = D + 8;
+  constexpr int kTileElems = kTile * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [64][LD], then dK
+  bf16* v_s = k_s + kTileElems;                   // [64][LD], then dV
+  bf16* q_s = v_s + kTileElems;                   // [2][64][LD] ring
+  bf16* do_s = q_s + 2 * kTileElems;              // [2][64][LD] ring
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTileElems);  // [2][64]
+  float* dl_s = lse_s + 2 * kTile;                                 // [2][64]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - (bh / H) * H;
+  const int k0 = blockIdx.y * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int kw0 = k0 + 16 * warp;  // this warp's first key
+  const int offset = Sk - Sq;
+
+  const Strides sq = lay.t[0], sk = lay.t[1], sv = lay.t[2], sd = lay.t[3];
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* db = dout + b * sd.b + h * sd.h;
+  const float* lse_b = lse + static_cast<long long>(bh) * Sq;
+  const float* dl_b = delta + static_cast<long long>(bh) * Sq;
+
+  // q tile t (rows, dO, LSE, Delta) into ring stage st
+  auto load_q_tile = [&](int t, int st) {
+    const int q0 = t * kTile;
+    load_tile<D>(q_s + st * kTileElems, qb, sq.s, q0, Sq);
+    load_tile<D>(do_s + st * kTileElems, db, sd.s, q0, Sq);
+    const int r = threadIdx.x & (kTile - 1);
+    const bool ok = q0 + r < Sq;
+    if (threadIdx.x < kTile)
+      cp_async4(smem_addr(lse_s + st * kTile + r), ok ? lse_b + q0 + r : lse_b,
+                ok);
+    else
+      cp_async4(smem_addr(dl_s + st * kTile + r), ok ? dl_b + q0 + r : dl_b,
+                ok);
+  };
+
+  const int t_first = first_q_tile(k0, Sq, Sk, causal);
+  const int n_q = (Sq + kTile - 1) / kTile;
+  load_tile<D>(k_s, k + b * sk.b + h * sk.h, sk.s, k0, Sk);
+  load_tile<D>(v_s, v + b * sv.b + h * sv.h, sv.s, k0, Sk);
+  if (t_first < n_q) load_q_tile(t_first, 0);
+  cp_async_commit();
+
+  // the warp's two keys of this lane (rows g, g + 8): inside Sk, kept
+  bool kok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = kw0 + g + 8 * i;
+    kok[i] = c < Sk &&
+             (kpad == nullptr ||
+              kpad[static_cast<long long>(b) * Sk + c] > 0.5f);
+  }
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) dka[j][x] = dva[j][x] = 0.f;
+  const float sl2 = scale * kLog2e;
+  const bf16* ks = k_s + 16 * warp * LD;
+  const bf16* vs = v_s + 16 * warp * LD;
+
+  for (int t = t_first; t < n_q; ++t) {
+    const int st = (t - t_first) & 1;
+    const int q0 = t * kTile;
+    if (t + 1 < n_q) load_q_tile(t + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // k/v and q tile t
+    __syncthreads();
+    const bf16* qs = q_s + st * kTileElems;
+    const bf16* dos = do_s + st * kTileElems;
+    const float* ls = lse_s + st * kTile;
+    const float* dls = dl_s + st * kTile;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c0 = 32 * half;
+      const int r0 = q0 + c0;  // the half's first q row
+      // all rows past Sq, or none of them sees a key of this warp: skip
+      if (r0 >= Sq || (causal && r0 + 31 + offset < kw0)) continue;
+      const bool masked = kpad != nullptr || r0 + 32 > Sq ||
+                          (causal && r0 + offset < kw0 + 15);
+      if (masked)
+        dkv_half<D, true>(dka, dva, ks, vs, qs, dos, ls, dls, c0, q0, kw0,
+                          Sq, offset, causal, kok, sl2, drop_p, inv_keep,
+                          seed, bh);
+      else
+        dkv_half<D, false>(dka, dva, ks, vs, qs, dos, ls, dls, c0, q0, kw0,
+                           Sq, offset, causal, kok, sl2, drop_p, inv_keep,
+                           seed, bh);
+    }
+    __syncthreads();  // every warp is done with stage st
+  }
+  cp_async_wait<0>();
+
+  // dK (times scale) and dV through the warp's own k/v rows: 16-byte
+  // stores into contiguous [B, Sk, H, D]
+  bf16* dk_s = k_s + 16 * warp * LD;
+  bf16* dv_s = v_s + 16 * warp * LD;
+  __syncwarp();
+  frags_to_smem<D>(dk_s, dka, scale, scale);
+  frags_to_smem<D>(dv_s, dva, 1.f, 1.f);
+  __syncwarp();
+  const long long row_stride = static_cast<long long>(H) * D;
+  const long long base = static_cast<long long>(b) * Sk * row_stride +
+                         static_cast<long long>(h) * D;
+  store_rows<D>(dk + base, row_stride, dk_s, kw0, Sk);
+  store_rows<D>(dv + base, row_stride, dv_s, kw0, Sk);
+}
+
 // ───────────────────────────── launchers ─────────────────────────────
 
 struct Args {
@@ -593,20 +1207,41 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// bytes of shared memory of a bf16 kernel: n_tiles [64][D + 8] bf16 tiles
+// and n_vec [64] f32 vectors
+template <int D>
+constexpr size_t smem_bf16(int n_tiles, int n_vec) {
+  return static_cast<size_t>(n_tiles) * kTile * (D + 8) * sizeof(bf16) +
+         static_cast<size_t>(n_vec) * kTile * sizeof(float);
+}
+
+// f32: the scalar kernel; bf16: the tensor-core kernel
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v,
                 const void* kpad, void* o, void* lse, const Layout& lay,
                 const Args& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<D>(3, 1, 1);
-  auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid(a.B * a.H, (a.Sq + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(kpad),
-      static_cast<T*>(o), static_cast<float*>(lse), lay, a.H, a.Sq, a.Sk,
-      a.scale, a.causal, a.drop_p, a.inv_keep, a.seed);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const size_t smem = smem_bf16<D>(5, 0);  // q, k ring x 2, v ring x 2
+    auto kernel = flash_fwd_bf16_kernel<D>;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kMmaThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const float*>(kpad),
+        static_cast<bf16*>(o), static_cast<float*>(lse), lay, a.H, a.Sq,
+        a.Sk, a.scale, a.causal, a.drop_p, a.inv_keep, a.seed);
+  } else {
+    const size_t smem = sizeof(float) * smem_floats<D>(3, 1, 1);
+    auto kernel = flash_fwd_kernel<T, D>;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const float*>(kpad),
+        static_cast<T*>(o), static_cast<float*>(lse), lay, a.H, a.Sq, a.Sk,
+        a.scale, a.causal, a.drop_p, a.inv_keep, a.seed);
+  }
   return cudaGetLastError();
 }
 
@@ -629,23 +1264,39 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
+// f32: the scalar kernel; bf16: the tensor-core kernel
 template <typename T, int D>
 cudaError_t dkv(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 const void* kpad, void* dkp, void* dvp, const Layout& lay,
                 const Args& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<D>(4, 2, 3);
-  auto kernel = flash_dkv_kernel<T, D>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid(a.B * a.H, (a.Sk + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(kpad), static_cast<T*>(dkp),
-      static_cast<T*>(dvp), lay, a.H, a.Sq, a.Sk, a.scale, a.causal,
-      a.drop_p, a.inv_keep, a.seed);
+  if constexpr (std::is_same<T, bf16>::value) {
+    // k, v, q ring x 2, dO ring x 2; LSE and Delta rings x 2
+    const size_t smem = smem_bf16<D>(6, 4);
+    auto kernel = flash_dkv_bf16_kernel<D>;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kMmaThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<const float*>(kpad), static_cast<bf16*>(dkp),
+        static_cast<bf16*>(dvp), lay, a.H, a.Sq, a.Sk, a.scale, a.causal,
+        a.drop_p, a.inv_keep, a.seed);
+  } else {
+    const size_t smem = sizeof(float) * smem_floats<D>(4, 2, 3);
+    auto kernel = flash_dkv_kernel<T, D>;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<const float*>(kpad), static_cast<T*>(dkp),
+        static_cast<T*>(dvp), lay, a.H, a.Sq, a.Sk, a.scale, a.causal,
+        a.drop_p, a.inv_keep, a.seed);
+  }
   return cudaGetLastError();
 }
 

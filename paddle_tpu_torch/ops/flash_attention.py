@@ -34,9 +34,12 @@ the two paths.
 
 The kernels read q/k/v/dO through their strides (the last dimension
 must be contiguous), so GPT's q/k/v -- ``[B, S, H, D]`` views of one
-``[B, S, 3H]`` projection -- go in without a copy. O, dQ, dK, dV are new
-contiguous ``[B, S, H, D]`` tensors, LSE and Delta contiguous ``[B*H,
-Sq]`` f32.
+``[B, S, 3H]`` projection -- go in without a copy. The bf16 forward and
+dK/dV kernels (tensor cores, 16-byte asynchronous copies) also need each
+bf16 input's data pointer and batch, sequence and head strides on 16-byte
+boundaries; the wrapper refuses others with ``ValueError`` before any
+launch. O, dQ, dK, dV are new contiguous ``[B, S, H, D]`` tensors, LSE and
+Delta contiguous ``[B*H, Sq]`` f32.
 """
 from __future__ import annotations
 
@@ -231,9 +234,22 @@ def _check_inputs(q, k, v, kpad, extra=()):
     _check(sq >= 1 and sk >= 1, "empty sequence")
     _check(all(t.stride(-1) == 1 for t in (q, k, v, *extra)),
            "the head dimension must be contiguous (stride 1)")
+    if q.dtype == torch.bfloat16:
+        _check(all(_aligned16(t) for t in (q, k, v, *extra)),
+               "bf16 q, k, v (and dO) need a 16-byte aligned data pointer "
+               "and batch, sequence and head strides on 16-byte boundaries")
     if kpad is not None:
         _check(kpad.dtype == torch.float32 and tuple(kpad.shape) == (B, sk)
                and kpad.is_contiguous(), "key padding mask f32 [B, Sk]")
+
+
+def _aligned16(t: torch.Tensor) -> bool:
+    """The bf16 kernels' cp.async copies move 16 bytes: ``t``'s data
+    pointer and its batch, sequence and head strides must be multiples of
+    16 bytes."""
+    size = t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0 for s in t.stride()[:3]))
 
 
 def _strides(*ts) -> ctypes.Array:
@@ -397,7 +413,8 @@ class FlashAttentionFunction(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         causal, scale, dropout_p, seed = ctx.args
-        if do.stride(-1) != 1:
+        if do.stride(-1) != 1 or (do.dtype == torch.bfloat16
+                                  and not _aligned16(do)):
             do = do.contiguous()
         dq, dk, dv = flash_bwd(q, k, v, o, lse, do, causal, scale, dropout_p,
                                seed, ctx.kpad)

@@ -48,7 +48,8 @@ _GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas")
 
 def _group(kernel: str, ranges) -> str:
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
-        if f"{name}_kernel" in kernel:
+        # the f32 kernel and its bf16 tensor-core form
+        if f"{name}_kernel" in kernel or f"{name}_bf16_kernel" in kernel:
             return name
     if "fused_linear_cross_entropy" in ranges:
         return "fused_ce"

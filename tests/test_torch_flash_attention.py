@@ -208,3 +208,84 @@ def test_sdpa_masks_match_jax(form):
     assert tfa.plain_calls["flash_fwd"] == (form == "key_padding")
     np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()),
                                atol=1e-5, rtol=1e-5)
+
+
+def _misaligned(which):
+    """bf16 ``[2, 8, 2, 32]`` views with one 16-byte rule broken."""
+    bf = torch.bfloat16
+    n = 2 * 8 * 2 * 32
+    if which == "data_pointer":  # 2 bytes past an aligned allocation
+        return torch.zeros(n + 1, dtype=bf)[1:].view(2, 8, 2, 32)
+    if which == "batch_stride":  # 516 elements = 1032 bytes
+        return torch.zeros(2 * 516, dtype=bf).as_strided(
+            (2, 8, 2, 32), (516, 64, 32, 1))
+    if which == "sequence_stride":  # 68 elements = 136 bytes
+        return torch.zeros(2, 8, 68, dtype=bf)[..., :64].unflatten(-1, (2, 32))
+    assert which == "head_stride"  # 36 elements = 72 bytes
+    return torch.zeros(2, 8, 2, 36, dtype=bf)[..., :32]
+
+
+@pytest.mark.parametrize("which", ["data_pointer", "batch_stride",
+                                   "sequence_stride", "head_stride"])
+@pytest.mark.parametrize("slot", ["q", "k", "v", "dO"])
+def test_kernel_path_refuses_misaligned_bf16(which, slot):
+    """The bf16 forward and dK/dV kernels copy 16 bytes at a time: the
+    wrapper refuses a bf16 q, k, v or dO whose data pointer or batch,
+    sequence or head stride is off 16 bytes; the same layout in f32, which
+    the f32 kernels take, passes."""
+    good = torch.zeros(2, 8, 2, 32, dtype=torch.bfloat16)
+    bad = _misaligned(which)
+    assert bad.shape == good.shape and bad.stride(-1) == 1
+    args = {"q": good, "k": good, "v": good, "dO": good}
+    args[slot] = bad
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa._check_inputs(args["q"], args["k"], args["v"], None,
+                          extra=(args["dO"],))
+    f32 = {n: t.float() if n != slot else _misaligned_f32(which)
+           for n, t in args.items()}
+    tfa._check_inputs(f32["q"], f32["k"], f32["v"], None,
+                      extra=(f32["dO"],))
+
+
+def _misaligned_f32(which):
+    t = _misaligned(which)
+    return torch.zeros(t.untyped_storage().nbytes() // 2).as_strided(
+        t.shape, t.stride(), t.storage_offset())
+
+
+def _captured_qkv(attn, x, monkeypatch):
+    """The q, k, v that ``attn`` hands to ``F.flash_attention``."""
+    seen = {}
+
+    def capture(q, k, v, **kw):
+        seen.update(q=q, k=k, v=v)
+        return torch.zeros_like(q), None
+
+    monkeypatch.setattr(tF, "flash_attention", capture)
+    attn(x)
+    return seen["q"], seen["k"], seen["v"]
+
+
+@pytest.mark.parametrize("model", ["gpt", "llama_gqa", "llama_mha"])
+def test_kernel_path_takes_model_qkv(model, monkeypatch):
+    """The kernels take the models' own q/k/v without a copy: GPT's
+    strided views of one QKV projection and Llama's post-RoPE (and, with
+    GQA, repeated) heads, in bf16, built at a tiny size through the
+    port's GPTAttention and LlamaAttention."""
+    from paddle_tpu_torch.models import gpt as tgpt
+    from paddle_tpu_torch.models import llama as tllama
+
+    torch.manual_seed(0)
+    if model == "gpt":
+        attn = tgpt.GPTAttention(tgpt.gpt_tiny())
+    else:
+        nkv = 2 if model == "llama_gqa" else 4
+        attn = tllama.LlamaAttention(tllama.llama_tiny(num_key_value_heads=nkv))
+    attn = attn.to(torch.bfloat16)
+    x = torch.randn(2, 24, 128).to(torch.bfloat16)
+    q, k, v = _captured_qkv(attn, x, monkeypatch)
+    assert q.dtype == torch.bfloat16 and q.shape == (2, 24, 4, 32)
+    if model == "gpt":  # views into the [B, S, 3H] projection
+        assert q.stride(1) == 3 * 128 and not q.is_contiguous()
+        assert k.data_ptr() - q.data_ptr() == 128 * 2
+    tfa._check_inputs(q, k, v, None, extra=(torch.zeros_like(q),))

@@ -38,3 +38,45 @@ def test_busy_is_the_union_of_device_intervals(events, busy_ms):
 def test_busy_beyond_the_window_raises():
     with pytest.raises(RuntimeError, match="exceeds"):
         device_busy([_evt("a", 0, 4000), _evt("b", 5000, 9000)], 7.5)
+
+
+@pytest.mark.parametrize("kernel, group", [
+    ("void (anonymous namespace)::flash_fwd_bf16_kernel<128>(...)",
+     "flash_fwd"),
+    ("void (anonymous namespace)::flash_fwd_kernel<float, 128>(...)",
+     "flash_fwd"),
+    ("void (anonymous namespace)::flash_dq_kernel<__nv_bfloat16, 128>(...)",
+     "flash_dq"),
+    ("void (anonymous namespace)::flash_dkv_bf16_kernel<64>(...)",
+     "flash_dkv"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32", "gemm"),
+    ("elementwise_kernel", "other"),
+])
+def test_profile_train_groups_flash_kernels(kernel, group):
+    """Each flash kernel, f32 or bf16 form, falls in its own group."""
+    from paddle_tpu_torch.tools.profile_train import _group
+
+    assert _group(kernel, ()) == group
+
+
+@pytest.mark.parametrize("mangled, label", [
+    ("_ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi128EEEvPK13__nv_bfloat16"
+     "6Layouti", "flash_fwd_bf16_kernel<128>"),
+    ("_ZN50_GLOBAL__N__af27cb8_18_flash_attention_cu_5326155221flash_dkv_"
+     "bf16_kernelILi64EEEvPK13__nv_bfloat16", "flash_dkv_bf16_kernel<64>"),
+    ("_ZN12_GLOBAL__N_115flash_dq_kernelIfLi32EEEvPKT_6Layouti",
+     "flash_dq_kernel<f32, 32>"),
+    ("_Z22paged_attention_kernelI13__nv_bfloat16S0_EvPKT_PKT0_Pf",
+     "paged_attention_kernel<bf16, bf16>"),
+    ("_Z22paged_attention_kernelI13__nv_bfloat16aEvPKT_PKT0_Pf",
+     "paged_attention_kernel<bf16, int8>"),
+    ("_ZN12_GLOBAL__N_122paged_attention_kernelI13__nv_bfloat16S1_EEvPKT_"
+     "PKT0_Pf", "paged_attention_kernel<bf16, bf16>"),
+    ("_Z12adamw_kernelPfS_", "adamw_kernel"),
+    ("not_mangled", "not_mangled"),
+])
+def test_chip_smoke_labels_ptxas_kernels(mangled, label):
+    """chip_smoke.py names each kernel of the build's ptxas report."""
+    import chip_smoke
+
+    assert chip_smoke.kernel_label(mangled) == label
