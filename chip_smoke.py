@@ -13,10 +13,15 @@ Phases, in order; any failure exits non-zero before the result line:
    same function, its time:
    a. paged attention at the serving path's shapes (Llama-0.76B
       attention: 16 heads of 128, pages of 16, rows up to 2048 tokens),
-      the serving path's f32 q over bf16 pages first;
+      the serving path's f32 q over bf16 pages first, through each path
+      of the kernel (``paged_cases``): decode rows split across blocks
+      and merged, one 2048-token row, lengths at a page's and a
+      partition's edge, a chunk's rows tiled, tiles across slot
+      boundaries, padding rows on the null table, GQA and int8 pages;
+      the decode and chunk cases timed beside their bounds;
    b. flash attention forward (K1), dQ (K2) and dK/dV (K3) at GPT-3
       1.3B's training shape (B 8, H 16, S 1024, D 128, causal; q/k/v
-      strided views of one QKV projection) in bf16 (K1 and K3 on tensor
+      strided views of one QKV projection) in bf16 (all three on tensor
       cores) and f32, and at Sq != Sk, S = 1000, key padding with an
       empty batch row (f32 and bf16), dropout, D 32 (f32 and bf16) and D
       64; each output held elementwise and by its norm (``FLASH_TOL``),
@@ -109,6 +114,36 @@ def cuda_ms(torch, fn, launches=20, rounds=5):
         end.record()
         end.synchronize()
         per.append(start.elapsed_time(end) / launches)
+    return statistics.median(per)
+
+
+def graph_ms(torch, fn, launches=20, rounds=5):
+    """Median over ``rounds`` of the mean device time of ``launches``
+    calls captured in one CUDA graph and replayed: the card's time for
+    the calls without the host's time to issue them (which exceeds the
+    device time of a call of a few microseconds)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        per.append(start.elapsed_time(end) / launches)
+    del graph
     return statistics.median(per)
 
 
@@ -215,19 +250,26 @@ def _pool(torch, gen, shape, dtype, dev):
 
 
 def make_case(torch, dev, *, q_lens, starts, nh, nkv, q_dtype, kv_dtype,
-              hd=128, page=16, pages_per_seq=128, seed=0):
+              hd=128, page=16, pages_per_seq=128, null_rows=0, seed=0):
     """Inputs of one ragged call: slot i contributes q_lens[i] rows at
-    positions starts[i].. over its own pages, as the engine lays them
-    out."""
+    positions starts[i].. over its own pages, then ``null_rows`` padding
+    rows on the null table (page 0) at position 0, as the engine lays
+    them out."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_slots = len(q_lens)
     num_pages = n_slots * pages_per_seq + 1
     perm = torch.randperm(num_pages - 1, generator=gen, device=dev) + 1
     slot_bt = perm.view(n_slots, pages_per_seq).to(torch.int32)
     reps = torch.tensor(q_lens, device=dev)
-    bt = slot_bt.repeat_interleave(reps, dim=0).contiguous()
+    bt = slot_bt.repeat_interleave(reps, dim=0)
     lens = torch.cat([torch.arange(s, s + n, device=dev) + 1
                       for s, n in zip(starts, q_lens)]).to(torch.int32)
+    if null_rows:
+        bt = torch.cat([bt, torch.zeros((null_rows, pages_per_seq),
+                                        dtype=torch.int32, device=dev)])
+        lens = torch.cat([lens, torch.ones(null_rows, dtype=torch.int32,
+                                           device=dev)])
+    bt = bt.contiguous()
     T = int(lens.numel())
     q = torch.randn((T, nh, hd), generator=gen, device=dev).to(q_dtype)
     shape = (num_pages, page, nkv, hd)
@@ -240,19 +282,24 @@ def make_case(torch, dev, *, q_lens, starts, nh, nkv, q_dtype, kv_dtype,
     return q, k, v, bt, lens, ks, vs
 
 
-def phase_paged_kernels(torch):
-    from paddle_tpu_torch.ops import paged_attention as pa
-
-    dev = torch.device("cuda")
+def paged_cases(torch, pa):
+    """Phase 3a's cases: (name, make_case arguments, tolerance, timed).
+    The serving path's shapes (Llama-0.76B: 16 heads of 128, pages of
+    16, tables of 128 pages), through every path of the kernel: rows
+    split across blocks with a merge (decode), rows tiled per chunk (no
+    split), tiles that cross a slot boundary, padding rows."""
     f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
     decode_lens = [2048, 1, 731, 1500, 64, 1999, 17, 1024]
     decode = dict(q_lens=[1] * 8, starts=[n - 1 for n in decode_lens])
     chunk = dict(q_lens=[1, 1, 1, 256], starts=[900, 2047, 33, 1500])
-    cases = [
+    # four decode rows: 1 key, a page, a partition, a partition + 1
+    part = pa.launch_plan(4, 16, 16, 16, 128).part_pages * 16
+    edges = dict(q_lens=[1] * 4, starts=[0, 15, part - 1, part])
+    serve = dict(nh=16, nkv=16, q_dtype=f32, kv_dtype=bf16)
+    return [
         # the serving path's pairing: f32 q (rope'd by f32 tables) over
         # bf16 pages; both versions widen the pages and compute in f32
-        ("a_decode_f32q_bf16kv", dict(decode, nh=16, nkv=16, q_dtype=f32,
-                                      kv_dtype=bf16), 5e-5, True),
+        ("a_decode_f32q_bf16kv", dict(decode, **serve), 5e-5, True),
         ("a_decode_f32", dict(decode, nh=16, nkv=16, q_dtype=f32,
                               kv_dtype=f32), 5e-5, True),
         ("a_decode_bf16", dict(decode, nh=16, nkv=16, q_dtype=bf16,
@@ -263,10 +310,29 @@ def phase_paged_kernels(torch):
                             kv_dtype=bf16), 2e-2, False),
         ("d_int8_pages", dict(decode, nh=16, nkv=16, q_dtype=f32,
                               kv_dtype=i8), 5e-5, False),
+        ("e_one_row_2048", dict(q_lens=[1], starts=[2047], **serve), 5e-5,
+         True),
+        ("f_edges", dict(edges, **serve), 5e-5, False),
+        ("g_chunk_cross_slots", dict(q_lens=[5, 20, 1], starts=[700, 1200, 40],
+                                     **serve), 5e-5, False),
+        ("h_padding_rows", dict(q_lens=[1, 1, 1], starts=[300, 5, 1100],
+                                null_rows=13, **serve), 5e-5, False),
+        ("i_gqa_int8_split", dict(q_lens=[1, 1], starts=[2047, 600], nh=32,
+                                  nkv=8, q_dtype=f32, kv_dtype=i8), 5e-5,
+         False),
+        ("j_chunk_f32q", dict(chunk, **serve), 5e-5, False),
     ]
+
+
+def phase_paged_kernels(torch):
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
     results = {}
-    for name, kw, tol, timed in cases:
+    for name, kw, tol, timed in paged_cases(torch, pa):
         q, k, v, bt, lens, ks, vs = make_case(torch, dev, **kw)
+        plan = pa.launch_plan(q.shape[0], q.shape[1], k.shape[2], k.shape[1],
+                              bt.shape[1])
         got = pa.paged_attention(q, k, v, bt, lens, k_scale=ks, v_scale=vs)
         torch.cuda.synchronize()
         want = pa.ref_paged_attention(q, k, v, bt, lens, k_scale=ks,
@@ -275,22 +341,30 @@ def phase_paged_kernels(torch):
         max_err = float(err.max())
         ok = bool((err <= tol + tol * want.float().abs()).all())
         line = (f"kernel {name}: T={q.shape[0]} nh={q.shape[1]} "
-                f"nkv={k.shape[2]} max_abs_err={max_err:.3e} "
+                f"nkv={k.shape[2]} {k.dtype} pages, plan n_split="
+                f"{plan.n_split} part_pages={plan.part_pages} rows_per_tile="
+                f"{plan.rows_per_tile}; max_abs_err={max_err:.3e} "
                 f"(atol=rtol={tol:g}) {'ok' if ok else 'MISMATCH'}")
         rec = {"max_abs_err": max_err}
         if timed:
-            ms = cuda_ms(torch, lambda: pa.paged_attention(
-                q, k, v, bt, lens, k_scale=ks, v_scale=vs))
+            def call():
+                return pa.paged_attention(q, k, v, bt, lens, k_scale=ks,
+                                          v_scale=vs)
+            # the kernel's time: calls replayed from a CUDA graph; beside
+            # it the eager calls' time, which includes the host's time to
+            # issue each call where that is the longer
+            ms = graph_ms(torch, call)
+            eager_ms = cuda_ms(torch, call)
             plain_ms = cuda_ms(torch, lambda: pa.ref_paged_attention(
                 q, k, v, bt, lens, k_scale=ks, v_scale=vs),
                 launches=2, rounds=3)
             bound_ms, bound_by = paged_bound(torch, q, k, bt, lens,
                                              ks is not None)
-            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
-            line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-                     f"bound {bound_ms:.4f} ms ({bound_by}), "
-                     f"{bound_ms / ms:.1%} of bound")
+            rec.update(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            line += (f" | kernel {ms:.4f} ms (eager calls {eager_ms:.4f} "
+                     f"ms), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                     f"({bound_by}), {bound_ms / ms:.1%} of bound")
         log(line)
         if not ok:
             fail(f"kernel case {name} disagrees with its plain version")
@@ -500,7 +574,7 @@ def phase_flash_kernels(torch):
 
 def flash_refuses_misaligned(torch, fa):
     """A bf16 q whose sequence stride (132 elements, 264 bytes) is off 16
-    bytes: K1's and K3's wrappers must raise ValueError before any
+    bytes: K1's, K2's and K3's wrappers must raise ValueError before any
     launch."""
     B, S, H, D = 1, 64, 2, 64
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -514,6 +588,8 @@ def flash_refuses_misaligned(torch, fa):
     refused = []
     for kname, call in (
             ("flash_fwd", lambda: fa.flash_fwd(q, k, v, causal=True)),
+            ("flash_dq", lambda: fa.flash_dq(q, k, v, do, lse, lse,
+                                             causal=True)),
             ("flash_dkv", lambda: fa.flash_dkv(q, k, v, do, lse, lse,
                                                causal=True))):
         try:
@@ -522,7 +598,8 @@ def flash_refuses_misaligned(torch, fa):
             refused.append(kname)
             msg = str(e)
     torch.cuda.synchronize()
-    ok = refused == ["flash_fwd", "flash_dkv"] and fa.kernel_launches == before
+    ok = (refused == ["flash_fwd", "flash_dq", "flash_dkv"]
+          and fa.kernel_launches == before)
     log(f"flash misaligned bf16 q (sequence stride {q.stride(1) * 2} bytes): "
         f"refused by {refused}, launches {fa.kernel_launches} "
         f"{'ok' if ok else 'NOT REFUSED'}" + (f" ({msg})" if refused else ""))
@@ -1013,6 +1090,7 @@ def main():
     phase_train(torch, card, "llama")
     phase_train_reference(torch, "llama")
     head = paged["a_decode_f32q_bf16kv"]
+    chunk = paged["b_chunk_bf16"]
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -1022,6 +1100,7 @@ def main():
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
+        "chunk_case": {"name": "b_chunk_bf16", **chunk},
     }]
     gpt13 = flash["gpt13_bf16"]
     for kname, line in (("flash_fwd", 128), ("flash_dq", 290),

@@ -4,7 +4,8 @@
 // Replaces, in paddle_tpu/ops/pallas/flash_attention.py:
 //   flash_fwd_kernel      -> _attn_kernel (launched by _flash_fwd_bhsd), f32
 //   flash_fwd_bf16_kernel -> _attn_kernel, bf16
-//   flash_dq_kernel       -> _dq_kernel   (launched by _flash_bwd_bhsd)
+//   flash_dq_kernel       -> _dq_kernel   (launched by _flash_bwd_bhsd), f32
+//   flash_dq_bf16_kernel  -> _dq_kernel, bf16
 //   flash_dkv_kernel      -> _dkv_kernel  (launched by _flash_bwd_bhsd), f32
 //   flash_dkv_bf16_kernel -> _dkv_kernel, bf16
 //
@@ -29,19 +30,21 @@
 //
 // What bounds them on this card. At GPT-3 1.3B's shape (B 8, H 16, S
 // 1024, D 128, causal, bf16) the forward moves ~134 MB (0.040 ms at 3.35
-// TB/s) and does ~3.4e10 flops (0.035 ms on bf16 tensor cores), dK/dV
-// ~6.9e10 flops (0.070 ms): at the roofline the forward is bound by bytes
-// and the backward by tensor-core operations. A kernel built from
-// mma.sync tiles is bound, short of that, by the tensor-core issue rate
-// of mma.sync (below wgmma's), by the shared-memory reads that feed the
-// B operands (every warp reads the whole k/v tile in K1, the whole q/dO
-// tile twice in K3) and by the exponentials of the softmax.
+// TB/s) and does ~3.4e10 flops (0.035 ms on bf16 tensor cores), dQ
+// ~5.2e10 flops (0.052 ms), dK/dV ~6.9e10 flops (0.070 ms): at the
+// roofline the forward is bound by bytes and the backward by tensor-core
+// operations. A kernel built from mma.sync tiles is bound, short of that,
+// by the tensor-core issue rate of mma.sync (below wgmma's), by the
+// shared-memory reads that feed the B operands (every warp reads the
+// whole k/v tile in K1 and K2, the whole q/dO tile twice in K3) and by
+// the exponentials of the softmax.
 //
-// bf16 design (K1 and K3, flash_*_bf16_kernel): tensor cores for every
-// product, mma.sync.m16n8k16 with bf16 operands and f32 accumulators.
-// A block of 4 warps owns a 64-row tile, 16 rows a warp: q rows in K1,
-// keys in K3 (so keys are the M dimension of all four K3 products and
-// dK/dV need no transpose or atomics: deterministic). Tiles are bf16 in
+// bf16 design (K1, K2 and K3, flash_*_bf16_kernel): tensor cores for
+// every product, mma.sync.m16n8k16 with bf16 operands and f32
+// accumulators. A block of 4 warps owns a 64-row tile, 16 rows a warp: q
+// rows in K1 and K2, keys in K3 (so keys are the M dimension of all four
+// K3 products and dK/dV need no transpose or atomics; K2 owns its q rows,
+// so dQ needs none either: all deterministic). Tiles are bf16 in
 // shared memory with rows padded to D + 8 elements (a row stride of 16
 // bytes modulo 128, so the 8 rows an ldmatrix phase reads fall in 8
 // different bank groups), filled by 16-byte cp.async.cg copies
@@ -53,7 +56,16 @@
 // and sum over the 4 lanes of a quad, the sum reduced once at the end);
 // P is packed to bf16 A fragments in registers (the m16n8 C layout is the
 // m16n8k16 A layout) and O += P.V takes V through ldmatrix.trans; O goes
-// out through shared memory as 16-byte stores, LSE once per row. K3: K
+// out through shared memory as 16-byte stores, LSE once per row. K2 is
+// K1 with K3's direct p in place of the online softmax: Q and dO tiles
+// are loaded once (Q's fragments kept in registers, dO's re-read from its
+// resident tile each key tile, which keeps the registers of S, dP and the
+// dQ sum free of spills), LSE (times log2 e) and Delta of the lane's two
+// rows sit in registers; k/v tiles stream through the ring up to the last
+// causal one; S = Q.K^T and dP = dO.V^T take K and V through ldmatrix, p =
+// exp2(s scale log2 e - LSE log2 e), dS = p (dP - Delta) in registers,
+// packed to bf16 A fragments, and dQ += dS.K takes K through
+// ldmatrix.trans; dQ leaves through the warp's rows of the Q tile. K3: K
 // and V are loaded once; q tiles stream through the ring from the first
 // causal one, each in two 32-row halves (which keeps dK and dV, 2 x D/2
 // f32 a thread, in registers across the loop): S^T = K.Q^T and dP^T =
@@ -61,19 +73,18 @@
 // fragments, dV += p_eff^T.dO and dK += dS^T.Q with B through
 // ldmatrix.trans. Masks are applied only on tiles that need them (the
 // causal diagonal, the sequence tail, key padding); a warp skips a tile
-// or half that the causal mask hides from it; K1 launches its heaviest
-// (last) q tiles first. The wrapper refuses bf16 inputs off 16-byte
-// alignment (data pointer, batch, sequence and head strides).
+// or half that the causal mask hides from it; K1 and K2 launch their
+// heaviest (last) q tiles first. The wrapper refuses bf16 inputs off
+// 16-byte alignment (data pointer, batch, sequence and head strides).
 //
-// f32 and K2 (flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel) are the
+// f32 (flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel) keeps the
 // first, simple design, without tensor cores (TF32 would move f32 results
 // past their 5e-5 check): f32 FMAs on CUDA cores fed from shared memory,
 // one block of 256 threads per (bh, 64-row tile), tiles staged as f32
 // with rows padded to D + 1 floats; each thread owns a 4 x 4 block of the
 // 64 x 64 score tile and a 4 x D/16 block of the accumulators. Known
-// losses: K2 (bf16 too) and every f32 kernel still run on CUDA cores;
-// the bf16 kernels use mma.sync, not wgmma with TMA and warp
-// specialisation.
+// losses: the f32 kernels run on CUDA cores; the bf16 kernels use
+// mma.sync, not wgmma with TMA and warp specialisation.
 //
 // Interface: plain C functions returning cudaError_t, bound with ctypes.
 // The caller allocates every output and passes PyTorch's current stream.
@@ -960,6 +971,224 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ── K2, bf16: one 64-key tile of a warp's 16 q rows ──
+//
+// s[j][2i + e] and dp[j][2i + e] are (row row0 + g + 8 i, key k0 + 8 j + 2
+// t + e), as in fwd_tile; lse2 and dl are rows g and g + 8's LSE * log2(e)
+// and Delta. kMasked: as in fwd_tile.
+template <int D, bool kMasked>
+__device__ __forceinline__ void dq_tile(
+    const uint32_t (&qf)[D / 16][4], float (&acc)[D / 8][4],
+    const float (&lse2)[2], const float (&dl)[2], const bf16* dos,
+    const bf16* ks, const bf16* vs, const float* kpad_b, int Sk, int k0,
+    int row0, int offset, int causal, float sl2, float drop_p,
+    float inv_keep, int seed, int bh) {
+  constexpr int LD = D + 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+
+  // S = Q.K^T and dP = dO.V^T: K and V rows are keys, so plain ldmatrix
+  // gives their B fragments; dO's A fragments come from its resident tile
+  float s[8][4], dp[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) s[j][x] = dp[j][x] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t da[4];
+    ldsm_x4(smem_addr(dos + (lane & 15) * LD + kk * 16 + ((lane >> 4) << 3)),
+            da);
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      const int b_off = (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                        kk * 16 + (((lane >> 3) & 1) << 3);
+      uint32_t b[4];
+      ldsm_x4(smem_addr(ks + b_off), b);
+      mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
+      mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
+      ldsm_x4(smem_addr(vs + b_off), b);
+      mma_bf16(dp[2 * jp], da, b[0], b[1]);
+      mma_bf16(dp[2 * jp + 1], da, b[2], b[3]);
+    }
+  }
+
+  // validity bits, bit 2 j + e, for rows g and g + 8 (as fwd_tile)
+  uint32_t ok[2] = {0xffffu, 0xffffu};
+  if (kMasked) {
+    uint32_t kbits = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = k0 + 8 * j + 2 * t4 + e;
+        const bool kv = c < Sk && (kpad_b == nullptr || kpad_b[c] > 0.5f);
+        kbits |= kv ? 1u << (2 * j + e) : 0u;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      ok[i] = kbits;
+      if (causal) {
+        const int r = row0 + g + 8 * i;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (r + offset < k0 + 8 * j + 2 * t4 + e)
+              ok[i] &= ~(1u << (2 * j + e));
+      }
+    }
+  }
+
+  // p = exp(scale s - LSE) in the log2 domain; dS = p (dP_eff - Delta),
+  // in place of s
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = x >> 1, bit = 2 * j + (x & 1);
+      const float p = (!kMasked || ((ok[i] >> bit) & 1u))
+                          ? exp2f(s[j][x] * sl2 - lse2[i])
+                          : 0.f;
+      float gd = dp[j][x];
+      if (drop_p > 0.f)
+        gd = keep_bit(seed, bh, row0 + g + 8 * i,
+                      k0 + 8 * j + 2 * t4 + (x & 1), drop_p)
+                 ? gd / inv_keep
+                 : 0.f;
+      s[j][x] = p * (gd - dl[i]);
+    }
+
+  // dQ += dS.K: dS rounded to bf16 A fragments in registers, K rows are
+  // keys (the K dimension), so ldmatrix.trans
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    uint32_t sa[4];
+    pack_a(sa, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+    for (int jp = 0; jp < D / 16; ++jp) {
+      uint32_t b[4];
+      ldsm_x4_t(smem_addr(ks + (kc * 16 + (lane & 7) +
+                                (((lane >> 3) & 1) << 3)) * LD +
+                          jp * 16 + ((lane >> 4) << 3)),
+                b);
+      mma_bf16(acc[2 * jp], sa, b[0], b[1]);
+      mma_bf16(acc[2 * jp + 1], sa, b[2], b[3]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const float* __restrict__ kpad, bf16* __restrict__ dq,
+                     Layout lay, int H, int Sq, int Sk, float scale,
+                     int causal, float drop_p, float inv_keep, int seed) {
+  constexpr int LD = D + 8;
+  constexpr int kTileElems = kTile * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [64][LD], then dQ
+  bf16* do_s = q_s + kTileElems;                  // [64][LD]
+  bf16* k_s = do_s + kTileElems;                  // [2][64][LD] ring
+  bf16* v_s = k_s + 2 * kTileElems;               // [2][64][LD] ring
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - (bh / H) * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heaviest first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int row0 = q0 + 16 * warp;  // this warp's first q row
+  const int offset = Sk - Sq;
+
+  const Strides sq = lay.t[0], sk = lay.t[1], sv = lay.t[2], sd = lay.t[3];
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const float* kpad_b =
+      kpad != nullptr ? kpad + static_cast<long long>(b) * Sk : nullptr;
+  const int n_tiles = k_tiles_for(q0, Sq, Sk, causal);
+
+  load_tile<D>(q_s, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
+  load_tile<D>(do_s, dout + b * sd.b + h * sd.h, sd.s, q0, Sq);
+  cp_async_commit();
+  if (n_tiles > 0) {
+    load_tile<D>(k_s, kb, sk.s, 0, Sk);
+    load_tile<D>(v_s, vb, sv.s, 0, Sk);
+  }
+  cp_async_commit();
+
+  // LSE (log2 domain) and Delta of this lane's rows g and g + 8
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + g + 8 * i;
+    const long long idx = static_cast<long long>(bh) * Sq + r;
+    lse2[i] = r < Sq ? lse[idx] * kLog2e : 0.f;
+    dl[i] = r < Sq ? delta[idx] : 0.f;
+  }
+  cp_async_wait<1>();  // the q and dO tiles
+  __syncthreads();
+
+  // the warp's q fragments, in registers for the whole key loop
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(smem_addr(q_s + (16 * warp + (lane & 15)) * LD + kk * 16 +
+                      ((lane >> 4) << 3)),
+            qf[kk]);
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[j][x] = 0.f;
+  const float sl2 = scale * kLog2e;
+  const bf16* dos = do_s + 16 * warp * LD;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kTile;
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {  // the next tile loads while this one computes
+      load_tile<D>(k_s + (st ^ 1) * kTileElems, kb, sk.s, k0 + kTile, Sk);
+      load_tile<D>(v_s + (st ^ 1) * kTileElems, vb, sv.s, k0 + kTile, Sk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t
+    __syncthreads();
+    // a warp whose rows see no key of the tile (causal) adds nothing
+    if (!causal || row0 + 15 + offset >= k0) {
+      const bf16* ks = k_s + st * kTileElems;
+      const bf16* vs = v_s + st * kTileElems;
+      const bool masked = kpad != nullptr || k0 + kTile > Sk ||
+                          (causal && row0 + offset < k0 + kTile - 1);
+      if (masked)
+        dq_tile<D, true>(qf, acc, lse2, dl, dos, ks, vs, kpad_b, Sk, k0,
+                         row0, offset, causal, sl2, drop_p, inv_keep, seed,
+                         bh);
+      else
+        dq_tile<D, false>(qf, acc, lse2, dl, dos, ks, vs, kpad_b, Sk, k0,
+                          row0, offset, causal, sl2, drop_p, inv_keep, seed,
+                          bh);
+    }
+    __syncthreads();  // every warp is done with stage st
+  }
+  cp_async_wait<0>();
+
+  // dQ = scale * acc through the warp's own rows of the q tile (its q
+  // fragments are in registers): 16-byte stores into contiguous [B, Sq,
+  // H, D]
+  bf16* dq_s = q_s + 16 * warp * LD;
+  __syncwarp();
+  frags_to_smem<D>(dq_s, acc, scale, scale);
+  __syncwarp();
+  const long long row_stride = static_cast<long long>(H) * D;
+  store_rows<D>(dq + static_cast<long long>(b) * Sq * row_stride +
+                    static_cast<long long>(h) * D,
+                row_stride, dq_s, row0, Sq);
+}
+
 // ── K3, bf16: one 32-row half of a q tile against a warp's 16 keys ──
 //
 // s[j][2i + e] is (key kw0 + g + 8 i, q row q0 + c0 + 8 j + 2 t + e), c0
@@ -1245,22 +1474,36 @@ cudaError_t fwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// f32: the scalar kernel; bf16: the tensor-core kernel
 template <typename T, int D>
 cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, const void* kpad,
                void* dqp, const Layout& lay, const Args& a,
                cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<D>(4, 1, 1);
-  auto kernel = flash_dq_kernel<T, D>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid(a.B * a.H, (a.Sq + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(kpad), static_cast<T*>(dqp), lay, a.H, a.Sq,
-      a.Sk, a.scale, a.causal, a.drop_p, a.inv_keep, a.seed);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const size_t smem = smem_bf16<D>(6, 0);  // q, dO, k ring x 2, v ring x 2
+    auto kernel = flash_dq_bf16_kernel<D>;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kMmaThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<const float*>(kpad), static_cast<bf16*>(dqp), lay, a.H,
+        a.Sq, a.Sk, a.scale, a.causal, a.drop_p, a.inv_keep, a.seed);
+  } else {
+    const size_t smem = sizeof(float) * smem_floats<D>(4, 1, 1);
+    auto kernel = flash_dq_kernel<T, D>;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<const float*>(kpad), static_cast<T*>(dqp), lay, a.H,
+        a.Sq, a.Sk, a.scale, a.causal, a.drop_p, a.inv_keep, a.seed);
+  }
   return cudaGetLastError();
 }
 

@@ -34,8 +34,8 @@ the two paths.
 
 The kernels read q/k/v/dO through their strides (the last dimension
 must be contiguous), so GPT's q/k/v -- ``[B, S, H, D]`` views of one
-``[B, S, 3H]`` projection -- go in without a copy. The bf16 forward and
-dK/dV kernels (tensor cores, 16-byte asynchronous copies) also need each
+``[B, S, 3H]`` projection -- go in without a copy. The bf16 kernels
+(tensor cores, 16-byte asynchronous copies) also need each
 bf16 input's data pointer and batch, sequence and head strides on 16-byte
 boundaries; the wrapper refuses others with ``ValueError`` before any
 launch. O, dQ, dK, dV are new contiguous ``[B, S, H, D]`` tensors, LSE and

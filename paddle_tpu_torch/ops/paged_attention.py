@@ -19,19 +19,30 @@ already written the chunk's KV gets causal attention over it.
 Dispatch is on the tensors' device, never on what is installed: CPU
 tensors take :func:`ref_paged_attention`; CUDA tensors launch the kernel
 in ``csrc/paged_attention.cu`` or raise. ``kernel_launches`` and
-``plain_calls`` count the two paths.
+``plain_calls`` count the two paths (one launch a call, its merge pass
+included).
+
+The kernel splits each row's pages into partitions (flash-decoding) and
+serves the rows of a chunk tile together; :func:`launch_plan` sets both
+from shapes alone, so a call reads nothing of the device on the host.
+With more than one partition, each writes a partial softmax state (m,
+l, acc) and a merge pass combines them: :func:`ref_partials` and
+:func:`ref_merge` are the plain versions of the two halves.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 __all__ = ["paged_attention", "ragged_paged_attention",
-           "ref_paged_attention", "reset_counters", "NEG_INF"]
+           "ref_paged_attention", "ref_partials", "ref_merge", "launch_plan",
+           "LaunchPlan", "reset_counters", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -42,6 +53,13 @@ plain_calls = 0
 # f32 bytes of gathered K the plain version holds at once; rows beyond
 # it are processed in blocks (the math is per row, so blocking is exact)
 _REF_BLOCK_BYTES = 512 << 20
+
+# the launch plan: enough blocks for four waves of the H100's 132 SMs, no
+# partition under 128 keys, at most 8 rows or 16 query vectors a tile
+_TARGET_BLOCKS = 4 * 132
+_MIN_PART_KEYS = 128
+_MAX_TILE_ROWS = 8
+_MAX_TILE_QUERIES = 16
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -99,6 +117,91 @@ def ref_paged_attention(q, k_pool, v_pool, block_tables, seq_lens,
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
+# ───────────────────────── launch plan and merge ─────────────────────────
+
+
+class LaunchPlan(NamedTuple):
+    """How the kernel cuts one call: ``n_split`` partitions of
+    ``part_pages`` pages of each row's block table, and row tiles of
+    ``rows_per_tile`` rows (a tile's rows are served by one block when
+    their tables agree)."""
+    n_split: int
+    part_pages: int
+    rows_per_tile: int
+
+    def partitions(self, pages_per_seq: int):
+        """``[j0, j1)`` page ranges of the partitions, in order."""
+        return [(s * self.part_pages,
+                 min((s + 1) * self.part_pages, pages_per_seq))
+                for s in range(self.n_split)]
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(T: int, nh: int, nkv: int, page_size: int,
+                pages_per_seq: int) -> LaunchPlan:
+    """The kernel's plan from shapes only (never the lengths or tables,
+    which live on the device). Enough partitions that the grid of (T, nkv,
+    n_split) blocks fills the card four times over, each partition at
+    least 128 keys long; ``n_split`` 1 when the rows alone fill it (then
+    there is no merge pass). Row tiles: the most rows, a power of two up
+    to 8, whose query vectors (rows x GQA group) stay within 16."""
+    groups = nh // nkv
+    want = -(-_TARGET_BLOCKS // max(1, T * nkv))
+    part = max(-(-pages_per_seq // want), -(-_MIN_PART_KEYS // page_size))
+    part = min(part, pages_per_seq)
+    rows = 1
+    while rows * 2 <= _MAX_TILE_ROWS and rows * 2 * groups <= _MAX_TILE_QUERIES:
+        rows *= 2
+    return LaunchPlan(-(-pages_per_seq // part), part, rows)
+
+
+def ref_partials(q, k_pool, v_pool, block_tables, seq_lens, plan: LaunchPlan,
+                 scale: float = None, k_scale=None, v_scale=None):
+    """Plain version of the kernel's first half: per partition ``s`` of
+    ``plan``, each row's softmax state over its keys in pages ``[j0,
+    j1)`` below its length, in f32: ``m [n_split, T, nh]`` (the largest
+    scaled score, -1e30 where the partition holds no key of the row),
+    ``l`` (sum of exp(score - m)) and ``acc [n_split, T, nh, hd]`` (the
+    unnormalised p.v)."""
+    T, nh, hd = q.shape
+    page_size, nkv = k_pool.shape[1], k_pool.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    groups = nh // nkv
+    pps = block_tables.shape[1]
+    bt = block_tables.to(torch.int64)
+    lens = seq_lens.to(torch.int64).clamp(max=pps * page_size)
+    ms, ls, accs = [], [], []
+    for j0, j1 in plan.partitions(pps):
+        pages = bt[:, j0:j1]
+        k = k_pool[pages].reshape(T, -1, nkv, hd).float()
+        v = v_pool[pages].reshape(T, -1, nkv, hd).float()
+        if k_scale is not None:
+            k = k * k_scale[pages].reshape(T, -1, nkv)[..., None]
+            v = v * v_scale[pages].reshape(T, -1, nkv)[..., None]
+        k = k.repeat_interleave(groups, dim=2)
+        v = v.repeat_interleave(groups, dim=2)
+        s = torch.einsum("thd,tkhd->thk", q.float(), k) * scale
+        pos = j0 * page_size + torch.arange(k.shape[1], device=q.device)
+        valid = (pos[None, :] < lens[:, None])[:, None, :]
+        m = s.masked_fill(~valid, NEG_INF).amax(-1)
+        p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("thk,tkhd->thd", p, v))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def ref_merge(m, l, acc, dtype=torch.float32):
+    """Plain version of the merge pass: ``o = sum_s acc_s e^(m_s - M) /
+    max(sum_s l_s e^(m_s - M), 1e-30)``, ``M = max_s m_s``, in
+    ``dtype``."""
+    mm = m.amax(0)
+    f = torch.exp(m - mm)
+    total = (l * f).sum(0).clamp_min(1e-30)
+    return ((acc * f[..., None]).sum(0) / total[..., None]).to(dtype)
+
+
 # ───────────────────────── CUDA kernel ─────────────────────────
 
 
@@ -107,10 +210,20 @@ def _lib():
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p,
-                       i, i, i, i, i, i, ctypes.c_float, i, i, p]
+        # q, k, v, k_scale, v_scale, block_tables, row_lens, out, ws; T,
+        # nh, nkv, hd, page_size, pages_per_seq, n_split, part_pages,
+        # rows_per_tile; scale; q and kv dtype codes; stream
+        fn.argtypes = ([p] * 9 + [i] * 9 + [ctypes.c_float, i, i, p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(device, *args) -> int:
+    """``paged_attention_launch(*args, stream)`` on ``device``, with
+    PyTorch's current stream there; returns its cudaError_t."""
+    fn = _lib()
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -154,19 +267,26 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, seq_lens, scale,
                "scales must be f32 [num_pages, page_size, nkv]")
     _check(all(t.is_contiguous() for t in tensors),
            "every tensor must be contiguous")
+    _check(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
+           "the pools' data pointers must be 16-byte aligned (the kernel "
+           "copies pages 16 bytes at a time)")
     out = torch.empty_like(q)
     if T == 0:
         return out
-    fn = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                k_scale.data_ptr() if quantized else None,
-                v_scale.data_ptr() if quantized else None,
-                block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-                T, nh, nkv, hd, page_size, block_tables.shape[1],
-                float(scale), _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype],
-                stream)
+    pps = block_tables.shape[1]
+    plan = launch_plan(T, nh, nkv, page_size, pps)
+    ws = None
+    if plan.n_split > 1:
+        ws = torch.empty(plan.n_split * T * nh * (hd + 2),
+                         dtype=torch.float32, device=q.device)
+    rc = _launch(q.device, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 k_scale.data_ptr() if quantized else None,
+                 v_scale.data_ptr() if quantized else None,
+                 block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+                 ws.data_ptr() if ws is not None else None,
+                 T, nh, nkv, hd, page_size, pps, plan.n_split,
+                 plan.part_pages, plan.rows_per_tile, float(scale),
+                 _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype])
     if rc != 0:
         raise RuntimeError(
             f"paged_attention kernel launch failed: cudaError_t {rc}")

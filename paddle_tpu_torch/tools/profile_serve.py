@@ -12,8 +12,10 @@ unprofiled step time; over the profiled steps, their wall time, the
 device's busy time (the union of its kernels' intervals) and idle share
 within that same window, and the summed duration of every kernel they
 launched (a kernel's duration, once; not its parent operator's share);
-and the kernels that took the most device time, with their launch
-counts and shares.
+the device time of K4, ragged paged attention (its attention kernel
+and, where a call splits rows across blocks, its merge pass), with its
+launches; and the kernels that took the most device time, with their
+launch counts and shares.
 """
 from __future__ import annotations
 
@@ -28,6 +30,16 @@ from .. import bench
 from ..models import LlamaConfig, LlamaForCausalLM
 from ..serving import ServingEngine
 from . import device_busy
+
+# the kernels of one K4 call: the attention kernel and its merge pass
+_K4_KERNELS = ("paged_attention_kernel", "paged_merge_kernel")
+
+
+def k4_time(rows):
+    """``(ms, launches)`` per step of K4 over ``(kernel, ms, launches)``
+    rows: both of its kernels, summed."""
+    mine = [(ms, c) for k, ms, c in rows if any(n in k for n in _K4_KERNELS)]
+    return sum(ms for ms, _c in mine), sum(c for _ms, c in mine)
 
 
 def main(argv=None):
@@ -69,6 +81,7 @@ def main(argv=None):
                     e.count / args.steps) for e in kernels),
                   key=lambda r: -r[1])
     kernel_ms = sum(ms for _k, ms, _c in rows)
+    k4_ms, k4_launches = k4_time(rows)
     busy_ms, idle = device_busy(prof.events(), profiled_ms)
     print(json.dumps({
         "device": bench.card_label(torch.device("cuda")),
@@ -79,6 +92,7 @@ def main(argv=None):
         "kernel_ms_per_step": kernel_ms,
         "kernels": len(rows),
         "launches_per_step": sum(c for _k, _ms, c in rows),
+        "k4_ms_per_step": k4_ms, "k4_kernel_launches_per_step": k4_launches,
         "top": [{"kernel": k[:90], "ms_per_step": ms, "per_step": c,
                  "share_of_kernel_ms": ms / kernel_ms}
                 for k, ms, c in rows[:12]],

@@ -137,3 +137,135 @@ def test_no_path_for_other_devices():
     meta = [t.to("meta") for t in (q, kp, vp, bt, lens)]
     with pytest.raises(RuntimeError):
         tpa.paged_attention(*meta)
+
+
+# ───────────── the kernel's launch plan and its merge of partitions ─────────────
+
+
+@pytest.mark.parametrize("T, nh, nkv, page_size, pps", [
+    (8, 16, 16, 16, 128),      # the served Llama's decode step
+    (1, 16, 16, 16, 128),      # one long decode row
+    (259, 16, 16, 16, 128),    # 3 decode rows + a 256-token chunk
+    (1024, 16, 16, 16, 128),   # a prefill bucket: the rows fill the card
+    (4, 32, 8, 16, 128),       # GQA 4
+    (3, 16, 1, 8, 5),          # GQA 16, few pages
+    (16, 12, 4, 64, 3),        # GQA 3, large pages
+    (2, 4, 4, 1, 1000),        # pages of one slot
+])
+def test_launch_plan_partitions_cover_every_page_once(T, nh, nkv, page_size,
+                                                      pps):
+    """The plan is a function of shapes alone; its partitions cover each
+    page index of a block table exactly once, in order; a tile's query
+    vectors stay within 16; rows that fill the card alone are not split."""
+    plan = tpa.launch_plan(T, nh, nkv, page_size, pps)
+    assert plan == tpa.launch_plan(T, nh, nkv, page_size, pps)
+    parts = plan.partitions(pps)
+    assert len(parts) == plan.n_split >= 1
+    covered = [j for j0, j1 in parts for j in range(j0, j1)]
+    assert covered == list(range(pps))
+    assert all(j1 > j0 for j0, j1 in parts)
+    groups = nh // nkv
+    assert 1 <= plan.rows_per_tile <= 8
+    assert plan.rows_per_tile * groups <= 16
+    if T * nkv >= 4 * 132:
+        assert plan.n_split == 1
+    # no more partitions than four waves of the card's 132 SMs need, and
+    # none shorter than 128 keys unless one partition is the whole table
+    assert T * nkv * (plan.n_split - 1) < 4 * 132
+    assert plan.part_pages * page_size >= 128 or plan.n_split == 1
+
+
+def test_wrapper_reads_no_device_value_on_host(monkeypatch):
+    """The CUDA wrapper plans from shapes only: on meta tensors, which
+    have no values a host read could see, it goes through to the launch
+    with the plan and a workspace of the plan's size."""
+    T, nh, nkv, hd, page, pps = 8, 16, 16, 128, 16, 128
+    meta = torch.device("meta")
+    q = torch.empty((T, nh, hd), device=meta)
+    kp = torch.empty((100, page, nkv, hd), dtype=torch.bfloat16, device=meta)
+    vp = torch.empty_like(kp)
+    bt = torch.empty((T, pps), dtype=torch.int32, device=meta)
+    lens = torch.empty((T,), dtype=torch.int32, device=meta)
+    calls = []
+    monkeypatch.setattr(tpa, "_launch",
+                        lambda device, *args: calls.append((device, args)) or 0)
+    monkeypatch.setattr(torch, "empty", _recording_empty(torch.empty, calls))
+    launches = tpa.kernel_launches
+    out = tpa._paged_attention_cuda(q, kp, vp, bt, lens, hd ** -0.5, None,
+                                    None)
+    assert out.shape == q.shape and out.device == meta
+    assert tpa.kernel_launches == launches + 1
+    plan = tpa.launch_plan(T, nh, nkv, page, pps)
+    assert plan.n_split > 1
+    ws_sizes = [c[1] for c in calls if c[0] == "empty"]
+    assert ws_sizes == [(plan.n_split * T * nh * (hd + 2),)]
+    (device, args), = [c for c in calls if c[0] != "empty"]
+    assert device == meta
+    assert args[9:18] == (T, nh, nkv, hd, page, pps, plan.n_split,
+                          plan.part_pages, plan.rows_per_tile)
+
+
+def _recording_empty(empty, calls):
+    def rec(*size, **kw):
+        calls.append(("empty", size))
+        return empty(*size, **kw)
+    return rec
+
+
+def _split_case(name):
+    """Inputs for the merge tests: 8-page tables of 8-key pages, lengths
+    at and around the edges of 3-page partitions ([0, 3), [3, 6), [6,
+    8)) of the plan ``_SPLIT``."""
+    rng = np.random.default_rng(10 + SPLIT_CASES.index(name))
+    hd, page, pages, width, nh, nkv = 64, 8, 40, 8, 4, 2
+    lens = {"edges": [8, 23, 24, 25, 48, 49, 64],
+            "empty_partition": [5, 20, 24],
+            "len1": [1, 1, 9],
+            "int8": [1, 24, 25, 64]}[name]
+    lens = np.array(lens, np.int32)
+    T = lens.size
+    bt = rng.integers(1, pages, (T, width)).astype(np.int32)
+    q = rng.standard_normal((T, nh, hd)).astype(np.float32)
+    shape = (pages, page, nkv, hd)
+    if name == "int8":
+        kp = rng.integers(-127, 128, shape).astype(np.int8)
+        vp = rng.integers(-127, 128, shape).astype(np.int8)
+        ks = rng.uniform(0.001, 0.02, shape[:3]).astype(np.float32)
+        vs = rng.uniform(0.001, 0.02, shape[:3]).astype(np.float32)
+    else:
+        kp = rng.standard_normal(shape).astype(np.float32)
+        vp = rng.standard_normal(shape).astype(np.float32)
+        ks = vs = None
+    return q, kp, vp, bt, lens, ks, vs
+
+
+SPLIT_CASES = ["edges", "empty_partition", "len1", "int8"]
+_SPLIT = tpa.LaunchPlan(n_split=3, part_pages=3, rows_per_tile=1)
+MERGE_TOL = 1e-6
+
+
+@pytest.mark.parametrize("name", SPLIT_CASES)
+def test_merge_of_partials_matches_reference(name, monkeypatch):
+    """The plain versions of the kernel's two halves, partials per
+    partition then the merge, give the plain single-pass version and the
+    Pallas kernel (interpret mode). A partition that holds no key of a
+    row contributes m = -1e30, l = 0, acc = 0."""
+    monkeypatch.setenv("PADDLE_TPU_PALLAS_INTERPRET", "1")
+    args = _split_case(name)
+    tq, tk, tv, tbt, tl, tks, tvs = _torch_args(args)
+    m, l, acc = tpa.ref_partials(tq, tk, tv, tbt, tl, _SPLIT, k_scale=tks,
+                                 v_scale=tvs)
+    assert m.shape == l.shape == (3,) + tuple(tq.shape[:2])
+    assert acc.shape == (3,) + tuple(tq.shape)
+    empty = l == 0
+    assert bool((m[empty] == tpa.NEG_INF).all())
+    assert bool((acc[empty] == 0).all())
+    got = tpa.ref_merge(m, l, acc, tq.dtype)
+    whole = tpa.ref_paged_attention(tq, tk, tv, tbt, tl, k_scale=tks,
+                                    v_scale=tvs)
+    torch.testing.assert_close(got, whole, atol=MERGE_TOL, rtol=MERGE_TOL)
+    q, kp, vp, bt, lens, ks, vs = _jax_args(args)
+    want = jpa.ragged_paged_attention(q, kp, vp, bt, lens, use_kernel=True,
+                                      k_scale=ks, v_scale=vs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=MERGE_TOL, rtol=MERGE_TOL)

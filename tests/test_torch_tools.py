@@ -47,6 +47,10 @@ def test_busy_beyond_the_window_raises():
      "flash_fwd"),
     ("void (anonymous namespace)::flash_dq_kernel<__nv_bfloat16, 128>(...)",
      "flash_dq"),
+    ("void (anonymous namespace)::flash_dq_kernel<float, 128>(...)",
+     "flash_dq"),
+    ("void (anonymous namespace)::flash_dq_bf16_kernel<128>(...)",
+     "flash_dq"),
     ("void (anonymous namespace)::flash_dkv_bf16_kernel<64>(...)",
      "flash_dkv"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32", "gemm"),
@@ -72,6 +76,17 @@ def test_profile_train_groups_flash_kernels(kernel, group):
      "paged_attention_kernel<bf16, int8>"),
     ("_ZN12_GLOBAL__N_122paged_attention_kernelI13__nv_bfloat16S1_EEvPKT_"
      "PKT0_Pf", "paged_attention_kernel<bf16, bf16>"),
+    ("_ZN12_GLOBAL__N_120flash_dq_bf16_kernelILi128EEEvPK13__nv_bfloat16"
+     "S3_S3_S3_PKfS5_S5_PS1_NS_6LayoutEiiififfi",
+     "flash_dq_bf16_kernel<128>"),
+    ("_ZN12_GLOBAL__N_122paged_attention_kernelIf13__nv_bfloat16Li1ELi8EEEv"
+     "PKT_PKT0_S7_PKfS9_PKiSB_PS2_Pfiiiiiiiif",
+     "paged_attention_kernel<f32, bf16, 1, 8>"),
+    ("_ZN12_GLOBAL__N_122paged_attention_kernelI13__nv_bfloat16aLi2ELi16EEE"
+     "vPKT_PKT0_S7_PKfS9_PKiSB_PS2_Pfiiiiiiiif",
+     "paged_attention_kernel<bf16, int8, 2, 16>"),
+    ("_ZN12_GLOBAL__N_118paged_merge_kernelIfEEvPKfPT_iii",
+     "paged_merge_kernel<f32>"),
     ("_Z12adamw_kernelPfS_", "adamw_kernel"),
     ("not_mangled", "not_mangled"),
 ])
@@ -80,3 +95,20 @@ def test_chip_smoke_labels_ptxas_kernels(mangled, label):
     import chip_smoke
 
     assert chip_smoke.kernel_label(mangled) == label
+
+
+def test_profile_serve_counts_k4_merge_in_k4():
+    """K4's time a step is its attention kernel and its merge pass
+    together; other kernels stay out."""
+    from paddle_tpu_torch.tools.profile_serve import k4_time
+
+    rows = [
+        ("void (anonymous namespace)::paged_attention_kernel<float, "
+         "__nv_bfloat16, 1, 8>(...)", 1.5, 12.0),
+        ("void (anonymous namespace)::paged_merge_kernel<float>(...)", 0.25,
+         12.0),
+        ("sm90_xmma_gemm_f32f32_f32f32", 2.0, 84.0),
+        ("elementwise_kernel", 0.5, 100.0),
+    ]
+    assert k4_time(rows) == (pytest.approx(1.75), pytest.approx(24.0))
+    assert k4_time(rows[2:]) == (0, 0)
