@@ -41,14 +41,31 @@ Phases, in order; any failure exits non-zero before the result line:
    ``amp.decorate(level="O2")``'s rule (bf16, the norms f32, so the
    activations f32 from the first layer on, as the JAX package serves
    it), bf16 KV pages, 8 requests of 64-1024 prompt tokens and 64 new
-   tokens through ServingEngine. The kernel launch counts are zeroed
-   just before and read just after; every layer of every step must have
-   launched the kernel, and the plain version never.
+   tokens through ServingEngine, twice: with the step captured as a CUDA
+   graph per token-grid bucket and replayed (the default), then eagerly.
+   The streams must be equal, ``compile_counts()`` step == step_buckets,
+   and K4's counts, zeroed just before each run and read just after,
+   must show it in every layer of every step (eager: one launch a layer
+   a step; graphed: one replayed launch a layer a step, plus one
+   warm-up launch and one captured call a layer per bucket), the plain
+   version never. Each run prints its decode-step p50, tokens/s, TTFT
+   p50, capture seconds per bucket and peak memory.
 5. Serve checks: one mixed step (3 decode rows + a 256-token chunk) run
    with the kernel and with the plain version on the same inputs, on the
    served model (held per layer) and on the same model in f32 (held per
-   layer and at the logits); a small f32 model served on the card and on
-   the CPU (plain path) gives the same token streams.
+   layer and at the logits). Serve features: Llama-0.76B on int8 pages
+   with the prefix cache and ``spec_k=4``, 8 requests sharing a
+   512-token prefix (suffixes of 64-512 tokens, two ending in a repeated
+   n-gram; the first served alone until its prompt is cached), graphed
+   and eagerly: equal streams, K4's counts as above, prefix hits and
+   accepted drafts > 0, the pool's bytes beside bf16 pages'; then one
+   step of three slots on the cached prefix pages with four drafts each,
+   K4 held per layer against its plain version and, at the first layer,
+   replayed from a CUDA graph and held the same way; a fork of one slot
+   copies its last page (codes and scale rows) on the card; then every
+   page must come back once the cache is cleared. Reference: a small f32
+   model served on the card (graphed, prefix cache, ``spec_k=2``) and on
+   the CPU (plain path, both off) gives the same token streams.
 6. Train: GPT-3 1.3B (vocab 50304, hidden 2048, 24 layers, 16 heads)
    through ``paddle_tpu_torch.bench`` (B 8, S 1024, O2 bf16 without
    master weights, fused cross entropy, AdamW), 8 steps (1 + 2 warm + 5
@@ -750,87 +767,164 @@ def llama_076b():
                        max_position_embeddings=2048)
 
 
+def serve_traffic(torch, engine, requests, first_alone=None):
+    """Serve ``requests`` (``(prompt, temperature, seed, max_new)``) to
+    completion through ``engine.step``, with K4's counts zeroed just
+    before and read just after and the peak memory reset. With
+    ``first_alone`` (a callable) the first request is served alone to
+    completion (its prompt's full pages are then in the prefix cache),
+    ``first_alone(prompt, output)`` is called, and then the rest are
+    submitted. Returns the outputs in request order and the run's
+    record."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    first_token, rids, steps = {}, [], []
+
+    def stream_cb(rid, token, finished):
+        if token is not None and rid not in first_token:
+            first_token[rid] = time.perf_counter()
+
+    def submit(prompt, temp, seed, max_new):
+        rids.append(engine.add_request(prompt, max_new_tokens=max_new,
+                                       temperature=temp, eos_token_id=2,
+                                       seed=seed, stream_cb=stream_cb))
+
+    def step():
+        ts = time.perf_counter()
+        engine.step()
+        steps.append((engine.stats["step_decode_tokens"],
+                      engine.stats["step_prefill_tokens"],
+                      time.perf_counter() - ts))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    steps_before = engine.stats["steps"]
+    pa.reset_counters()
+    t_start = time.perf_counter()
+    later, outs = requests, {}
+    if first_alone is not None:
+        submit(*requests[0])
+        later = requests[1:]
+        while engine.has_work:
+            step()
+        outs.update(engine.take_outputs())
+        first_alone(requests[0][0], outs[rids[0]])
+    for r in later:
+        submit(*r)
+    while engine.has_work:
+        step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    counts = {"kernel_launches": pa.kernel_launches,
+              "captured_launches": pa.captured_launches,
+              "replayed_launches": pa.replayed_launches,
+              "plain_calls": pa.plain_calls}
+    outs.update(engine.take_outputs())
+    if set(outs) != set(rids):
+        fail(f"served {len(outs)} of {len(rids)} requests")
+    decode_ms = [1e3 * s for d, p, s in steps if p == 0 and d > 0]
+    ttft = sorted(first_token[r] - t_start for r in rids)
+    generated = sum(outs[r].n_gen for r in rids)
+    record = {
+        "step": "cuda_graph" if engine._graphed else "eager",
+        "steps": engine.stats["steps"] - steps_before,
+        "generated_tokens": generated,
+        "prompt_tokens": int(sum(len(r[0]) for r in requests)),
+        "wall_s": wall, "tokens_per_s": generated / wall,
+        "decode_step_ms_p50": (statistics.median(decode_ms) if decode_ms
+                               else None),
+        "decode_steps": len(decode_ms),
+        "ttft_s_p50": statistics.median(ttft), "ttft_s_max": ttft[-1],
+        "compile_counts": engine.compile_counts(),
+        "capture_s_by_bucket": engine.capture_seconds(),
+        # the peak, and what was allocated when the run began (weights,
+        # pools, earlier engines still alive)
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "memory_before_gib": held_before / 2**30,
+        **counts,
+    }
+    vocab = engine.model.config.vocab_size
+    for (_p, _t, _s, new), r in zip(requests, rids):
+        o = outs[r]
+        if not (o.n_gen == new or (o.finish_reason == "stop"
+                                   and o.token_ids[-1] == 2)):
+            fail(f"request {r}: {o.n_gen} tokens, {o.finish_reason}")
+        if not all(0 <= t < vocab for t in o.token_ids):
+            fail(f"request {r}: token outside the vocabulary")
+    return [outs[r] for r in rids], record
+
+
+def check_k4_counts(name, engine, record):
+    """K4 went through the run's every step and its plain version never:
+    eagerly one launch a layer a step; graphed one replayed launch a
+    layer a step, and per bucket captured one call a layer after a
+    warm-up of one launch a layer."""
+    layers, steps = engine.n_layers, record["steps"]
+    buckets = record["compile_counts"]["step"]
+    if record["compile_counts"]["step"] != \
+            record["compile_counts"]["step_buckets"]:
+        fail(f"{name}: compile_counts {record['compile_counts']}: "
+             "step != step_buckets")
+    if engine._graphed:
+        want = {"kernel_launches": layers * buckets,
+                "captured_launches": layers * buckets,
+                "replayed_launches": layers * steps, "plain_calls": 0}
+    else:
+        want = {"kernel_launches": layers * steps, "captured_launches": 0,
+                "replayed_launches": 0, "plain_calls": 0}
+    got = {k: record[k] for k in want}
+    if got != want:
+        fail(f"{name}: K4 counts {got} != {want} ({layers} layers, "
+             f"{steps} steps, {buckets} buckets)")
+
+
 def phase_serve(torch, card):
+    """Llama-0.76B served twice on the same requests, through the graphed
+    step (the default) and the eager one: the streams must be equal (both
+    runs take the same buckets, so the same GEMM shapes)."""
     import numpy as np
 
     from paddle_tpu_torch.models import LlamaForCausalLM
-    from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.serving import ServingEngine
 
     cfg = llama_076b()
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
-    engine = ServingEngine(model, page_size=16, max_batch_slots=8,
-                           max_model_len=2048, token_budget=1024,
-                           kv_dtype=torch.bfloat16, device="cuda")
-    torch.cuda.synchronize()
     dtypes = sorted({str(p.dtype) for p in model.parameters()})
-    log(f"serve: Llama-0.76B {n_params / 1e9:.3f} B params ({', '.join(dtypes)}"
-        f": O2's rule, norms f32), intermediate {cfg.intermediate_size}, "
-        f"pool {engine.pool.num_pages} pages, set up in "
-        f"{time.perf_counter() - t0:.1f} s")
-
     rng = np.random.default_rng(0)
     lengths = rng.integers(64, 1025, 8)
-    new_tokens, eos = 64, 2
-    first_token = {}
-
-    def stream_cb(rid, token, finished):
-        if token is not None and rid not in first_token:
-            first_token[rid] = time.perf_counter()
-
-    pa.reset_counters()
-    t_start = time.perf_counter()
-    rids = []
-    for i, n in enumerate(lengths):
-        temp = 0.8 if i in (2, 5) else 0.0
-        rids.append(engine.add_request(
-            rng.integers(0, cfg.vocab_size, int(n)), max_new_tokens=new_tokens,
-            temperature=temp, eos_token_id=eos, seed=1000 + i,
-            stream_cb=stream_cb))
-    steps = []
-    while engine.has_work:
-        ts = time.perf_counter()
-        engine.step()
-        steps.append((engine.stats["step_decode_tokens"],
-                      engine.stats["step_prefill_tokens"],
-                      time.perf_counter() - ts))
-    wall = time.perf_counter() - t_start
-    launches, plain = pa.kernel_launches, pa.plain_calls
-    outs = engine.take_outputs()
-
-    n_steps = engine.stats["steps"]
-    generated = engine.stats["generated_tokens"]
-    decode_ms = [1e3 * s for d, p, s in steps if p == 0 and d > 0]
-    ttft = sorted(first_token[r] - t_start for r in rids)
-    summary = {
-        "steps": n_steps, "generated_tokens": generated,
-        "prompt_tokens": int(lengths.sum()), "wall_s": wall,
-        "tokens_per_s": generated / wall,
-        "decode_step_ms_p50": statistics.median(decode_ms),
-        "decode_steps": len(decode_ms),
-        "mixed_steps": sum(1 for _d, p, _s in steps if p > 0),
-        "ttft_s_p50": statistics.median(ttft), "ttft_s_max": ttft[-1],
-        "kernel_launches": launches, "plain_calls": plain,
-        "card": card,
-    }
-    log("serve: " + json.dumps(summary))
-    if set(outs) != set(rids):
-        fail(f"served {len(outs)} of {len(rids)} requests")
-    for r in rids:
-        o = outs[r]
-        if not (o.n_gen == new_tokens or (o.finish_reason == "stop"
-                                          and o.token_ids[-1] == eos)):
-            fail(f"request {r}: {o.n_gen} tokens, {o.finish_reason}")
-        if not all(0 <= t < cfg.vocab_size for t in o.token_ids):
-            fail(f"request {r}: token outside the vocabulary")
-    if engine.pool.used_pages != 0:
-        fail(f"{engine.pool.used_pages} pages still in use after the run")
-    if launches != cfg.num_layers * n_steps or plain != 0:
-        fail(f"kernel launches {launches} != {cfg.num_layers} x {n_steps} "
-             f"steps, or plain calls {plain} != 0")
-    return engine, launches
+    requests = [(rng.integers(0, cfg.vocab_size, int(n)),
+                 0.8 if i in (2, 5) else 0.0, 1000 + i, 64)
+                for i, n in enumerate(lengths)]
+    runs = {}
+    for graphed in (True, False):
+        engine = ServingEngine(model, page_size=16, max_batch_slots=8,
+                               max_model_len=2048, token_budget=1024,
+                               kv_dtype=torch.bfloat16, cuda_graph=graphed,
+                               device="cuda")
+        if graphed:
+            log(f"serve: Llama-0.76B {n_params / 1e9:.3f} B params "
+                f"({', '.join(dtypes)}: O2's rule, norms f32), intermediate "
+                f"{cfg.intermediate_size}, pool {engine.pool.num_pages} "
+                f"pages, set up in {time.perf_counter() - t0:.1f} s")
+        outs, rec = serve_traffic(torch, engine, requests)
+        rec["card"] = card
+        log(f"serve ({rec['step']}): " + json.dumps(rec))
+        check_k4_counts(f"serve ({rec['step']})", engine, rec)
+        if engine.pool.used_pages != 0:
+            fail(f"{engine.pool.used_pages} pages still in use after the run")
+        runs[graphed] = (engine, [o.token_ids for o in outs], rec)
+    (engine, graphed_streams, rec), (eager, eager_streams, _r) = (
+        runs[True], runs[False])
+    same = graphed_streams == eager_streams
+    log(f"serve: graphed and eager streams {'identical' if same else 'DIFFER'}"
+        f" over {len(requests)} requests")
+    if not same:
+        fail("serve: the graphed step's streams differ from the eager one's")
+    del eager
+    return engine, rec
 
 
 def mixed_step(torch, engine, layer_tol):
@@ -913,9 +1007,183 @@ def phase_mixed_steps(torch, engine):
         fail("mixed-step f32 logits: kernel and plain version disagree")
 
 
+def features_step(torch, engine, prefix, rng, layer_tol):
+    """Bring the features engine (idle, its prefix cached) to one step of
+    three decoding slots on the cached prefix pages, each with a burst of
+    four drafts, over int8 pages the quantizing write filled, and run
+    that step eagerly with K4 checked at every layer against its plain
+    version on the same inputs; at the first layer the same K4 call is
+    also captured in a CUDA graph and replayed, and held the same way.
+    Then land the step's samples, fork one slot and make the fork's last
+    written page its own (copy-on-write on the card: the page's codes
+    and scale rows must arrive equal), and drain. Returns the largest
+    per-layer error and the replay's."""
+    import numpy as np
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import sampling
+
+    class Repeat:  # proposes the stream's last token k times
+        def propose(self, ids, k):
+            return np.full(k, ids[-1], np.int32)
+
+    vocab = engine.model.config.vocab_size
+    for n in (40, 100, 70):
+        engine.add_request(np.concatenate([prefix, rng.integers(0, vocab, n)]),
+                           max_new_tokens=12)
+    while engine.scheduler.waiting or any(
+            s is not None and s.prefilling for s in engine.slots):
+        engine.step()
+    drafter, engine.drafter = engine.drafter, Repeat()
+    batch = engine._plan()
+    engine.drafter = drafter
+    live = [i for i, st in enumerate(engine.slots) if st is not None]
+    shared = [engine.pool._ref[engine.pool.block_table(engine.slots[i].req
+                                                       .req_id)[0]]
+              for i in live]
+    if batch.n_draft != 4 * len(live) or batch.total != 5 * len(live) \
+            or min(shared) < 2:
+        fail(f"features step: {batch.n_draft} drafts over {len(live)} slots, "
+             f"{batch.total} rows, first-page refcounts {shared}")
+    errs, replay = [], []
+
+    def checked(q, kp, vp, bt, lens, **kw):
+        out = pa.ragged_paged_attention(q, kp, vp, bt, lens, **kw)
+        ref = pa.ref_paged_attention(q, kp, vp, bt, lens, **kw).float()
+        err = (out.float() - ref).abs()
+        errs.append(float(err.max()))
+        if not bool((err <= layer_tol + layer_tol * ref.abs()).all()):
+            fail(f"features step layer {len(errs) - 1}: kernel and plain "
+                 f"version disagree (max_abs_err {errs[-1]:.3e})")
+        if not replay:
+            T, nh, hd = q.shape
+            n = pa.workspace_numel(T, nh, kp.shape[2], hd, kp.shape[1],
+                                   bt.shape[1])
+            ws = torch.empty(max(n, 1), device=q.device)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                pa.ragged_paged_attention(q, kp, vp, bt, lens, workspace=ws,
+                                          **kw)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                got = pa.ragged_paged_attention(q, kp, vp, bt, lens,
+                                                workspace=ws, **kw)
+            graph.replay()
+            torch.cuda.synchronize()
+            e = (got.float() - ref).abs()
+            replay.append(float(e.max()))
+            if not bool((e <= layer_tol + layer_tol * ref.abs()).all()):
+                fail(f"features step: the replayed K4 call disagrees with "
+                     f"its plain version (max_abs_err {replay[0]:.3e})")
+        return out
+
+    logits = engine._forward(batch, attention=checked)
+    S = engine._spec_rows
+    nxt = sampling.sample(
+        logits, torch.from_numpy(np.repeat(batch.temps, S)).cuda(),
+        torch.from_numpy(np.repeat(batch.seeds, S)).cuda(),
+        torch.from_numpy(batch.sample_pos.reshape(-1)).cuda())
+    engine._land(batch, nxt.cpu().numpy())
+    pool = engine.pool
+    rid = engine.slots[live[0]].req.req_id
+    n = pool.seq_len(rid)
+    pool.fork(rid, "cow-probe")
+    pi = (n - 1) // pool.page_size
+    pool.extend_write("cow-probe", n - 1, n)
+    old, fresh = pool.block_table(rid)[pi], pool.block_table("cow-probe")[pi]
+    every = pool.k_pools + pool.v_pools + pool.k_scales + pool.v_scales
+    if old == fresh or not all(torch.equal(t[fresh], t[old]) for t in every):
+        fail(f"features step: copy-on-write of page {old} into {fresh} did "
+             "not copy its codes and scales")
+    pool.free("cow-probe")
+    log(f"features step: copy-on-write on the card copied page {old} into "
+        f"{fresh} (codes and scale rows of {pool.num_layers} layers, equal)")
+    engine.run()
+    return max(errs), replay[0]
+
+
+def phase_serve_features(torch, card):
+    """Llama-0.76B on int8 pages with the prefix cache and 4-token drafts,
+    on ``tools.serve_features``' traffic (8 requests sharing a 512-token
+    prefix, two retrying request 0) and drafter (``RetrievalDrafter``,
+    its store filled with request 0's stream once request 0 was served
+    alone), graphed (the default) and eager: the streams must be equal,
+    the cache must have covered prompt tokens, drafts must have been
+    accepted, and every page must come back."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine, page_bytes
+    from paddle_tpu_torch.tools.serve_features import (RetrievalDrafter,
+                                                       features_traffic)
+
+    cfg = llama_076b()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    prefix, requests = features_traffic(np.random.default_rng(3),
+                                        cfg.vocab_size)
+    runs = {}
+    for graphed in (True, False):
+        drafter = RetrievalDrafter(k=4)
+        engine = ServingEngine(model, page_size=16, max_batch_slots=8,
+                               max_model_len=2048, token_budget=1024,
+                               kv_dtype="int8", prefix_cache=True, spec_k=4,
+                               drafter=drafter, cuda_graph=graphed,
+                               device="cuda")
+        outs, rec = serve_traffic(
+            torch, engine, requests, first_alone=lambda p, o: drafter.add(
+                np.concatenate([p, o.token_ids])))
+        pool = engine.pool
+        bf16_bytes = pool.num_pages * page_bytes(
+            pool.page_size, pool.n_kv_heads, pool.head_dim, pool.num_layers,
+            "bf16")
+        rec.update(
+            prefix_hit_tokens=engine.stats["prefix_hit_tokens"],
+            spec_drafted=engine.stats["spec_drafted"],
+            spec_accepted=engine.stats["spec_accepted"],
+            cow_copies=pool.cow_copies, pool_bytes=pool.device_bytes(),
+            bf16_pool_bytes=bf16_bytes, card=card)
+        log(f"serve features ({rec['step']}, int8 pages, prefix cache, "
+            f"spec_k 4): " + json.dumps(rec))
+        check_k4_counts(f"serve features ({rec['step']})", engine, rec)
+        if rec["prefix_hit_tokens"] <= 0 or rec["spec_accepted"] <= 0:
+            fail(f"serve features: prefix hits {rec['prefix_hit_tokens']}, "
+                 f"accepted drafts {rec['spec_accepted']} (both must be > 0)")
+        if pool.used_pages != 0:
+            fail(f"serve features: {pool.used_pages} pages in use after the "
+                 "run")
+        runs[graphed] = (engine, [o.token_ids for o in outs], rec)
+    (engine, graphed_streams, rec), (eager, eager_streams, _r) = (
+        runs[True], runs[False])
+    del eager
+    same = graphed_streams == eager_streams
+    log(f"serve features: graphed and eager streams "
+        f"{'identical' if same else 'DIFFER'} over {len(requests)} requests")
+    if not same:
+        fail("serve features: the graphed step's streams differ from the "
+             "eager one's")
+    layer_err, replay_err = features_step(
+        torch, engine, prefix, np.random.default_rng(4), 5e-5)
+    log(f"serve features step: 3 decode rows x (1 + 4 drafts) on shared "
+        f"prefix pages over int8 pages; attention kernel vs plain on the "
+        f"same inputs, max over 12 layers {layer_err:.3e}, graph-replayed "
+        f"call {replay_err:.3e} (atol=rtol=5e-5) ok")
+    pool = engine.pool
+    cleared = engine.prefix_cache.clear()
+    if pool.used_pages != 0 or len(pool._free) != pool.usable_pages:
+        fail(f"serve features: {pool.usable_pages - len(pool._free)} pages "
+             f"held after the cache's {cleared} nodes were cleared")
+    log(f"serve features: drained, {cleared} cache nodes cleared, all "
+        f"{pool.usable_pages} pages free")
+    return rec
+
+
 def phase_reference(torch):
-    """A small f32 Llama (GQA) served on the card through the kernel and
-    on the CPU through the plain version: the same token streams."""
+    """A small f32 Llama (GQA) served on the card, graphed, with the
+    prefix cache and 2-token drafts, and on the CPU through the plain
+    version with both off: the same token streams. The fifth request
+    shares the first one's two full pages."""
     import numpy as np
 
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
@@ -927,20 +1195,33 @@ def phase_reference(torch):
     rng = np.random.default_rng(2)
     work = [(rng.integers(0, 256, int(n)), t, s) for n, t, s in
             ((40, 0.0, 0), (7, 0.8, 1), (130, 0.0, 2), (64, 0.8, 3))]
-    streams = {}
-    for dev in ("cuda", "cpu"):
+    work.append((np.concatenate([work[0][0][:35], rng.integers(0, 256, 20)]),
+                 0.0, 4))
+    streams, stats = {}, {}
+    for dev, kw in (("cuda", dict(spec_k=2)),
+                    ("cpu", dict(prefix_cache=False))):
         model = LlamaForCausalLM(cfg, device="cpu", seed=5).to(dev)
         eng = ServingEngine(model, page_size=16, max_batch_slots=3,
-                            token_budget=48, device=dev)
+                            token_budget=48, device=dev, **kw)
         rids = [eng.add_request(p, max_new_tokens=12, temperature=t, seed=s)
                 for p, t, s in work]
         outs = eng.run()
         streams[dev] = [outs[r].token_ids for r in rids]
+        stats[dev] = {k: eng.stats[k] for k in (
+            "prefix_hit_tokens", "spec_drafted", "spec_accepted")}
+        stats[dev]["compile_counts"] = eng.compile_counts()
     same = streams["cuda"] == streams["cpu"]
-    log(f"reference: small f32 Llama, card (kernel) vs CPU (plain) streams "
+    card = stats["cuda"]
+    log(f"reference: small f32 Llama, card (graphed, prefix cache, spec_k 2: "
+        f"{json.dumps(card)}) vs CPU (plain, both off) streams "
         f"{'identical' if same else 'DIFFER'} over {len(work)} requests")
     if not same:
         fail(f"streams differ: {streams}")
+    cc = card["compile_counts"]
+    if card["prefix_hit_tokens"] <= 0 or card["spec_drafted"] <= 0 \
+            or cc["step"] != cc["step_buckets"]:
+        fail(f"reference: the card run took no prefix hit or no draft, or "
+             f"its compile counts differ: {card}")
 
 
 # ───────────────────────────── training ─────────────────────────────
@@ -1079,10 +1360,12 @@ def main():
     paged = phase_paged_kernels(torch)
     flash = phase_flash_kernels(torch)
     adamw = phase_adamw_kernels(torch)
-    engine, paged_launches = phase_serve(torch, card)
+    engine, serve = phase_serve(torch, card)
     phase_mixed_steps(torch, engine)
-    phase_reference(torch)
     del engine
+    torch.cuda.empty_cache()
+    phase_serve_features(torch, card)
+    phase_reference(torch)
     torch.cuda.empty_cache()
     flash_launches = phase_train(torch, card, "gpt13")
     phase_train_reference(torch, "gpt")
@@ -1095,7 +1378,10 @@ def main():
         "name": "paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/paged_attention.py:124",
-        "launches": paged_launches,
+        # the graphed serve phase's launches: one warm-up a layer per
+        # bucket, then one a layer per replayed step
+        "launches": serve["kernel_launches"] + serve["replayed_launches"],
+        "replayed_launches": serve["replayed_launches"],
         "max_abs_err": head["max_abs_err"],
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -34,15 +34,15 @@ Differences from the JAX package, by design of the port:
 - Linear weights are ``[out, in]`` (``torch.nn.Linear``); the JAX package
   stores ``[in, out]``. So ``lm_head.weight`` is already the ``[V, H]``
   the fused cross entropy takes, where the JAX package transposes.
-- The KV pools are updated in place by ``forward_paged``; the JAX version
-  returns new pools.
+- The KV pools (and an int8 pool's scales) are updated in place by
+  ``forward_paged``; the JAX version returns new pools.
 - Parameters are drawn from an explicit ``torch.Generator`` on the target
   device (Normal(0, 0.02); output projections std 0.02 / sqrt(2 * layers);
   norms 1), never from the global RNG.
 
 Not ported yet: the KV-cache forward (``cache=``, behind ``generate()``),
 sequence parallelism (``sequence_parallel=True`` raises), tensor
-parallelism, LoRA adapters and int8 pages on the paged path.
+parallelism and LoRA adapters.
 """
 from __future__ import annotations
 
@@ -60,6 +60,7 @@ from ..nn import Embedding, Linear, RMSNorm
 from ..nn import functional as F
 from ..ops.fused_loss import fused_linear_cross_entropy
 from ..ops.paged_attention import ragged_paged_attention
+from ..quantization.observers import quantize_kv
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny"]
 
@@ -184,17 +185,23 @@ class LlamaAttention(nn.Module):
         return self.o_proj(ctx.reshape(B, S, nh * hd))
 
     def forward_paged(self, x, positions, block_tables, k_pool, v_pool,
-                      rope, attention=ragged_paged_attention):
+                      rope, attention=ragged_paged_attention, k_scale=None,
+                      v_scale=None):
         """Paged-KV ragged step: one query token per row of ``x`` ``[T, H]``
         at ``positions`` ``[T]`` (int32), each with its owner's block table
         ``[T, pages]`` (int32). Writes every row's rope'd k/v into its page
         slot (in place, rounded to the page dtype), then runs
         ``attention`` for each row over its pages masked at its own
         position, which makes a chunk's rows causal over their freshly
-        written chunk-mates. Padding rows carry the null table and
-        position 0, so their writes land on page 0. ``rope`` is ``(cos,
-        sin)`` from ``_rope_rows``: f32, so q and k are f32 from here on,
-        and so is the attention output. Returns ``[T, H]``."""
+        written chunk-mates (and a draft row over its burst-mates).
+        Padding rows carry the null table and position 0, so their writes
+        land on page 0. ``rope`` is ``(cos, sin)`` from ``_rope_rows``:
+        f32, so q and k are f32 from here on, and so is the attention
+        output. With ``k_scale``/``v_scale`` (int8 pages, both or neither)
+        each row's k and v are quantized per slot (``quantize_kv``) and
+        the codes and scales written; attention dequantizes in the
+        kernel. Every write is an ``index_put_`` at int64 indices, so the
+        step can be captured in a CUDA graph. Returns ``[T, H]``."""
         T = x.shape[0]
         nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
         cos, sin = rope
@@ -206,10 +213,16 @@ class LlamaAttention(nn.Module):
         rows = torch.arange(T, device=x.device)
         page_ids = block_tables[rows, pos // page_size].to(torch.int64)
         offs = pos % page_size
+        if k_scale is not None:
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+            k_scale[page_ids, offs] = ks
+            v_scale[page_ids, offs] = vs
         k_pool[page_ids, offs] = k.to(k_pool.dtype)
         v_pool[page_ids, offs] = v.to(v_pool.dtype)
         ctx = attention(q.contiguous(), k_pool, v_pool, block_tables,
-                        positions + 1, scale=1.0 / math.sqrt(hd))
+                        positions + 1, scale=1.0 / math.sqrt(hd),
+                        k_scale=k_scale, v_scale=v_scale)
         return self.o_proj(ctx.reshape(T, nh * hd))
 
 
@@ -243,10 +256,11 @@ class LlamaDecoderLayer(nn.Module):
         return _add(x, self.mlp(self.post_attention_layernorm(x)))
 
     def forward_paged(self, x, positions, block_tables, k_pool, v_pool, rope,
-                      attention=ragged_paged_attention):
+                      attention=ragged_paged_attention, k_scale=None,
+                      v_scale=None):
         x = _add(x, self.self_attn.forward_paged(
             self.input_layernorm(x), positions, block_tables, k_pool, v_pool,
-            rope, attention=attention))
+            rope, attention=attention, k_scale=k_scale, v_scale=v_scale))
         return _add(x, self.mlp(self.post_attention_layernorm(x)))
 
 
@@ -271,19 +285,22 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
     def forward_paged(self, input_ids, positions, block_tables,
-                      caches: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                      caches: Sequence[Tuple[torch.Tensor, ...]],
                       attention=ragged_paged_attention):
         """Paged trunk of the serving step: ``input_ids`` ``[T]``,
         ``positions`` ``[T]`` int32, ``block_tables`` ``[T, pages]`` int32,
-        ``caches`` a per-layer list of ``(k_pool, v_pool)``, written in
-        place. Returns the final-norm hidden states ``[T, H]``."""
+        ``caches`` a per-layer list of ``(k_pool, v_pool)``, or ``(k_pool,
+        v_pool, k_scale, v_scale)`` for int8 pages, written in place.
+        Returns the final-norm hidden states ``[T, H]``."""
         cfg = self.config
         rope = _rope_rows(positions, cfg.hidden_size // cfg.num_heads,
                           cfg.rope_theta)
         x = self.embed_tokens(input_ids.to(torch.int64))
-        for layer, (kp, vp) in zip(self.layers, caches):
+        for layer, (kp, vp, *scales) in zip(self.layers, caches):
+            ks, vs = scales or (None, None)
             x = layer.forward_paged(x, positions, block_tables, kp, vp, rope,
-                                    attention=attention)
+                                    attention=attention, k_scale=ks,
+                                    v_scale=vs)
         return self.norm(x)
 
 

@@ -20,14 +20,20 @@ Dispatch is on the tensors' device, never on what is installed: CPU
 tensors take :func:`ref_paged_attention`; CUDA tensors launch the kernel
 in ``csrc/paged_attention.cu`` or raise. ``kernel_launches`` and
 ``plain_calls`` count the two paths (one launch a call, its merge pass
-included).
+included). A call made while its stream is being captured into a CUDA
+graph launches nothing then: it counts in ``captured_launches``, and the
+graph's owner adds the launches each replay makes with
+:func:`count_replays` (``replayed_launches``).
 
 The kernel splits each row's pages into partitions (flash-decoding) and
 serves the rows of a chunk tile together; :func:`launch_plan` sets both
 from shapes alone, so a call reads nothing of the device on the host.
 With more than one partition, each writes a partial softmax state (m,
-l, acc) and a merge pass combines them: :func:`ref_partials` and
-:func:`ref_merge` are the plain versions of the two halves.
+l, acc) to a workspace and a merge pass combines them: :func:`ref_partials`
+and :func:`ref_merge` are the plain versions of the two halves. The
+workspace is allocated per call unless the caller passes one of at least
+:func:`workspace_numel` f32 elements (a captured step owns one, so its
+address stays fixed across replays).
 """
 from __future__ import annotations
 
@@ -42,12 +48,17 @@ from . import _build
 
 __all__ = ["paged_attention", "ragged_paged_attention",
            "ref_paged_attention", "ref_partials", "ref_merge", "launch_plan",
-           "LaunchPlan", "reset_counters", "NEG_INF"]
+           "LaunchPlan", "workspace_numel", "reset_counters", "count_replays",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 
-# plain-integer counts of the two paths (read and zeroed by chip_smoke.py)
+# plain-integer counts of the two paths (read and zeroed by chip_smoke.py):
+# eager launches, calls recorded into a CUDA graph, launches made by
+# replaying such graphs, and plain-version calls
 kernel_launches = 0
+captured_launches = 0
+replayed_launches = 0
 plain_calls = 0
 
 # f32 bytes of gathered K the plain version holds at once; rows beyond
@@ -66,9 +77,18 @@ _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def reset_counters() -> None:
-    global kernel_launches, plain_calls
+    global kernel_launches, captured_launches, replayed_launches, plain_calls
     kernel_launches = 0
+    captured_launches = 0
+    replayed_launches = 0
     plain_calls = 0
+
+
+def count_replays(n: int) -> None:
+    """Record ``n`` kernel launches made by a CUDA-graph replay (the
+    calls its capture recorded)."""
+    global replayed_launches
+    replayed_launches += int(n)
 
 
 # ───────────────────────── plain PyTorch version ─────────────────────────
@@ -155,6 +175,15 @@ def launch_plan(T: int, nh: int, nkv: int, page_size: int,
     return LaunchPlan(-(-pages_per_seq // part), part, rows)
 
 
+def workspace_numel(T: int, nh: int, nkv: int, hd: int, page_size: int,
+                    pages_per_seq: int) -> int:
+    """f32 elements of the split workspace a call of these shapes needs
+    (0 when its plan takes no split): a partial (m, l, acc[hd]) per
+    partition, row and head."""
+    plan = launch_plan(T, nh, nkv, page_size, pages_per_seq)
+    return plan.n_split * T * nh * (hd + 2) if plan.n_split > 1 else 0
+
+
 def ref_partials(q, k_pool, v_pool, block_tables, seq_lens, plan: LaunchPlan,
                  scale: float = None, k_scale=None, v_scale=None):
     """Plain version of the kernel's first half: per partition ``s`` of
@@ -232,8 +261,8 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def _paged_attention_cuda(q, k_pool, v_pool, block_tables, seq_lens, scale,
-                          k_scale, v_scale):
-    global kernel_launches
+                          k_scale, v_scale, workspace=None):
+    global kernel_launches, captured_launches
     T, nh, hd = q.shape
     num_pages, page_size, nkv, hd_kv = k_pool.shape
     quantized = k_scale is not None
@@ -275,10 +304,17 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, seq_lens, scale,
         return out
     pps = block_tables.shape[1]
     plan = launch_plan(T, nh, nkv, page_size, pps)
+    need = workspace_numel(T, nh, nkv, hd, page_size, pps)
     ws = None
-    if plan.n_split > 1:
-        ws = torch.empty(plan.n_split * T * nh * (hd + 2),
-                         dtype=torch.float32, device=q.device)
+    if need and workspace is not None:
+        _check(workspace.dtype == torch.float32
+               and workspace.device == q.device
+               and workspace.is_contiguous() and workspace.numel() >= need,
+               f"workspace must be contiguous f32 on q's device with at least "
+               f"{need} elements")
+        ws = workspace
+    elif need:
+        ws = torch.empty(need, dtype=torch.float32, device=q.device)
     rc = _launch(q.device, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  k_scale.data_ptr() if quantized else None,
                  v_scale.data_ptr() if quantized else None,
@@ -290,7 +326,10 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, seq_lens, scale,
     if rc != 0:
         raise RuntimeError(
             f"paged_attention kernel launch failed: cudaError_t {rc}")
-    kernel_launches += 1
+    if q.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        captured_launches += 1
+    else:
+        kernel_launches += 1
     return out
 
 
@@ -298,10 +337,13 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, seq_lens, scale,
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, seq_lens,
-                    scale: float = None, k_scale=None, v_scale=None):
+                    scale: float = None, k_scale=None, v_scale=None,
+                    workspace=None):
     """Paged attention of each row of ``q`` over its block table (module
     docstring). CPU tensors take the plain version; CUDA tensors launch
-    the kernel, raising on a shape, dtype or launch it does not take."""
+    the kernel, raising on a shape, dtype or launch it does not take.
+    ``workspace``: the kernel's split workspace (module docstring); the
+    plain version needs none."""
     global plain_calls
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be passed together")
@@ -314,15 +356,17 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens,
     if q.device.type != "cuda":
         raise RuntimeError(f"paged_attention: no path for device {q.device}")
     return _paged_attention_cuda(q, k_pool, v_pool, block_tables, seq_lens,
-                                 scale, k_scale, v_scale)
+                                 scale, k_scale, v_scale, workspace)
 
 
 def ragged_paged_attention(q, k_pool, v_pool, row_block_tables, row_lens,
-                           scale: float = None, k_scale=None, v_scale=None):
+                           scale: float = None, k_scale=None, v_scale=None,
+                           workspace=None):
     """Mixed query-length paged attention over a flattened token grid:
     ``q`` ``[T, nh, hd]`` holds decode tokens and prompt-chunk tokens
     alike, ``row_block_tables`` repeats a slot's table for each of its
     rows, ``row_lens`` is each row's position + 1. The caller has already
     written this step's KV into the pool."""
     return paged_attention(q, k_pool, v_pool, row_block_tables, row_lens,
-                           scale=scale, k_scale=k_scale, v_scale=v_scale)
+                           scale=scale, k_scale=k_scale, v_scale=v_scale,
+                           workspace=workspace)

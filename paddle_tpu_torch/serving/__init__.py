@@ -1,9 +1,11 @@
 """paddle_tpu_torch.serving: the continuous-batching engine on the card.
 
-The paged KV pool (kv_cache.py), the chunked-prefill scheduler
-(scheduler.py), the per-request sampling keys (sampling.py) and the
-engine's unified ragged step (engine.py), whose attention is the CUDA
-kernel of ``ops/paged_attention.py``.
+The paged KV pool with its refcounted pages, int8 pages and radix prefix
+cache (kv_cache.py), the chunked-prefill scheduler (scheduler.py), the
+n-gram drafter of speculative decoding (spec.py), the per-request
+sampling keys (sampling.py) and the engine's unified ragged step,
+captured per token-grid bucket as a CUDA graph (engine.py), whose
+attention is the CUDA kernel of ``ops/paged_attention.py``.
 
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
     from paddle_tpu_torch.serving import ServingEngine
@@ -14,8 +16,11 @@ kernel of ``ops/paged_attention.py``.
     out = engine.run()[rid].token_ids
 """
 from .engine import ServingEngine
-from .kv_cache import PagedKVCachePool, normalize_kv_dtype, page_bytes
+from .kv_cache import (PagedKVCachePool, PrefixCache, normalize_kv_dtype,
+                       page_bytes)
 from .scheduler import FCFSScheduler, Request, RequestOutput
+from .spec import NGramDrafter
 
-__all__ = ["ServingEngine", "PagedKVCachePool", "FCFSScheduler", "Request",
-           "RequestOutput", "page_bytes", "normalize_kv_dtype"]
+__all__ = ["ServingEngine", "PagedKVCachePool", "PrefixCache",
+           "FCFSScheduler", "Request", "RequestOutput", "NGramDrafter",
+           "page_bytes", "normalize_kv_dtype"]

@@ -5,34 +5,55 @@ main path. The engine keeps a fixed grid of ``max_batch_slots`` slots;
 requests join and retire mid-decode. Each :meth:`ServingEngine.step`
 
 1. **admits** waiting requests into free slots in (priority, arrival)
-   order under the pool's worst-case page accounting (scheduler.py),
+   order under the pool's worst-case page accounting (scheduler.py); a
+   prompt whose leading full pages the radix prefix cache holds adopts
+   those pages by refcount and prefills only the rest,
 2. **plans** the step's token mix under ``token_budget``: decode tokens
-   first, prompt chunks in the remainder,
+   first, prompt chunks in the remainder, speculative draft rows in what
+   is left (``spec_k``; spec.py proposes them),
 3. runs **one unified ragged step**: every query token of the step,
-   decode tokens and prompt-chunk tokens alike, is one row of a
+   decode, draft and prompt-chunk tokens alike, is one row of a
    flattened ``[T]`` grid carrying its owner's block table and absolute
    position. The model writes each row's KV into the pool, then the
    ragged paged-attention kernel attends each row over its pages up to
-   its own position. Only the rows that sample (one per slot) go through
-   the vocab projection,
-4. **retires** finished sequences (eos or max tokens), freeing their
+   its own position. Only the sample rows (``spec_k + 1`` per slot) go
+   through the vocab projection,
+4. **lands** the samples: a final chunk's sample is the first generated
+   token (and the prompt's full pages enter the prefix cache); a decode
+   row's drafts are accepted while they equal the tokens sampled at
+   their positions, the rest rolled back (``pool.truncate``), and one
+   more token lands from the first mismatch,
+5. **retires** finished sequences (eos or max tokens), releasing their
    pages at once.
 
-``T`` is bucketed as in the JAX package (the slot grid while the step fits
-it, else the next power of two, at least 16); padding rows carry the null
-block table and position 0, and their output is discarded.
+``T`` is bucketed as in the JAX package (the slot grid, or
+``min_step_tokens`` when larger, while the step fits it, else the next
+power of two, at least 16); padding rows carry the null block table and
+position 0, and their output is discarded.
+
+The step at each bucket is a :class:`_StepProgram`, the counterpart of
+the JAX engine's one compiled program per bucket: static device buffers
+for the step's inputs, into which each step copies its host arrays, and
+on a card one CUDA graph of the whole step (trunk, sample-row gather,
+logits, finite flag, sampler), captured at the bucket's first step and
+replayed from then on. ``compile_counts()`` pins the programs to the
+buckets seen. A capture that fails raises; nothing falls back to eager.
+``cuda_graph=False`` runs the same program eagerly, which is what the
+graphed step is held against on the card; on the CPU it always runs
+eagerly.
 
 Sampling: the token after position ``p`` is drawn with the key
 ``fold_in(PRNGKey(seed), p)`` (sampling.py), so a request's stream is a
 pure function of (prompt, seed, temperature), independent of batch
-composition and chunk boundaries, and equal to the JAX engine's.
+composition, chunk boundaries, prefix hits and speculation, and equal to
+the JAX engine's.
 
-The step runs eagerly, one kernel launch per layer for attention; there
-is no prefix cache, speculation, adapters, grammar, host tier, metrics or
-fault handling in this slice.
+Not ported yet: adapters, grammars, the host tier, metrics, deadlines,
+cancellation and the NaN quarantine (a non-finite sample raises here).
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -41,10 +62,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops import paged_attention as pa
 from ..ops.paged_attention import ragged_paged_attention
 from . import sampling
-from .kv_cache import PagedKVCachePool
+from .kv_cache import PagedKVCachePool, PrefixCache
 from .scheduler import FCFSScheduler, Request, RequestOutput
+from .spec import NGramDrafter
 
 __all__ = ["ServingEngine"]
 
@@ -53,17 +76,18 @@ _MIN_GRID_TOKENS = 16
 
 class _SeqState:
     """One live slot. ``ids`` is the prompt, ``pos`` counts tokens of KV
-    in the pool (chunked-prefill progress is a cache length) and ``gen``
-    the tokens sampled so far. While ``pos < len(ids)`` the slot feeds its
-    next prompt chunk; the final chunk's sample is the first generated
-    token. Then it decodes: ``last_token`` feeds back at ``pos``."""
+    in the pool (chunked-prefill progress and prefix hits are both a
+    cache length) and ``gen`` the tokens sampled so far. While ``pos <
+    len(ids)`` the slot feeds its next prompt chunk; the final chunk's
+    sample is the first generated token. Then it decodes: ``last_token``
+    feeds back at ``pos``, with its drafts behind it."""
 
     __slots__ = ("req", "ids", "pos", "last_token", "gen")
 
-    def __init__(self, req: Request):
+    def __init__(self, req: Request, pos: int = 0):
         self.req = req
         self.ids = req.prompt
-        self.pos = 0
+        self.pos = int(pos)
         self.last_token = -1
         self.gen: List[int] = []
 
@@ -75,9 +99,11 @@ class _SeqState:
 @dataclass
 class _StepBatch:
     """One unified step's grid, planned on the host: ``rows`` are
-    ``(slot, token ids, positions, is_chunk)``; the arrays are the grid
-    (``tok``/``tok_pos`` ``[T]``, ``tok_bt`` ``[T, pages]``) and the
-    per-slot sample rows and their sampling parameters (``[B]``)."""
+    ``(slot, token ids, positions, is_chunk, n_draft)``; the arrays are
+    the grid (``tok``/``tok_pos`` ``[T]``, ``tok_bt`` ``[T, pages]``),
+    each slot's sample rows and their positions (``[B, S]``, ``S =
+    spec_k + 1``: column 0 the slot's last row, then its draft rows) and
+    the per-slot sampling parameters (``[B]``)."""
 
     rows: list
     total: int
@@ -89,25 +115,158 @@ class _StepBatch:
     temps: np.ndarray
     seeds: np.ndarray
     n_decode: int
+    n_draft: int = 0
+
+
+class _StepProgram:
+    """The unified step at one token-grid bucket ``T``: the counterpart of
+    the JAX engine's compiled program per bucket (``_make_step``).
+
+    It owns the step's inputs as static device buffers (slices of one
+    int32 buffer: ``tok``, ``tok_pos``, ``tok_bt``, ``sample_rows``,
+    ``sample_pos``, ``temps`` as f32 bits and ``seeds``) with a host
+    mirror (pinned on a card), so staging a step is one host-to-device
+    copy, and K4's split workspace for ``T`` rows. The pool's page and
+    scale tensors keep their addresses, so the program reads them as
+    they are.
+
+    On a card the first call warms the program up on a side stream (lazy
+    initialisation stays out of the capture), captures it as a CUDA graph
+    in the engine's shared memory pool, and replays it; later calls
+    stage and replay. Nothing inside reads the host: the sampler draws
+    every row at a fixed shape, the KV writes are ``index_put_`` at int64
+    indices, K4's launch plan reads shapes only. Copy-on-write copies
+    and rollbacks run on the host's schedule before the replay, never
+    inside it. Off the card the same program runs eagerly from the same
+    buffers."""
+
+    def __init__(self, engine: "ServingEngine", T: int):
+        self.engine = engine
+        self.T = int(T)
+        B, S = engine.max_batch_slots, engine._spec_rows
+        P = engine.pages_per_seq
+        dev = engine.device
+        sizes = (("tok", T), ("tok_pos", T), ("tok_bt", T * P),
+                 ("sample_rows", B * S), ("sample_pos", B * S),
+                 ("temps", B), ("seeds", B))
+        n = sum(s for _k, s in sizes)
+        self._buf = torch.zeros(n, dtype=torch.int32, device=dev)
+        if dev.type == "cuda":
+            self._host_t = torch.zeros(n, dtype=torch.int32, pin_memory=True)
+            self._host = self._host_t.numpy()
+        else:
+            self._host = np.zeros(n, np.int32)
+            self._host_t = torch.from_numpy(self._host)
+        self.dev: Dict[str, torch.Tensor] = {}
+        self.host: Dict[str, np.ndarray] = {}
+        off = 0
+        for name, size in sizes:
+            self.dev[name] = self._buf[off:off + size]
+            self.host[name] = self._host[off:off + size]
+            off += size
+        self.dev["temps"] = self.dev["temps"].view(torch.float32)
+        self.host["temps"] = self.host["temps"].view(np.float32)
+        cfg = engine.model.config
+        ws = pa.workspace_numel(self.T, cfg.num_heads, engine.pool.n_kv_heads,
+                                engine.pool.head_dim, engine.page_size, P)
+        self.workspace = (torch.empty(ws, dtype=torch.float32, device=dev)
+                          if ws else None)
+        self.graph = None
+        self._out: Optional[torch.Tensor] = None
+        self.k4_calls = 0
+        self.capture_s = 0.0
+
+    def stage(self, batch: _StepBatch) -> None:
+        """Copy the step's host arrays into the static buffers."""
+        for name in ("tok", "tok_pos", "tok_bt", "sample_rows", "sample_pos",
+                     "temps", "seeds"):
+            self.host[name][:] = getattr(batch, name).reshape(-1)
+        self._buf.copy_(self._host_t, non_blocking=True)
+
+    @torch.no_grad()
+    def _body(self) -> torch.Tensor:
+        """The step on the device, from the static buffers: ``[2, B*S]``
+        int64, the sampled tokens and each sample row's finite flag."""
+        eng = self.engine
+        d = self.dev
+        P = eng.pages_per_seq
+        B, S = eng.max_batch_slots, eng._spec_rows
+        hidden = eng.trunk.forward_paged(
+            d["tok"], d["tok_pos"], d["tok_bt"].view(self.T, P),
+            eng.pool.layer_caches(),
+            attention=functools.partial(ragged_paged_attention,
+                                        workspace=self.workspace))
+        logits = eng.model.logits(
+            hidden[d["sample_rows"].to(torch.int64)]).to(torch.float32)
+        fin = torch.isfinite(logits).all(dim=-1)
+        nxt = sampling.sample(
+            logits, d["temps"][:, None].expand(B, S).reshape(-1),
+            d["seeds"][:, None].expand(B, S).reshape(-1), d["sample_pos"])
+        return torch.stack([nxt, fin.to(torch.int64)])
+
+    def _capture(self) -> None:
+        eng = self.engine
+        dev = eng.device
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        if eng._graph_pool is None:
+            eng._graph_pool = torch.cuda.graph_pool_handle()
+        before = pa.captured_launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=eng._graph_pool):
+            out = self._body()
+        self.k4_calls = pa.captured_launches - before
+        self.graph, self._out = graph, out
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, batch: _StepBatch) -> np.ndarray:
+        """Run the step on ``batch``: ``[2, B*S]`` on the host."""
+        self.stage(batch)
+        if not self.engine._graphed:
+            return self._body().cpu().numpy()
+        if self.graph is None:
+            try:
+                self._capture()
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"CUDA-graph capture of the serving step at token-grid "
+                    f"bucket T={self.T} failed") from e
+        self.graph.replay()
+        pa.count_replays(self.k4_calls)
+        return self._out.cpu().numpy()
 
 
 class ServingEngine:
     """Continuous-batching engine for ``LlamaForCausalLM``: paged KV pool
-    + chunked-prefill scheduler + one unified ragged step per iteration.
+    + radix prefix cache + chunked-prefill scheduler + one unified ragged
+    step per iteration, captured per token-grid bucket on a card.
 
     ``device`` defaults to ``cuda`` (``RuntimeError`` without a card
     unless ``device="cpu"``); the model must already live there.
     ``num_pages=None`` sizes the pool for ``max_batch_slots`` worst-case
     sequences of ``max_model_len`` tokens (+1 null page). ``kv_dtype`` is
-    the page dtype (``torch.float32`` or ``torch.bfloat16``, or their
-    names)."""
+    the page dtype (``torch.float32``, ``torch.bfloat16`` or
+    ``torch.int8``, or their names). ``min_step_tokens`` floors the token
+    grid (with it equal to ``token_budget`` every step has one shape).
+    ``prefix_cache=False`` turns the prefix cache off. ``spec_k > 0``
+    drafts up to that many tokens a decoding slot with an
+    ``NGramDrafter(max_ngram=spec_ngram)``, or with ``drafter`` (anything
+    with ``propose(ids, k)``). ``cuda_graph=False`` runs the step eagerly
+    on a card too."""
 
     def __init__(self, model, *, page_size: int = 16,
                  num_pages: Optional[int] = None,
                  max_batch_slots: int = 8,
                  max_model_len: Optional[int] = None,
                  token_budget: int = 1024,
-                 kv_dtype=torch.float32, device=None):
+                 min_step_tokens: Optional[int] = None,
+                 kv_dtype=torch.float32, prefix_cache: bool = True,
+                 spec_k: int = 0, spec_ngram: int = 3, drafter=None,
+                 cuda_graph: bool = True, device=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
@@ -122,22 +281,46 @@ class ServingEngine:
         self.page_size = int(page_size)
         self.max_batch_slots = int(max_batch_slots)
         self.token_budget = int(token_budget)
+        self.min_step_tokens = (None if min_step_tokens is None
+                                else int(min_step_tokens))
+        self.spec_k = max(int(spec_k), 0)
+        if drafter is not None:
+            self.drafter = drafter
+            self.spec_k = max(self.spec_k, 1)
+        elif self.spec_k > 0:
+            self.drafter = NGramDrafter(k=self.spec_k,
+                                        max_ngram=int(spec_ngram))
+        else:
+            self.drafter = None
+        # sample-grid width: every slot owns spec_k + 1 sample rows, fixed
+        # per engine so the step's shapes never vary with the drafts
+        self._spec_rows = self.spec_k + 1
         self.pages_per_seq = -(-self.max_model_len // self.page_size)
         if num_pages is None:
             num_pages = self.max_batch_slots * self.pages_per_seq + 1
         self.pool = PagedKVCachePool(n_layers, num_pages, self.page_size,
                                      n_kv, head_dim, dtype=kv_dtype,
                                      device=self.device)
+        self.prefix_cache: Optional[PrefixCache] = (
+            PrefixCache(self.pool) if prefix_cache else None)
         self.scheduler = FCFSScheduler(self.max_batch_slots,
                                        self.token_budget)
         self.slots: List[Optional[_SeqState]] = [None] * self.max_batch_slots
+        self._graphed = bool(cuda_graph) and self.device.type == "cuda"
+        self._graph_pool = None
+        self._programs: Dict[int, _StepProgram] = {}
+        self._grid_buckets_seen: set = set()
         self._outputs: Dict[object, RequestOutput] = {}
         self.stats: Dict[str, float] = {
             "steps": 0, "generated_tokens": 0, "finished_requests": 0,
             "queue_depth": 0, "running_seqs": 0, "tokens_per_sec": 0.0,
             "page_utilization": 0.0, "peak_pages": 0,
-            # the token mix of the last step (decode rows, prompt rows)
-            "step_decode_tokens": 0, "step_prefill_tokens": 0,
+            # the token mix of the last step (decode, draft, prompt rows)
+            "step_decode_tokens": 0, "step_draft_tokens": 0,
+            "step_prefill_tokens": 0,
+            # running totals: prompt tokens prefix hits covered, draft
+            # rows scored and drafts accepted
+            "prefix_hit_tokens": 0, "spec_drafted": 0, "spec_accepted": 0,
         }
 
     # ------------------------------------------------------------ frontend
@@ -165,13 +348,16 @@ class ServingEngine:
     def add_request(self, prompt, max_new_tokens: int = 32,
                     temperature: float = 0.0,
                     eos_token_id: Optional[int] = None, seed: int = 0,
-                    stream_cb=None, priority: int = 0):
+                    stream_cb=None, priority: int = 0,
+                    prefix_cache: bool = True):
         """Queue a request; returns its ``req_id``. Generation starts at
-        the next :meth:`step` with capacity."""
+        the next :meth:`step` with capacity. ``prefix_cache=False`` keeps
+        this request out of the prefix cache."""
         req = Request(prompt=np.asarray(prompt, np.int32).reshape(-1),
                       max_new_tokens=max_new_tokens, temperature=temperature,
                       eos_token_id=eos_token_id, seed=seed,
-                      stream_cb=stream_cb, priority=priority)
+                      stream_cb=stream_cb, priority=priority,
+                      prefix_cache=prefix_cache)
         self.check_request(req.prompt.size, req.max_new_tokens)
         self.scheduler.add(req)
         return req.req_id
@@ -192,24 +378,39 @@ class ServingEngine:
         out, self._outputs = self._outputs, {}
         return out
 
+    def compile_counts(self) -> Dict[str, int]:
+        """``step``: the step programs built (captured, on a card);
+        ``step_buckets``: the token-grid buckets seen. The two must stay
+        equal, as in the JAX engine."""
+        return {"step": len(self._programs),
+                "step_buckets": len(self._grid_buckets_seen)}
+
+    def capture_seconds(self) -> Dict[int, float]:
+        """Seconds each bucket's capture took (warm-up included), by
+        ``T``; empty off the card."""
+        return {T: p.capture_s for T, p in sorted(self._programs.items())
+                if p.graph is not None}
+
     # ---------------------------------------------------------------- step
     def step(self) -> List[RequestOutput]:
-        """One engine iteration: admit, one unified ragged step, retire.
-        Returns the requests that finished in it."""
+        """One engine iteration: admit, one unified ragged step, land,
+        retire. Returns the requests that finished in it."""
         t0 = time.perf_counter()
         tokens_before = self.stats["generated_tokens"]
         free = sum(1 for s in self.slots if s is None)
         for req in self.scheduler.admit(free, self.pool):
             self._admit(req)
         finished: List[RequestOutput] = []
-        self.stats["step_decode_tokens"] = 0
-        self.stats["step_prefill_tokens"] = 0
         batch = self._plan()
         if batch is not None:
-            logits = self._forward(batch)
-            nxt = sampling.sample(logits, batch.temps, batch.seeds,
-                                  batch.sample_pos)
-            finished.extend(self._land(batch, nxt.cpu().numpy()))
+            T = batch.tok.size
+            self._grid_buckets_seen.add(T)
+            # a bucket's program counts once its first run (its capture,
+            # on a card) went through
+            prog = self._programs.get(T) or _StepProgram(self, T)
+            out = prog(batch)
+            self._programs[T] = prog
+            finished.extend(self._land(batch, out[0], out[1]))
         dt = time.perf_counter() - t0
         self.stats["steps"] += 1
         self.stats["queue_depth"] = self.scheduler.queue_depth
@@ -222,24 +423,62 @@ class ServingEngine:
         return finished
 
     def _admit(self, req: Request) -> None:
-        """Park a request in a free slot with its worst-case reservation;
-        its prefill runs inside the next steps, in chunks."""
-        self.pool.allocate(req.req_id, 0,
-                           max_total_tokens=req.max_total_tokens)
-        self.slots[self.slots.index(None)] = _SeqState(req)
+        """Park a request in a free slot with its worst-case reservation:
+        the longest cached prefix of its prompt (full pages, capped one
+        token short) joins its table by refcount and its chunk cursor
+        starts after it; the rest prefills inside the next steps."""
+        cache = self.prefix_cache if req.prefix_cache else None
+        matched, shared = 0, []
+        if cache is not None:
+            matched, shared, _nodes = cache.match(req.prompt)
+        self.pool.allocate(req.req_id, matched,
+                           max_total_tokens=req.max_total_tokens,
+                           prefix_pages=shared, prefix_tokens=matched)
+        self.stats["prefix_hit_tokens"] += matched
+        self.slots[self.slots.index(None)] = _SeqState(req, pos=matched)
 
     def _grid_tokens(self, total: int) -> int:
-        """Token-grid bucket: the slot grid while the step fits it, else
-        the next power of two, at least 16."""
-        if total <= self.max_batch_slots:
-            return self.max_batch_slots
+        """Token-grid bucket: the slot grid (or ``min_step_tokens`` when
+        larger) while the step fits it, else the next power of two, at
+        least 16."""
+        floor_ = max(self.max_batch_slots, int(self.min_step_tokens or 0))
+        if total <= floor_:
+            return floor_
         return max(_MIN_GRID_TOKENS, 1 << (int(total) - 1).bit_length())
 
+    def _plan_drafts(self, decode_idx: List[int], leftover: int
+                     ) -> Dict[int, np.ndarray]:
+        """Draft tokens per decoding slot from the budget's leftover, each
+        capped so the burst stays inside ``max_new_tokens`` (the base row
+        lands at least one) and the request's reservation."""
+        if self.drafter is None or not decode_idx or leftover <= 0:
+            return {}
+        wants = []
+        for i in decode_idx:
+            st = self.slots[i]
+            limit = min(st.req.max_total_tokens, self.max_model_len)
+            cap = min(self.spec_k,
+                      int(st.req.max_new_tokens) - len(st.gen) - 1,
+                      limit - (st.pos + 1))
+            if cap > 0:
+                wants.append((i, cap, st.req))
+        drafts = {}
+        for i, d in self.scheduler.plan_drafts(leftover, wants):
+            st = self.slots[i]
+            prop = self.drafter.propose(
+                np.concatenate([st.req.prompt, np.asarray(st.gen, np.int32)]),
+                d)
+            prop = np.asarray(prop, np.int32).reshape(-1)[:d]
+            if prop.size:
+                drafts[i] = prop
+        return drafts
+
     def _plan(self) -> Optional[_StepBatch]:
-        """Decide this step's rows and reserve their KV room: one row per
-        decoding slot, then prompt chunks under the budget; lay them out
-        on the token grid."""
-        B = self.max_batch_slots
+        """Decide this step's rows and reserve their KV room (copying
+        shared pages they write into first): one row per decoding slot
+        with its drafts behind it, then prompt chunks under the budget;
+        lay them out on the token grid."""
+        B, S = self.max_batch_slots, self._spec_rows
         decode_idx: List[int] = []
         prefill_info = []
         for i, st in enumerate(self.slots):
@@ -250,18 +489,32 @@ class ServingEngine:
             else:
                 decode_idx.append(i)
         chunks = self.scheduler.plan_chunks(len(decode_idx), prefill_info)
+        drafts = self._plan_drafts(
+            decode_idx,
+            self.token_budget - len(decode_idx) - sum(c for _, c in chunks))
         rows = []
+        n_draft = 0
         for i in decode_idx:
             st = self.slots[i]
-            self.pool.extend(st.req.req_id, st.pos + 1)
-            rows.append((i, np.asarray([st.last_token], np.int32),
-                         np.asarray([st.pos], np.int32), False))
+            d_toks = drafts.get(i)
+            d = 0 if d_toks is None else int(d_toks.size)
+            if d:
+                self.pool.extend_write(st.req.req_id, st.pos, st.pos + 1 + d)
+                toks = np.concatenate([[st.last_token], d_toks]).astype(
+                    np.int32)
+            else:
+                self.pool.extend(st.req.req_id, st.pos + 1)
+                toks = np.asarray([st.last_token], np.int32)
+            rows.append((i, toks,
+                         np.arange(st.pos, st.pos + 1 + d, dtype=np.int32),
+                         False, d))
+            n_draft += d
         for i, c in chunks:
             st = self.slots[i]
             self.pool.extend_write(st.req.req_id, st.pos, st.pos + c)
             rows.append((i, st.ids[st.pos:st.pos + c],
                          np.arange(st.pos, st.pos + c, dtype=np.int32),
-                         True))
+                         True, 0))
         if not rows:
             return None
         total = sum(r[1].size for r in rows)
@@ -269,37 +522,44 @@ class ServingEngine:
         tok = np.zeros(T, np.int32)
         tok_pos = np.zeros(T, np.int32)
         tok_bt = np.zeros((T, self.pages_per_seq), np.int32)
-        sample_rows = np.zeros(B, np.int32)
-        sample_pos = np.zeros(B, np.int32)
+        sample_rows = np.zeros((B, S), np.int32)
+        sample_pos = np.zeros((B, S), np.int32)
         temps = np.zeros(B, np.float32)
         seeds = np.zeros(B, np.int32)
         cur = 0
-        for i, toks, poss, _is_chunk in rows:
+        for i, toks, poss, is_chunk, d in rows:
             st = self.slots[i]
             c = toks.size
             tok[cur:cur + c] = toks
             tok_pos[cur:cur + c] = poss
             table = self.pool.block_table(st.req.req_id)
             tok_bt[cur:cur + c, :len(table)] = table
-            # a slot samples from its last row: its decode token, or the
-            # chunk's final token (kept only when the prompt is done)
-            sample_rows[i] = cur + c - 1
-            sample_pos[i] = int(poss[-1])
+            if is_chunk:
+                # the chunk's final token samples (kept only when the
+                # prompt is done)
+                sample_rows[i, 0] = cur + c - 1
+                sample_pos[i, 0] = int(poss[-1])
+            else:
+                # column j samples the token after burst token j
+                sample_rows[i, :d + 1] = np.arange(cur, cur + d + 1)
+                sample_pos[i, :d + 1] = poss
             temps[i] = st.req.temperature
             seeds[i] = st.req.seed
             cur += c
         n_decode = len(decode_idx)
         self.stats["step_decode_tokens"] = n_decode
-        self.stats["step_prefill_tokens"] = total - n_decode
+        self.stats["step_draft_tokens"] = n_draft
+        self.stats["step_prefill_tokens"] = total - n_decode - n_draft
         return _StepBatch(rows, total, tok, tok_pos, tok_bt, sample_rows,
-                          sample_pos, temps, seeds, n_decode)
+                          sample_pos, temps, seeds, n_decode, n_draft)
 
     @torch.no_grad()
     def _forward(self, batch: _StepBatch,
                  attention=ragged_paged_attention) -> torch.Tensor:
-        """The unified step on the device: the trunk over every grid row
-        (KV written into the pool in place), then the vocab head over the
-        per-slot sample rows only. Returns ``[B, V]`` f32 logits."""
+        """The unified step's model half, eagerly, with ``attention``:
+        the trunk over every grid row (KV written into the pool in place),
+        then the vocab head over the sample rows only. Returns ``[B * S,
+        V]`` f32 logits."""
         dev = self.device
 
         def put(a):
@@ -308,22 +568,59 @@ class ServingEngine:
         hidden = self.trunk.forward_paged(
             put(batch.tok), put(batch.tok_pos), put(batch.tok_bt),
             self.pool.layer_caches(), attention=attention)
-        last_h = hidden[put(batch.sample_rows).to(torch.int64)]
+        last_h = hidden[put(batch.sample_rows.reshape(-1)).to(torch.int64)]
         return self.model.logits(last_h).to(torch.float32)
 
-    def _land(self, batch: _StepBatch, nxt: np.ndarray
+    def _land(self, batch: _StepBatch, nxt, finite=None
               ) -> List[RequestOutput]:
         """Advance every row's slot by what the step computed and land the
-        sampled tokens of slots that finished their prompt or decoded."""
+        sampled tokens (``nxt`` ``[B * S]``): a final chunk's first token,
+        or a decode row's accepted drafts and the token after them.
+        ``finite`` flags each sample row's logits."""
+        B, S = self.max_batch_slots, self._spec_rows
+        nxt = np.asarray(nxt).reshape(B, S)
+        if finite is not None:
+            fin = np.asarray(finite).reshape(B, S).astype(bool)
+            for i, _toks, _poss, is_chunk, d in batch.rows:
+                if not fin[i, :1 if is_chunk else d + 1].all():
+                    raise FloatingPointError(
+                        f"request {self.slots[i].req.req_id!r}: non-finite "
+                        f"logits (the NaN quarantine is not ported)")
         finished: List[RequestOutput] = []
-        for i, toks, _poss, is_chunk in batch.rows:
+        for i, toks, _poss, is_chunk, d in batch.rows:
             st = self.slots[i]
-            st.pos += toks.size
-            if is_chunk and st.prefilling:
-                continue  # mid-prompt: more chunks to go, no token
-            out = self._land_token(st, slot=i, token=int(nxt[i]))
-            if out is not None:
-                finished.append(out)
+            if is_chunk:
+                st.pos += toks.size
+                if st.prefilling:
+                    continue  # mid-prompt: more chunks to go, no token
+                if self.prefix_cache is not None and st.req.prefix_cache:
+                    # index the prompt's full pages for later admissions
+                    self.prefix_cache.insert(
+                        st.req.prompt, int(st.req.prompt.size),
+                        self.pool.block_table(st.req.req_id))
+                out = self._land_token(st, slot=i, token=int(nxt[i, 0]))
+                if out is not None:
+                    finished.append(out)
+                continue
+            # column j is the stream's token at position pos + j + 1: the
+            # drafts equal to their targets are accepted, then the target
+            # of the first mismatch (or the last column) lands as well;
+            # rejected drafts' KV is rolled back before anything lands
+            targets = nxt[i, :d + 1]
+            a = 0
+            while a < d and int(toks[a + 1]) == int(targets[a]):
+                a += 1
+            if d:
+                self.stats["spec_drafted"] += d
+                self.stats["spec_accepted"] += a
+                if a < d:
+                    self.pool.truncate(st.req.req_id, st.pos + a + 1)
+            for t in targets[:a + 1]:
+                st.pos += 1
+                out = self._land_token(st, slot=i, token=int(t))
+                if out is not None:
+                    finished.append(out)
+                    break
         return finished
 
     def _land_token(self, st: _SeqState, slot: int,

@@ -101,22 +101,18 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
 
 
 def sample(logits: torch.Tensor, temps, seeds, positions) -> torch.Tensor:
-    """The engine's per-row draw: greedy ``argmax`` where the temperature
-    is 0, else ``categorical(fold_in(PRNGKey(seed), position), logits /
-    max(t, 1e-6))``. ``logits`` ``[R, V]`` f32; ``temps``, ``seeds`` and
-    ``positions`` are host sequences of length R. Returns ``[R]`` int64
-    on the logits' device; only rows with ``t > 0`` pay for the noise."""
-    out = torch.argmax(logits, dim=-1)
-    rows = [i for i, t in enumerate(temps) if t > 0]
-    if not rows:
-        return out
+    """The engine's per-row draw, at a fixed shape: greedy ``argmax``
+    where the temperature is 0, else ``categorical(fold_in(PRNGKey(seed),
+    position), logits / max(t, 1e-6))``. ``logits`` ``[R, V]`` f32;
+    ``temps``, ``seeds`` and ``positions`` are ``[R]`` tensors on the
+    logits' device (or anything ``torch.as_tensor`` takes). Every row's
+    noise is drawn and ``where(t > 0, sampled, greedy)`` selects, as the
+    JAX engine's traced step does, so the draw reads nothing on the host
+    and can be captured in a CUDA graph. Returns ``[R]`` int64."""
     dev = logits.device
-    idx = torch.tensor(rows, dtype=torch.int64, device=dev)
-    t = torch.tensor([max(float(temps[i]), 1e-6) for i in rows],
-                     dtype=torch.float32, device=dev)
-    keys = fold_in(prng_key(torch.tensor([int(seeds[i]) for i in rows],
-                                         device=dev)),
-                   torch.tensor([int(positions[i]) for i in rows],
-                                device=dev))
-    out[idx] = categorical(keys, logits[idx] / t[:, None])
-    return out
+    temps = torch.as_tensor(temps, dtype=torch.float32, device=dev)
+    keys = fold_in(prng_key(torch.as_tensor(seeds, device=dev)),
+                   torch.as_tensor(positions, device=dev))
+    t = torch.clamp_min(temps, 1e-6)
+    sampled = categorical(keys, logits / t[:, None])
+    return torch.where(temps > 0, sampled, torch.argmax(logits, dim=-1))

@@ -2,18 +2,23 @@
 
 Counterpart of ``paddle_tpu/serving/scheduler.py`` (``Request``,
 ``RequestOutput``, ``FCFSScheduler``), without its metrics, faults,
-deadlines and speculative drafts. Two decisions per engine step:
+deadlines and brownout caps. Three decisions per engine step:
 
 **Admission** (:meth:`FCFSScheduler.admit`): waiting requests enter free
 batch slots in (priority, arrival) order while a slot is free and the KV
 pool covers the request's worst case (prompt + max_new_tokens) on top of
-every live reservation. Prompt length does not gate admission: a long
-prompt admits at once and prefills in chunks.
+every live reservation, less the pages the prefix cache already holds
+for its prompt. Prompt length does not gate admission: a long prompt
+admits at once and prefills in chunks.
 
 **Chunking** (:meth:`FCFSScheduler.plan_chunks`): each step has a fixed
 ``token_budget``. Decode tokens are charged first, so a running stream's
 next token is never displaced by prompt work, and mid-prefill slots
 split the remainder in (priority, arrival) order.
+
+**Drafts** (:meth:`FCFSScheduler.plan_drafts`): speculative draft rows
+take only what the budget leaves after decode tokens and chunks, in the
+same order.
 
 Head-of-line: if the head request does not fit the pool, nothing behind
 it is admitted.
@@ -48,6 +53,9 @@ class Request:
     stream_cb: Optional[Callable] = None
     # lower is more urgent; honoured at admission and at chunking
     priority: int = 0
+    # False opts this request out of prefix-cache matching and insertion
+    # (under the engine's prefix_cache= flag)
+    prefix_cache: bool = True
     req_id: object = field(default_factory=lambda: next(_req_counter))
     arrival_t: float = field(default_factory=time.perf_counter)
 
@@ -111,16 +119,27 @@ class FCFSScheduler:
     def admit(self, free_slots: int, pool) -> List[Request]:
         """Pop the (priority, arrival)-ordered prefix that fits this step:
         free slots and worst-case page reservations, charging the pages
-        of requests admitted earlier in the same call."""
+        of requests admitted earlier in the same call. Pages the prefix
+        cache holds for a prompt join its table by refcount, so they are
+        discounted, and taken off the reclaimable side for later
+        batch-mates."""
         admitted: List[Request] = []
         pending_pages = 0
+        pending_cached = 0
         while self.waiting and free_slots > 0:
             req = self.waiting[0]
-            if not pool.can_admit(req.max_total_tokens, pending_pages):
+            matched = (pool.prefix_match_len(req.prompt)
+                       if req.prefix_cache else 0)
+            cached_pages = matched // pool.page_size
+            if not pool.can_admit(req.max_total_tokens, pending_pages,
+                                  cached_pages=cached_pages,
+                                  pending_cached=pending_cached):
                 break  # head-of-line blocks: no overtaking
             self.waiting.popleft()
             admitted.append(req)
-            pending_pages += pool.pages_needed(req.max_total_tokens)
+            pending_pages += (pool.pages_needed(req.max_total_tokens)
+                              - cached_pages)
+            pending_cached += cached_pages
             free_slots -= 1
         return admitted
 
@@ -143,4 +162,26 @@ class FCFSScheduler:
             if chunk > 0:
                 plan.append((key, chunk))
                 left -= chunk
+        return plan
+
+    def plan_drafts(self, leftover: int,
+                    wants: Sequence[Tuple[object, int, Request]]
+                    ) -> List[Tuple[object, int]]:
+        """Share the budget this step leaves after decode tokens and
+        chunks (``leftover``) among speculative drafts: ``wants`` is
+        ``[(key, max_draft_tokens, request)]``, served in (priority,
+        arrival) order. Returns ``[(key, granted)]``, granted >= 1."""
+        left = max(int(leftover), 0)
+        plan: List[Tuple[object, int]] = []
+        if left <= 0 or not wants:
+            return plan
+        order = sorted(wants, key=lambda e: (e[2].priority, e[2].arrival_t))
+        for key, want, _req in order:
+            if left <= 0:
+                break
+            d = min(int(want), left)
+            if d <= 0:
+                continue
+            plan.append((key, d))
+            left -= d
         return plan
