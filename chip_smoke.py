@@ -63,9 +63,30 @@ Phases, in order; any failure exits non-zero before the result line:
    K4 held per layer against its plain version and, at the first layer,
    replayed from a CUDA graph and held the same way; a fork of one slot
    copies its last page (codes and scale rows) on the card; then every
-   page must come back once the cache is cleared. Reference: a small f32
-   model served on the card (graphed, prefix cache, ``spec_k=2``) and on
-   the CPU (plain path, both off) gives the same token streams.
+   page must come back once the cache is cleared. Serve tenancy
+   (``tools/serve_tenancy.py``'s traffic): Llama-0.76B on bf16 pages with
+   the prefix cache, ``spec_k=4``, three rank-4 LoRA adapters (capacity
+   4), a JSON-schema grammar over ``ToyTokenizer(32000, eos)`` and the
+   host page tier, the pool holding the worst case of 5 of the 8 slots'
+   streams (181 pages); 6 requests at priority 2, then 6 at priority 0
+   four steps later (4 base, 5 on adapters, 3 constrained, one of them on
+   an adapter; two at t = 0.8; one base request sharing an adapter
+   request's first 256 tokens), adapter ``a2`` re-registered with new
+   weights at step 10; graphed and eagerly: equal streams, one capture
+   per bucket and the same graphs replayed after the swap, ``a2``'s
+   streams unlike a run without the swap, every constrained stream
+   valid, parks and auto-unparks with no late prefetch, K4's counts as
+   above; the LoRA products timed from a graph replay at 8 and 64 rows;
+   one mixed step with three adapters registered and every row on slot
+   0 equal (``torch.equal``) to the same step over an empty store; an
+   explicit park/unpark of a live stream giving back every layer's k/v
+   bytes through its new block table (twice, timed per page); the pool
+   empty once the cache is cleared; prints decode p50, park and unpark
+   ms per page, cross-adapter prefix hits, drafts cut by the grammar,
+   peak memory. Reference: a small f32 model served on the card
+   (graphed, prefix cache, ``spec_k=2``) and on the CPU (plain path, both
+   off) gives the same token streams, one request on a LoRA adapter and
+   one under a grammar among them.
 6. Train: GPT-3 1.3B (vocab 50304, hidden 2048, 24 layers, 16 heads)
    through ``paddle_tpu_torch.bench`` (B 8, S 1024, O2 bf16 without
    master weights, fused cross entropy, AdamW), 8 steps (1 + 2 warm + 5
@@ -1179,15 +1200,265 @@ def phase_serve_features(torch, card):
     return rec
 
 
+def lora_products_ms(torch, engine, T):
+    """Device ms of one step's LoRA products at ``T`` grid rows: every
+    site group of every layer (``AdapterRows.apply_group``, as the trunk
+    calls it: q/k/v and gate/up each one A product), rows spread over
+    the store's slots, replayed from a CUDA graph."""
+    from paddle_tpu_torch.serving import AdapterRows
+
+    store = engine.adapters
+    dims = {site: (d_in, d_out) for site, d_in, d_out in store.sites}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    slots = torch.arange(T, device="cuda") % store.capacity
+    groups = [(g, torch.randn(T, dims[g[0]][0], device="cuda", generator=gen),
+               [torch.randn(T, dims[s][1], device="cuda", generator=gen)
+                for s in g]) for g in store.group_a]
+
+    def fn():
+        rows = AdapterRows(store, slots)
+        for layer in range(store.num_layers):
+            for g, x, bases in groups:
+                rows.apply_group(g, layer, x, bases)
+
+    return graph_ms(torch, fn, launches=5)
+
+
+def tenancy_checks(torch, engine, rng):
+    """On the tenancy engine (idle, its adapters registered): one mixed
+    step (decode rows and a prompt chunk, every row on slot 0) computed
+    twice, over the registered store and over an empty one, must give
+    equal hidden states (slot 0 adds exact zeros); then one live stream
+    parked and unparked explicitly must read back every layer's k/v pages
+    bit for bit through its new block table, twice (the first pays for
+    the pinned host buffers, the second reuses them). Returns the second
+    park's and unpark's ms per page, the first's, and the pages moved."""
+    from paddle_tpu_torch.serving import AdapterRows, AdapterStore
+
+    vocab = engine.model.config.vocab_size
+    for n in (300, 90, 200):
+        engine.add_request(rng.integers(0, vocab, n), max_new_tokens=4)
+    engine.step()
+    engine.add_request(rng.integers(0, vocab, 256), max_new_tokens=2)
+    for req in engine.scheduler.admit(1, engine.pool):
+        engine._admit(req)
+    batch = engine._plan()
+    if batch.n_decode != 3 or int(batch.tok_adp.max()) != 0:
+        fail(f"tenancy mixed step: {batch.n_decode} decode rows, adapter "
+             f"slots {sorted(set(batch.tok_adp.tolist()))}")
+    empty = AdapterStore.from_model(engine.model)
+    hidden = []
+    for store in (engine.adapters, empty):
+        def put(a):
+            return torch.from_numpy(a).cuda()
+        with torch.no_grad():
+            hidden.append(engine.trunk.forward_paged(
+                put(batch.tok), put(batch.tok_pos), put(batch.tok_bt),
+                engine.pool.layer_caches(),
+                adapters=AdapterRows(store, put(batch.tok_adp))))
+    if len(engine.adapters.names()) != 3 or not torch.equal(*hidden):
+        fail("tenancy mixed step: slot-0 rows over a store holding "
+             f"{engine.adapters.names()} differ from the empty store's "
+             f"(max {float((hidden[0] - hidden[1]).abs().max()):.3e})")
+    log(f"tenancy mixed step: {batch.total} rows ({batch.n_decode} decode + "
+        f"a 256-token chunk) on slot 0 with adapters "
+        f"{list(engine.adapters.names())} registered: hidden states equal "
+        "to the empty store's (torch.equal)")
+    logits = engine.model.logits(hidden[0][torch.from_numpy(
+        batch.sample_rows.reshape(-1)).cuda().long()]).float()
+    engine._land(batch, torch.argmax(logits, -1).cpu().numpy())
+    engine.run()
+
+    rid = engine.add_request(rng.integers(0, vocab, 333), max_new_tokens=16,
+                             prefix_cache=False)
+    engine.step()
+    _, live = engine._find_slot(rid)
+    while live.prefilling or len(live.gen) < 4:
+        engine.step()
+    pool = engine.pool
+    table = pool.block_table(rid)
+    n_written = pool.pages_needed(pool.seq_len(rid))
+    every = [t for _n, ts in pool._page_tensors() for t in ts]
+    before = [t[table[:n_written]].clone() for t in every]
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moved = engine.park_request(rid)
+        t1 = time.perf_counter()
+        if moved != n_written or pool.offloaded_pages(rid) != moved:
+            fail(f"explicit park moved {moved} of {n_written} written pages")
+        back = engine.unpark_request(rid)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        table2 = pool.block_table(rid)
+        after = [t[table2[:n_written]] for t in every]
+        if back != moved or not all(torch.equal(a, b)
+                                    for a, b in zip(after, before)):
+            fail("explicit park/unpark did not give back the k/v bytes")
+        times.append((1e3 * (t1 - t0) / moved, 1e3 * (t2 - t1) / moved))
+        log(f"tenancy park/unpark: {moved} pages of {pool.num_layers} "
+            f"layers' k/v moved to pinned host memory in "
+            f"{times[-1][0]:.4f} ms/page and back in {times[-1][1]:.4f} "
+            f"ms/page (table {table[:3]}... -> {table2[:3]}...), every "
+            f"byte equal")
+        table = table2
+    engine.run()
+    return times[1] + times[0] + (moved,)
+
+
+def phase_serve_tenancy(torch, card):
+    """Llama-0.76B with three LoRA adapters, a JSON-schema grammar and the
+    host page tier on ``tools.serve_tenancy``'s traffic (12 requests,
+    6 at priority 2 then 6 at priority 0 four steps later, the pool
+    holding the worst case of 5 streams), graphed and eagerly, with
+    adapter ``a2`` hot-swapped at a fixed step: equal streams, one
+    captured program per bucket and none recaptured across the swap,
+    ``a2``'s streams unlike those of a run without the swap, every
+    constrained stream valid, parks and unparks with no late prefetch,
+    K4's counts as in the serve phase; then ``tenancy_checks`` and the
+    pool empty once the cache is cleared."""
+    import gc
+
+    import numpy as np
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.tools import serve_tenancy as st
+
+    # earlier phases' engines hold their graphs in reference cycles
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama_076b()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    requests, fsm = st.tenancy_traffic(np.random.default_rng(7),
+                                       cfg.vocab_size)
+    runs = {}
+    for graphed in (True, False):
+        engine = st.tenancy_engine(model, cuda_graph=graphed, device="cuda")
+        weights = st.register_tenants(engine)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_before = torch.cuda.memory_allocated()
+        graphs = {}
+
+        def at_swap():
+            graphs.update({T: p.graph for T, p in engine._programs.items()})
+
+        pa.reset_counters()
+        outs, rec = st.serve_tenancy(
+            engine, requests, swap=weights["a2'"], at_swap=at_swap,
+            sync=torch.cuda.synchronize)
+        rec.update(kernel_launches=pa.kernel_launches,
+                   captured_launches=pa.captured_launches,
+                   replayed_launches=pa.replayed_launches,
+                   plain_calls=pa.plain_calls,
+                   peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   memory_before_gib=held_before / 2**30, card=card)
+        log(f"serve tenancy ({rec['step']}, bf16 pages, 3 adapters, grammar, "
+            f"host tier, spec_k 4): " + json.dumps(rec))
+        check_k4_counts(f"serve tenancy ({rec['step']})", engine,
+                        dict(rec, steps=rec["model_steps"]))
+        if graphed and (len(engine.capture_seconds())
+                        != rec["compile_counts"]["step"]):
+            fail(f"serve tenancy: {len(engine.capture_seconds())} captures "
+                 f"for {rec['compile_counts']}")
+        bad = [i for i, (o, r) in enumerate(zip(outs, requests))
+               if r["grammar"] is not None and not (
+                   fsm.validates(o.token_ids) and o.finish_reason == "stop")]
+        if bad:
+            fail(f"serve tenancy: constrained requests {bad} do not validate")
+        if rec["parks"] < 1 or rec["unparks"] < 1 \
+                or rec["kv_prefetch_late_pages"] != 0 \
+                or rec["swapped_at_step"] is None:
+            fail(f"serve tenancy: parks {rec['parks']}, unparks "
+                 f"{rec['unparks']}, late prefetches "
+                 f"{rec['kv_prefetch_late_pages']}, swap at "
+                 f"{rec['swapped_at_step']}")
+        runs[graphed] = (engine, [o.token_ids for o in outs], rec, graphs,
+                         weights)
+    engine, streams, rec, graphs, weights = runs[True]
+    eager_rec = runs[False][2]
+    same = streams == runs[False][1]
+    del runs
+    log(f"serve tenancy: graphed and eager streams "
+        f"{'identical' if same else 'DIFFER'} over {len(requests)} requests")
+    if not same:
+        fail("serve tenancy: the graphed step's streams differ from the "
+             "eager one's")
+    # the graphs captured before the swap are the ones replayed after it
+    if not graphs or any(engine._programs[T].graph is not g
+                         for T, g in graphs.items()):
+        fail(f"serve tenancy: a step program was recaptured across the "
+             f"swap, or none was captured before it ({sorted(graphs)})")
+    log(f"serve tenancy: the {len(graphs)} graphs captured before the swap "
+        f"(buckets {sorted(graphs)}) replayed after it; "
+        f"{rec['compile_counts']}")
+    # a2 without the swap: its requests alone on a cold cache, a2 holding
+    # its first weights throughout (streams do not depend on batch-mates)
+    engine.prefix_cache.clear()
+    engine.register_adapter("a2", weights["a2"])
+    a2 = [i for i, r in enumerate(requests) if r["adapter_id"] == "a2"]
+    rids = [engine.add_request(requests[i]["prompt"], max_new_tokens=64,
+                               temperature=requests[i]["temperature"],
+                               eos_token_id=st.EOS,
+                               seed=requests[i]["seed"], adapter_id="a2",
+                               grammar=requests[i]["grammar"]) for i in a2]
+    outs = engine.run()
+    unswapped = [outs[r].token_ids for r in rids]
+    differ = [streams[i] != u for i, u in zip(a2, unswapped)]
+    log(f"serve tenancy: a2's {len(a2)} streams against a run without the "
+        f"swap: {['differ' if d else 'equal' for d in differ]}")
+    if not any(differ):
+        fail("serve tenancy: the hot-swapped adapter changed no stream")
+    lora8 = lora_products_ms(torch, engine, 8)
+    lora64 = lora_products_ms(torch, engine, 64)
+    log(f"tenancy LoRA products ({len(engine.adapters.sites)} sites x "
+        f"{engine.n_layers} layers, capacity {engine.adapters.capacity}, rank "
+        f"{engine.adapters.rank}), graph-replayed: T 8 {lora8:.4f} ms, T 64 "
+        f"{lora64:.4f} ms a step")
+    park_ms, unpark_ms, park0_ms, unpark0_ms, moved = tenancy_checks(
+        torch, engine, np.random.default_rng(8))
+    pool = engine.pool
+    cleared = engine.prefix_cache.clear()
+    if pool.used_pages != 0 or pool.offloaded_pages() != 0 \
+            or len(pool._free) != pool.usable_pages:
+        fail(f"serve tenancy: {pool.used_pages} pages used, "
+             f"{pool.offloaded_pages()} offloaded after the cache's "
+             f"{cleared} nodes were cleared")
+    summary = {
+        "card": card,
+        "decode_step_ms_p50": {"graphed": rec["decode_step_ms_p50"],
+                               "eager": eager_rec["decode_step_ms_p50"]},
+        "auto_offload_ms_per_page": rec["offload_ms_per_page"],
+        "auto_prefetch_ms_per_page": rec["prefetch_ms_per_page"],
+        "explicit_park_ms_per_page": park_ms,
+        "explicit_unpark_ms_per_page": unpark_ms,
+        "explicit_first_park_ms_per_page": park0_ms,
+        "explicit_first_unpark_ms_per_page": unpark0_ms,
+        "explicit_pages": moved,
+        "prefix_hit_tokens_cross_adapter":
+            rec["prefix_hit_tokens_cross_adapter"],
+        "grammar_filtered_drafts": rec["grammar_filtered_drafts"],
+        "lora_products_ms": {"T8": lora8, "T64": lora64},
+        "peak_memory_gib": rec["peak_memory_gib"],
+    }
+    log("serve tenancy summary: " + json.dumps(summary))
+    return rec
+
+
 def phase_reference(torch):
     """A small f32 Llama (GQA) served on the card, graphed, with the
     prefix cache and 2-token drafts, and on the CPU through the plain
     version with both off: the same token streams. The fifth request
-    shares the first one's two full pages."""
+    shares the first one's two full pages; the sixth runs on a LoRA
+    adapter (the same seeded weights on both) and the seventh under a
+    grammar, whose stream must validate."""
     import numpy as np
 
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
-    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving import (GrammarFSM, ServingEngine,
+                                          random_adapter, toy_tokenizer)
 
     cfg = llama_tiny(vocab_size=256, hidden_size=256, num_layers=2,
                      num_heads=4, num_key_value_heads=2,
@@ -1197,26 +1468,36 @@ def phase_reference(torch):
             ((40, 0.0, 0), (7, 0.8, 1), (130, 0.0, 2), (64, 0.8, 3))]
     work.append((np.concatenate([work[0][0][:35], rng.integers(0, 256, 20)]),
                  0.0, 4))
+    fsm = GrammarFSM.compile({"enum": ["red", "green", "blue"]},
+                             toy_tokenizer(256))
+    tenancy = [dict(adapter_id="t1"), dict(grammar=fsm)]
+    work += [(rng.integers(0, 256, 50), 0.8, 5), (rng.integers(0, 256, 20),
+                                                  0.0, 6)]
     streams, stats = {}, {}
     for dev, kw in (("cuda", dict(spec_k=2)),
                     ("cpu", dict(prefix_cache=False))):
         model = LlamaForCausalLM(cfg, device="cpu", seed=5).to(dev)
         eng = ServingEngine(model, page_size=16, max_batch_slots=3,
                             token_budget=48, device=dev, **kw)
-        rids = [eng.add_request(p, max_new_tokens=12, temperature=t, seed=s)
-                for p, t, s in work]
+        eng.register_adapter("t1", random_adapter(eng.adapters, seed=9,
+                                                  scale=0.2))
+        rids = [eng.add_request(p, max_new_tokens=12, temperature=t, seed=s,
+                                **(tenancy[i - 5] if i >= 5 else {}))
+                for i, (p, t, s) in enumerate(work)]
         outs = eng.run()
         streams[dev] = [outs[r].token_ids for r in rids]
         stats[dev] = {k: eng.stats[k] for k in (
-            "prefix_hit_tokens", "spec_drafted", "spec_accepted")}
+            "prefix_hit_tokens", "spec_drafted", "spec_accepted",
+            "grammar_tokens")}
         stats[dev]["compile_counts"] = eng.compile_counts()
     same = streams["cuda"] == streams["cpu"]
     card = stats["cuda"]
     log(f"reference: small f32 Llama, card (graphed, prefix cache, spec_k 2: "
         f"{json.dumps(card)}) vs CPU (plain, both off) streams "
-        f"{'identical' if same else 'DIFFER'} over {len(work)} requests")
-    if not same:
-        fail(f"streams differ: {streams}")
+        f"{'identical' if same else 'DIFFER'} over {len(work)} requests, one "
+        f"on a LoRA adapter, one under a grammar")
+    if not same or not fsm.validates(streams["cuda"][6]):
+        fail(f"streams differ, or the constrained one is invalid: {streams}")
     cc = card["compile_counts"]
     if card["prefix_hit_tokens"] <= 0 or card["spec_drafted"] <= 0 \
             or cc["step"] != cc["step_buckets"]:
@@ -1364,7 +1645,10 @@ def main():
     phase_mixed_steps(torch, engine)
     del engine
     torch.cuda.empty_cache()
-    phase_serve_features(torch, card)
+    features = phase_serve_features(torch, card)
+    torch.cuda.empty_cache()
+    tenancy = phase_serve_tenancy(torch, card)
+    torch.cuda.empty_cache()
     phase_reference(torch)
     torch.cuda.empty_cache()
     flash_launches = phase_train(torch, card, "gpt13")
@@ -1382,6 +1666,12 @@ def main():
         # bucket, then one a layer per replayed step
         "launches": serve["kernel_launches"] + serve["replayed_launches"],
         "replayed_launches": serve["replayed_launches"],
+        # each serving path's graphed run, counted the same way
+        "launches_by_path": {
+            name: rec["kernel_launches"] + rec["replayed_launches"]
+            for name, rec in (("serve", serve),
+                              ("serve_features", features),
+                              ("serve_tenancy", tenancy))},
         "max_abs_err": head["max_abs_err"],
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

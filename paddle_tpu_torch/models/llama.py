@@ -40,9 +40,14 @@ Differences from the JAX package, by design of the port:
   device (Normal(0, 0.02); output projections std 0.02 / sqrt(2 * layers);
   norms 1), never from the global RNG.
 
+The paged forward takes ``adapters=`` (``serving/adapters.py``
+``AdapterRows``): every projection site of every layer adds its LoRA
+delta (q/k/v before RoPE, o on the merged attention output, gate/up/down
+in the MLP), which is exactly zero on the rows of slot 0.
+
 Not ported yet: the KV-cache forward (``cache=``, behind ``generate()``),
-sequence parallelism (``sequence_parallel=True`` raises), tensor
-parallelism and LoRA adapters.
+sequence parallelism (``sequence_parallel=True`` raises) and tensor
+parallelism.
 """
 from __future__ import annotations
 
@@ -186,7 +191,7 @@ class LlamaAttention(nn.Module):
 
     def forward_paged(self, x, positions, block_tables, k_pool, v_pool,
                       rope, attention=ragged_paged_attention, k_scale=None,
-                      v_scale=None):
+                      v_scale=None, adapters=None, layer_idx=0):
         """Paged-KV ragged step: one query token per row of ``x`` ``[T, H]``
         at ``positions`` ``[T]`` (int32), each with its owner's block table
         ``[T, pages]`` (int32). Writes every row's rope'd k/v into its page
@@ -201,13 +206,20 @@ class LlamaAttention(nn.Module):
         each row's k and v are quantized per slot (``quantize_kv``) and
         the codes and scales written; attention dequantizes in the
         kernel. Every write is an ``index_put_`` at int64 indices, so the
-        step can be captured in a CUDA graph. Returns ``[T, H]``."""
+        step can be captured in a CUDA graph. ``adapters`` (an
+        ``AdapterRows``) adds the q/k/v deltas of layer ``layer_idx``
+        before RoPE and the o delta on the merged attention output.
+        Returns ``[T, H]``."""
         T = x.shape[0]
         nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
         cos, sin = rope
-        q = _apply_rope(self.q_proj(x).view(T, nh, hd), cos, sin)
-        k = _apply_rope(self.k_proj(x).view(T, nkv, hd), cos, sin)
-        v = self.v_proj(x).view(T, nkv, hd)
+        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        if adapters is not None:
+            q, k, v = adapters.apply_group(("q_proj", "k_proj", "v_proj"),
+                                           layer_idx, x, (q, k, v))
+        q = _apply_rope(q.view(T, nh, hd), cos, sin)
+        k = _apply_rope(k.view(T, nkv, hd), cos, sin)
+        v = v.view(T, nkv, hd)
         page_size = k_pool.shape[1]
         pos = positions.to(torch.int64)
         rows = torch.arange(T, device=x.device)
@@ -223,7 +235,11 @@ class LlamaAttention(nn.Module):
         ctx = attention(q.contiguous(), k_pool, v_pool, block_tables,
                         positions + 1, scale=1.0 / math.sqrt(hd),
                         k_scale=k_scale, v_scale=v_scale)
-        return self.o_proj(ctx.reshape(T, nh * hd))
+        merged = ctx.reshape(T, nh * hd)
+        out = self.o_proj(merged)
+        if adapters is not None:
+            out = adapters.apply("o_proj", layer_idx, merged, out)
+        return out
 
 
 class LlamaMLP(nn.Module):
@@ -236,9 +252,16 @@ class LlamaMLP(nn.Module):
         self.up_proj = Linear(h, ff, bias=False)
         self.down_proj = Linear(ff, h, bias=False)
 
-    def forward(self, x):
-        return self.down_proj(_mul(F.silu(self.gate_proj(x)),
-                                   self.up_proj(x)))
+    def forward(self, x, adapters=None, layer_idx=0):
+        """``adapters`` (an ``AdapterRows``, paged step only) adds the
+        gate/up/down deltas of layer ``layer_idx``."""
+        if adapters is None:
+            return self.down_proj(_mul(F.silu(self.gate_proj(x)),
+                                       self.up_proj(x)))
+        g, u = adapters.apply_group(("gate_proj", "up_proj"), layer_idx, x,
+                                    (self.gate_proj(x), self.up_proj(x)))
+        a = _mul(F.silu(g), u)
+        return adapters.apply("down_proj", layer_idx, a, self.down_proj(a))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -257,11 +280,13 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward_paged(self, x, positions, block_tables, k_pool, v_pool, rope,
                       attention=ragged_paged_attention, k_scale=None,
-                      v_scale=None):
+                      v_scale=None, adapters=None, layer_idx=0):
         x = _add(x, self.self_attn.forward_paged(
             self.input_layernorm(x), positions, block_tables, k_pool, v_pool,
-            rope, attention=attention, k_scale=k_scale, v_scale=v_scale))
-        return _add(x, self.mlp(self.post_attention_layernorm(x)))
+            rope, attention=attention, k_scale=k_scale, v_scale=v_scale,
+            adapters=adapters, layer_idx=layer_idx))
+        return _add(x, self.mlp(self.post_attention_layernorm(x),
+                                adapters=adapters, layer_idx=layer_idx))
 
 
 class LlamaModel(nn.Module):
@@ -286,21 +311,24 @@ class LlamaModel(nn.Module):
 
     def forward_paged(self, input_ids, positions, block_tables,
                       caches: Sequence[Tuple[torch.Tensor, ...]],
-                      attention=ragged_paged_attention):
+                      attention=ragged_paged_attention, adapters=None):
         """Paged trunk of the serving step: ``input_ids`` ``[T]``,
         ``positions`` ``[T]`` int32, ``block_tables`` ``[T, pages]`` int32,
         ``caches`` a per-layer list of ``(k_pool, v_pool)``, or ``(k_pool,
-        v_pool, k_scale, v_scale)`` for int8 pages, written in place.
+        v_pool, k_scale, v_scale)`` for int8 pages, written in place;
+        ``adapters`` an ``AdapterRows`` (each row's LoRA slot) or None.
         Returns the final-norm hidden states ``[T, H]``."""
         cfg = self.config
         rope = _rope_rows(positions, cfg.hidden_size // cfg.num_heads,
                           cfg.rope_theta)
         x = self.embed_tokens(input_ids.to(torch.int64))
-        for layer, (kp, vp, *scales) in zip(self.layers, caches):
+        for li, (layer, (kp, vp, *scales)) in enumerate(
+                zip(self.layers, caches)):
             ks, vs = scales or (None, None)
             x = layer.forward_paged(x, positions, block_tables, kp, vp, rope,
                                     attention=attention, k_scale=ks,
-                                    v_scale=vs)
+                                    v_scale=vs, adapters=adapters,
+                                    layer_idx=li)
         return self.norm(x)
 
 
@@ -378,3 +406,24 @@ class LlamaForCausalLM(nn.Module):
         # pre-repeat kv heads: GQA's memory saving applies to the cache too
         return (cfg.num_layers, cfg.num_key_value_heads,
                 cfg.hidden_size // cfg.num_heads)
+
+    def lora_sites(self):
+        """The ``AdapterStore`` contract: ordered ``(site, in_dim,
+        out_dim)`` triples for every projection the paged trunk offers a
+        LoRA delta at, and the layer count."""
+        cfg = self.config
+        hd = cfg.hidden_size // cfg.num_heads
+        h = cfg.hidden_size
+        q_out = cfg.num_heads * hd
+        kv_out = cfg.num_key_value_heads * hd
+        ff = cfg.intermediate_size
+        sites = [("q_proj", h, q_out), ("k_proj", h, kv_out),
+                 ("v_proj", h, kv_out), ("o_proj", q_out, h),
+                 ("gate_proj", h, ff), ("up_proj", h, ff),
+                 ("down_proj", ff, h)]
+        return sites, cfg.num_layers
+
+    def lora_site_groups(self):
+        """The sites of :meth:`lora_sites` that read one input: the
+        attention's q, k and v, and the MLP's gate and up."""
+        return (("q_proj", "k_proj", "v_proj"), ("gate_proj", "up_proj"))

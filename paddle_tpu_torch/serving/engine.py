@@ -48,8 +48,41 @@ pure function of (prompt, seed, temperature), independent of batch
 composition, chunk boundaries, prefix hits and speculation, and equal to
 the JAX engine's.
 
-Not ported yet: adapters, grammars, the host tier, metrics, deadlines,
-cancellation and the NaN quarantine (a non-finite sample raises here).
+Tenancy rides the step as data, as in the JAX engine, where adapters and
+grammars are always in the step program and turning them off is a value:
+
+- **Multi-LoRA adapters** (adapters.py): every grid row carries its
+  owner's adapter slot (``tok_adp``), and every projection of every layer
+  adds that slot's LoRA delta; slot 0 is the zero identity, so a base
+  row comes out bit for bit as without adapters. ``register_adapter``
+  writes into the store's existing storage, so a captured step reads a
+  hot-swapped adapter at its next replay.
+- **Constrained decoding** (grammar.py): every sample row carries the
+  absolute row of its DFA state in one interned ``[grammar_states, V]``
+  device table (``fsm_state``); the step masks disallowed tokens to
+  -1e30 before sampling, after the finite flag read the raw logits. Row
+  0 is all True, which leaves a free row's logits as they are. Drafts of
+  a constrained slot are cut to their grammar-valid prefix, and their
+  sample columns carry the states the drafts would reach. The DFA
+  advances on the host as tokens land; a finished structure retires the
+  request. The table is written in place as grammars are interned and
+  released.
+- **The host page tier** (``host_offload=True``; kv_cache.py): before
+  admission, a queue head that does not fit the pool parks the coldest
+  strictly lower-priority decoding streams (their pages move to pinned
+  host memory and their tail reservations are released; the slot stays
+  and contributes no rows), and after admission parked streams that fit
+  again come back, written into the existing page tensors before the
+  step that reads them. ``park_request``/``unpark_request`` do the same
+  on demand.
+
+The radix prefix cache keys pages on token ids only, as the JAX
+engine's: a request on one adapter can adopt pages another adapter's
+request (or a base one) wrote, though their k/v differ.
+``stats["prefix_hit_tokens_cross_adapter"]`` counts such hits.
+
+Not ported yet: metrics, deadlines, cancellation and the NaN quarantine
+(a non-finite sample raises here).
 """
 from __future__ import annotations
 
@@ -65,6 +98,7 @@ from ..device import resolve_device
 from ..ops import paged_attention as pa
 from ..ops.paged_attention import ragged_paged_attention
 from . import sampling
+from .adapters import AdapterRows, AdapterStore
 from .kv_cache import PagedKVCachePool, PrefixCache
 from .scheduler import FCFSScheduler, Request, RequestOutput
 from .spec import NGramDrafter
@@ -80,9 +114,15 @@ class _SeqState:
     cache length) and ``gen`` the tokens sampled so far. While ``pos <
     len(ids)`` the slot feeds its next prompt chunk; the final chunk's
     sample is the first generated token. Then it decodes: ``last_token``
-    feeds back at ``pos``, with its drafts behind it."""
+    feeds back at ``pos``, with its drafts behind it. ``t_last`` is when
+    its last token landed. ``adp_slot`` is its adapter's slot in the
+    engine's store (0: none); ``fsm`` its grammar, ``fsm_off`` the
+    grammar's first row in the engine's table and ``fsm_state`` its
+    local DFA state; ``parked`` is False, ``"auto"`` (parked by pressure,
+    restored by the engine) or ``"manual"`` (by ``park_request``)."""
 
-    __slots__ = ("req", "ids", "pos", "last_token", "gen")
+    __slots__ = ("req", "ids", "pos", "last_token", "gen", "t_last",
+                 "adp_slot", "fsm", "fsm_off", "fsm_state", "parked")
 
     def __init__(self, req: Request, pos: int = 0):
         self.req = req
@@ -90,6 +130,12 @@ class _SeqState:
         self.pos = int(pos)
         self.last_token = -1
         self.gen: List[int] = []
+        self.t_last = time.perf_counter()
+        self.adp_slot = 0
+        self.fsm = None
+        self.fsm_off = 0
+        self.fsm_state = 0
+        self.parked = False
 
     @property
     def prefilling(self) -> bool:
@@ -100,18 +146,21 @@ class _SeqState:
 class _StepBatch:
     """One unified step's grid, planned on the host: ``rows`` are
     ``(slot, token ids, positions, is_chunk, n_draft)``; the arrays are
-    the grid (``tok``/``tok_pos`` ``[T]``, ``tok_bt`` ``[T, pages]``),
-    each slot's sample rows and their positions (``[B, S]``, ``S =
-    spec_k + 1``: column 0 the slot's last row, then its draft rows) and
-    the per-slot sampling parameters (``[B]``)."""
+    the grid (``tok``/``tok_pos``/``tok_adp`` ``[T]``, ``tok_bt`` ``[T,
+    pages]``), each slot's sample rows, their positions and their
+    grammar-table rows (``[B, S]``, ``S = spec_k + 1``: column 0 the
+    slot's last row, then its draft rows) and the per-slot sampling
+    parameters (``[B]``)."""
 
     rows: list
     total: int
     tok: np.ndarray
     tok_pos: np.ndarray
     tok_bt: np.ndarray
+    tok_adp: np.ndarray
     sample_rows: np.ndarray
     sample_pos: np.ndarray
+    fsm_state: np.ndarray
     temps: np.ndarray
     seeds: np.ndarray
     n_decode: int
@@ -123,12 +172,13 @@ class _StepProgram:
     the JAX engine's compiled program per bucket (``_make_step``).
 
     It owns the step's inputs as static device buffers (slices of one
-    int32 buffer: ``tok``, ``tok_pos``, ``tok_bt``, ``sample_rows``,
-    ``sample_pos``, ``temps`` as f32 bits and ``seeds``) with a host
-    mirror (pinned on a card), so staging a step is one host-to-device
-    copy, and K4's split workspace for ``T`` rows. The pool's page and
-    scale tensors keep their addresses, so the program reads them as
-    they are.
+    int32 buffer: ``tok``, ``tok_pos``, ``tok_bt``, ``tok_adp``,
+    ``sample_rows``, ``sample_pos``, ``fsm_state``, ``temps`` as f32 bits
+    and ``seeds``) with a host mirror (pinned on a card), so staging a
+    step is one host-to-device copy, and K4's split workspace for ``T``
+    rows. The pool's page and scale tensors, the adapter stacks and the
+    grammar table keep their addresses, so the program reads them as they
+    are.
 
     On a card the first call warms the program up on a side stream (lazy
     initialisation stays out of the capture), captures it as a CUDA graph
@@ -136,9 +186,9 @@ class _StepProgram:
     stage and replay. Nothing inside reads the host: the sampler draws
     every row at a fixed shape, the KV writes are ``index_put_`` at int64
     indices, K4's launch plan reads shapes only. Copy-on-write copies
-    and rollbacks run on the host's schedule before the replay, never
-    inside it. Off the card the same program runs eagerly from the same
-    buffers."""
+    and rollbacks, adapter and grammar-table writes and prefetched pages
+    land on the host's schedule before the replay, never inside it. Off
+    the card the same program runs eagerly from the same buffers."""
 
     def __init__(self, engine: "ServingEngine", T: int):
         self.engine = engine
@@ -147,7 +197,8 @@ class _StepProgram:
         P = engine.pages_per_seq
         dev = engine.device
         sizes = (("tok", T), ("tok_pos", T), ("tok_bt", T * P),
-                 ("sample_rows", B * S), ("sample_pos", B * S),
+                 ("tok_adp", T), ("sample_rows", B * S),
+                 ("sample_pos", B * S), ("fsm_state", B * S),
                  ("temps", B), ("seeds", B))
         n = sum(s for _k, s in sizes)
         self._buf = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -178,15 +229,15 @@ class _StepProgram:
 
     def stage(self, batch: _StepBatch) -> None:
         """Copy the step's host arrays into the static buffers."""
-        for name in ("tok", "tok_pos", "tok_bt", "sample_rows", "sample_pos",
-                     "temps", "seeds"):
+        for name in self.host:
             self.host[name][:] = getattr(batch, name).reshape(-1)
         self._buf.copy_(self._host_t, non_blocking=True)
 
     @torch.no_grad()
     def _body(self) -> torch.Tensor:
         """The step on the device, from the static buffers: ``[2, B*S]``
-        int64, the sampled tokens and each sample row's finite flag."""
+        int64, the sampled tokens and each sample row's finite flag (of
+        the raw logits, before the grammar mask)."""
         eng = self.engine
         d = self.dev
         P = eng.pages_per_seq
@@ -195,10 +246,13 @@ class _StepProgram:
             d["tok"], d["tok_pos"], d["tok_bt"].view(self.T, P),
             eng.pool.layer_caches(),
             attention=functools.partial(ragged_paged_attention,
-                                        workspace=self.workspace))
+                                        workspace=self.workspace),
+            adapters=AdapterRows(eng.adapters, d["tok_adp"]))
         logits = eng.model.logits(
             hidden[d["sample_rows"].to(torch.int64)]).to(torch.float32)
         fin = torch.isfinite(logits).all(dim=-1)
+        allowed = eng._grammar_dev[d["fsm_state"].to(torch.int64)]
+        logits = torch.where(allowed, logits, -1e30)
         nxt = sampling.sample(
             logits, d["temps"][:, None].expand(B, S).reshape(-1),
             d["seeds"][:, None].expand(B, S).reshape(-1), d["sample_pos"])
@@ -256,7 +310,10 @@ class ServingEngine:
     drafts up to that many tokens a decoding slot with an
     ``NGramDrafter(max_ngram=spec_ngram)``, or with ``drafter`` (anything
     with ``propose(ids, k)``). ``cuda_graph=False`` runs the step eagerly
-    on a card too."""
+    on a card too. ``host_offload=True`` arms the host page tier.
+    ``adapter_capacity``/``adapter_rank`` size the LoRA store (slot 0 the
+    identity), ``grammar_states`` the grammar table (row 0 the
+    identity)."""
 
     def __init__(self, model, *, page_size: int = 16,
                  num_pages: Optional[int] = None,
@@ -264,8 +321,11 @@ class ServingEngine:
                  max_model_len: Optional[int] = None,
                  token_budget: int = 1024,
                  min_step_tokens: Optional[int] = None,
-                 kv_dtype=torch.float32, prefix_cache: bool = True,
+                 kv_dtype=torch.float32, host_offload: bool = False,
+                 prefix_cache: bool = True,
                  spec_k: int = 0, spec_ngram: int = 3, drafter=None,
+                 adapter_capacity: int = 4, adapter_rank: int = 4,
+                 grammar_states: int = 64,
                  cuda_graph: bool = True, device=None):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -295,6 +355,28 @@ class ServingEngine:
         # sample-grid width: every slot owns spec_k + 1 sample rows, fixed
         # per engine so the step's shapes never vary with the drafts
         self._spec_rows = self.spec_k + 1
+        # the LoRA store is always built and always in the step: with no
+        # adapter registered every row reads slot 0's zeros
+        self.adapters = AdapterStore.from_model(
+            model, rank=adapter_rank, capacity=adapter_capacity)
+        # one [grammar_states, V] allow-mask table for every interned
+        # grammar, row 0 all True (the free rows' identity); a host copy
+        # and the device table the step reads, written in place
+        self._vocab_size = int(model.config.vocab_size)
+        self._grammar_cap = int(grammar_states)
+        if self._grammar_cap < 2:
+            raise ValueError("grammar_states must be >= 2 (row 0 is the "
+                             f"reserved identity), got {grammar_states}")
+        self._grammar_table = np.zeros(
+            (self._grammar_cap, self._vocab_size), bool)
+        self._grammar_table[0, :] = True
+        self._grammar_dev = torch.from_numpy(self._grammar_table).to(
+            self.device)
+        # fsm.key -> [offset, n_states, refcount, fsm]
+        self._grammar_segments: Dict[object, list] = {}
+        self._host_offload = bool(host_offload)
+        # the adapter that wrote each page the prefix cache indexes
+        self._page_writer: Dict[int, Optional[str]] = {}
         self.pages_per_seq = -(-self.max_model_len // self.page_size)
         if num_pages is None:
             num_pages = self.max_batch_slots * self.pages_per_seq + 1
@@ -318,9 +400,17 @@ class ServingEngine:
             # the token mix of the last step (decode, draft, prompt rows)
             "step_decode_tokens": 0, "step_draft_tokens": 0,
             "step_prefill_tokens": 0,
-            # running totals: prompt tokens prefix hits covered, draft
-            # rows scored and drafts accepted
-            "prefix_hit_tokens": 0, "spec_drafted": 0, "spec_accepted": 0,
+            # running totals: prompt tokens prefix hits covered (and of
+            # those, the ones written under another adapter), draft rows
+            # scored and drafts accepted
+            "prefix_hit_tokens": 0, "prefix_hit_tokens_cross_adapter": 0,
+            "spec_drafted": 0, "spec_accepted": 0,
+            # tokens landed under a grammar; drafts cut by one
+            "grammar_tokens": 0, "grammar_filtered_drafts": 0,
+            # the host tier: parks and unparks, pages moved each way, and
+            # pages a slot still had on the host when its step came
+            "parks": 0, "unparks": 0, "kv_offloaded_pages": 0,
+            "kv_prefetched_pages": 0, "kv_prefetch_late_pages": 0,
         }
 
     # ------------------------------------------------------------ frontend
@@ -345,20 +435,50 @@ class ServingEngine:
                 f"pool has only {self.pool.usable_pages} usable pages "
                 f"(limit: num_pages={self.pool.num_pages})")
 
+    def _check_features(self, req: Request) -> None:
+        """Raise ValueError at enqueue for an adapter this engine does not
+        hold, a grammar compiled for another vocabulary, or a DFA larger
+        than the grammar table."""
+        if (req.adapter_id is not None
+                and not self.adapters.holds(req.adapter_id)):
+            raise ValueError(
+                f"adapter {req.adapter_id!r} is not registered on this "
+                f"engine (holding {list(self.adapters.names())}); "
+                f"register it first")
+        fsm = req.grammar
+        if fsm is not None:
+            if int(fsm.vocab_size) != self._vocab_size:
+                raise ValueError(
+                    f"grammar was compiled for vocab_size "
+                    f"{int(fsm.vocab_size)} but this model's vocab is "
+                    f"{self._vocab_size}; recompile the GrammarFSM "
+                    f"against this model's tokenizer")
+            if fsm.n_states > self._grammar_cap - 1:
+                raise ValueError(
+                    f"grammar needs {fsm.n_states} DFA states but the "
+                    f"table holds at most {self._grammar_cap - 1} "
+                    f"(limit: grammar_states={self._grammar_cap}); "
+                    f"simplify the pattern or raise grammar_states")
+
     def add_request(self, prompt, max_new_tokens: int = 32,
                     temperature: float = 0.0,
                     eos_token_id: Optional[int] = None, seed: int = 0,
                     stream_cb=None, priority: int = 0,
-                    prefix_cache: bool = True):
+                    prefix_cache: bool = True,
+                    adapter_id: Optional[str] = None, grammar=None):
         """Queue a request; returns its ``req_id``. Generation starts at
         the next :meth:`step` with capacity. ``prefix_cache=False`` keeps
-        this request out of the prefix cache."""
+        this request out of the prefix cache. ``adapter_id`` names a LoRA
+        adapter this engine holds (:meth:`register_adapter`); ``grammar``
+        is a compiled ``GrammarFSM`` constraining every sampled token."""
         req = Request(prompt=np.asarray(prompt, np.int32).reshape(-1),
                       max_new_tokens=max_new_tokens, temperature=temperature,
                       eos_token_id=eos_token_id, seed=seed,
                       stream_cb=stream_cb, priority=priority,
-                      prefix_cache=prefix_cache)
+                      prefix_cache=prefix_cache, adapter_id=adapter_id,
+                      grammar=grammar)
         self.check_request(req.prompt.size, req.max_new_tokens)
+        self._check_features(req)
         self.scheduler.add(req)
         return req.req_id
 
@@ -391,15 +511,97 @@ class ServingEngine:
         return {T: p.capture_s for T, p in sorted(self._programs.items())
                 if p.graph is not None}
 
+    # ------------------------------------------------ adapters and grammars
+    def register_adapter(self, name: str, weights) -> int:
+        """Install (or hot-swap) LoRA adapter ``name``: a write into the
+        store's existing storage, so no step program changes
+        (``compile_counts()`` before == after) and a captured step reads
+        the new weights at its next replay. Returns the slot."""
+        return self.adapters.register(name, weights)
+
+    def unregister_adapter(self, name: str) -> None:
+        """Zero and free adapter ``name``'s slot; refused while an
+        admitted or queued request still names it."""
+        if self._adapter_in_use(name):
+            raise ValueError(
+                f"adapter {name!r} is in use by an admitted or queued "
+                f"request; drain it before unregistering")
+        self.adapters.unregister(name)
+
+    def _adapter_in_use(self, name: str) -> bool:
+        for st in self.slots:
+            if st is not None and st.req.adapter_id == name:
+                return True
+        return any(r.adapter_id == name for r in self.scheduler.waiting)
+
+    def _grammar_intern(self, fsm) -> int:
+        """Refcounted first-fit interning of a compiled DFA into the
+        grammar table: returns the grammar's first row. The same
+        ``fsm.key`` shares its rows; row 0 is the identity."""
+        seg = self._grammar_segments.get(fsm.key)
+        if seg is not None:
+            seg[2] += 1
+            return seg[0]
+        n = int(fsm.n_states)
+        taken = sorted((s[0], s[1]) for s in self._grammar_segments.values())
+        off, ok = 1, False
+        for seg_off, seg_n in taken:
+            if off + n <= seg_off:
+                ok = True
+                break
+            off = seg_off + seg_n
+        if not ok and off + n > self._grammar_cap:
+            held = {str(k[0]): s[1] for k, s in
+                    self._grammar_segments.items()}
+            raise ValueError(
+                f"grammar table full: need {n} rows but only "
+                f"{self._grammar_cap - off} remain of "
+                f"grammar_states={self._grammar_cap} (holding {held}); "
+                f"raise grammar_states or drain constrained requests")
+        self._write_grammar_rows(off, fsm.mask_table)
+        self._grammar_segments[fsm.key] = [off, n, 1, fsm]
+        return off
+
+    def _grammar_release(self, st: _SeqState) -> None:
+        """Drop ``st``'s reference on its interned grammar; at refcount
+        zero its rows are cleared and the segment freed."""
+        fsm, st.fsm = st.fsm, None
+        if fsm is None:
+            return
+        seg = self._grammar_segments.get(fsm.key)
+        if seg is None:
+            return
+        seg[2] -= 1
+        if seg[2] <= 0:
+            off, n = seg[0], seg[1]
+            self._write_grammar_rows(off, np.zeros((n, self._vocab_size),
+                                                   bool))
+            del self._grammar_segments[fsm.key]
+
+    def _write_grammar_rows(self, off: int, rows: np.ndarray) -> None:
+        """Rows ``off..`` of the grammar table, host copy and device table
+        alike; the device table keeps its storage."""
+        self._grammar_table[off:off + rows.shape[0]] = rows
+        self._grammar_dev[off:off + rows.shape[0]].copy_(
+            torch.from_numpy(self._grammar_table[off:off + rows.shape[0]]))
+
     # ---------------------------------------------------------------- step
     def step(self) -> List[RequestOutput]:
         """One engine iteration: admit, one unified ragged step, land,
         retire. Returns the requests that finished in it."""
         t0 = time.perf_counter()
         tokens_before = self.stats["generated_tokens"]
+        if self._host_offload:
+            # pressure relief before admission: a parked stream's pages
+            # and tail reservation are what the queue head needs
+            self._park_for_pressure()
         free = sum(1 for s in self.slots if s is None)
         for req in self.scheduler.admit(free, self.pool):
             self._admit(req)
+        if self._host_offload:
+            # after admission, so a just-admitted head is never displaced
+            # by the stream it preempted
+            self._unpark_ready()
         finished: List[RequestOutput] = []
         batch = self._plan()
         if batch is not None:
@@ -411,6 +613,10 @@ class ServingEngine:
             out = prog(batch)
             self._programs[T] = prog
             finished.extend(self._land(batch, out[0], out[1]))
+        else:
+            for k in ("step_decode_tokens", "step_draft_tokens",
+                      "step_prefill_tokens"):
+                self.stats[k] = 0
         dt = time.perf_counter() - t0
         self.stats["steps"] += 1
         self.stats["queue_depth"] = self.scheduler.queue_depth
@@ -422,11 +628,107 @@ class ServingEngine:
         self.stats["peak_pages"] = self.pool.peak_used
         return finished
 
+    # ------------------------------------------------- host-tier parking
+    def _find_slot(self, req_id):
+        for i, st in enumerate(self.slots):
+            if st is not None and st.req.req_id == req_id:
+                return i, st
+        raise KeyError(f"unknown or finished request: {req_id!r}")
+
+    def park_request(self, req_id) -> int:
+        """Park a live request: its exclusively owned KV pages move to the
+        host tier, its unwritten tail reservation is released, and its
+        slot (which it keeps) contributes no rows until
+        :meth:`unpark_request`; the engine never restores it by itself.
+        Returns the pages moved; 0 for a parked request."""
+        return self._park(req_id, mode="manual")
+
+    def _require_host_tier(self) -> None:
+        if not self._host_offload:
+            raise RuntimeError(
+                "host_offload is disabled on this engine "
+                "(ServingEngine(host_offload=True) to enable the tier)")
+
+    def _park(self, req_id, mode: str) -> int:
+        self._require_host_tier()
+        _, st = self._find_slot(req_id)
+        if st.parked:
+            return 0
+        n = self.pool.offload_seq(req_id)
+        st.parked = mode
+        self.stats["parks"] += 1
+        self.stats["kv_offloaded_pages"] += n
+        return n
+
+    def unpark_request(self, req_id) -> int:
+        """Restore a parked request's pages bit for bit (into the existing
+        page tensors) and its tail reservation; the slot rejoins the next
+        step. Raises if the pool cannot cover it (``pool.can_prefetch``).
+        Returns the pages restored."""
+        self._require_host_tier()
+        _, st = self._find_slot(req_id)
+        if not st.parked:
+            return 0
+        n = self.pool.prefetch_seq(req_id)
+        st.parked = False
+        self.stats["unparks"] += 1
+        self.stats["kv_prefetched_pages"] += n
+        return n
+
+    def _head_cached_pages(self, head: Request) -> int:
+        matched = (self.pool.prefix_match_len(head.prompt)
+                   if head.prefix_cache else 0)
+        return matched // self.page_size
+
+    def _park_for_pressure(self) -> None:
+        """When the queue head cannot admit for pages while a slot is
+        free, park the coldest strictly lower-priority decoding streams
+        until its worst case fits."""
+        sched = self.scheduler
+        if not sched.waiting or not any(s is None for s in self.slots):
+            return
+        head = sched.waiting[0]
+        cached = self._head_cached_pages(head)
+        if self.pool.can_admit(head.max_total_tokens, cached_pages=cached):
+            return
+        cands = [(st.t_last, st.req.req_id, st.req)
+                 for st in self.slots
+                 if st is not None and not st.parked and not st.prefilling]
+        for rid in sched.offload_victims(head, cands):
+            self._park(rid, mode="auto")
+            if self.pool.can_admit(head.max_total_tokens,
+                                   cached_pages=cached):
+                return
+
+    def _unpark_ready(self) -> None:
+        """Restore streams parked by pressure whose pages fit again,
+        highest priority and oldest first, each only if the queue head's
+        worst case still fits after it (else the next step would park it
+        right back)."""
+        parked = [(st.req.priority, st.req.arrival_t, st.req.req_id)
+                  for st in self.slots
+                  if st is not None and st.parked == "auto"]
+        if not parked:
+            return
+        head_need = 0
+        if self.scheduler.waiting:
+            head = self.scheduler.waiting[0]
+            head_need = max(self.pool.pages_needed(head.max_total_tokens)
+                            - self._head_cached_pages(head), 0)
+        for _, _, rid in sorted(parked):
+            if not self.pool.can_prefetch(rid):
+                continue
+            if (head_need and self.pool.spare_pages()
+                    - self.pool.prefetch_cost(rid) < head_need):
+                continue
+            self.unpark_request(rid)
+
     def _admit(self, req: Request) -> None:
-        """Park a request in a free slot with its worst-case reservation:
+        """Put a request in a free slot with its worst-case reservation:
         the longest cached prefix of its prompt (full pages, capped one
         token short) joins its table by refcount and its chunk cursor
-        starts after it; the rest prefills inside the next steps."""
+        starts after it; the rest prefills inside the next steps. Binds
+        its adapter slot and interns its grammar."""
         cache = self.prefix_cache if req.prefix_cache else None
         matched, shared = 0, []
         if cache is not None:
@@ -435,7 +737,21 @@ class ServingEngine:
                            max_total_tokens=req.max_total_tokens,
                            prefix_pages=shared, prefix_tokens=matched)
         self.stats["prefix_hit_tokens"] += matched
-        self.slots[self.slots.index(None)] = _SeqState(req, pos=matched)
+        self.stats["prefix_hit_tokens_cross_adapter"] += self.page_size * sum(
+            self._page_writer.get(p) != req.adapter_id for p in shared)
+        st = _SeqState(req, pos=matched)
+        try:
+            st.adp_slot = self.adapters.slot(req.adapter_id)
+        except KeyError as e:
+            self.pool.free(req.req_id)
+            raise ValueError(str(e)) from None
+        if req.grammar is not None:
+            st.fsm_off = self._grammar_intern(req.grammar)
+            st.fsm = req.grammar
+            st.fsm_state = (req.grammar.start_state
+                            if req.resume_fsm_state is None
+                            else int(req.resume_fsm_state))
+        self.slots[self.slots.index(None)] = st
 
     def _grid_tokens(self, total: int) -> int:
         """Token-grid bucket: the slot grid (or ``min_step_tokens`` when
@@ -450,7 +766,9 @@ class ServingEngine:
                      ) -> Dict[int, np.ndarray]:
         """Draft tokens per decoding slot from the budget's leftover, each
         capped so the burst stays inside ``max_new_tokens`` (the base row
-        lands at least one) and the request's reservation."""
+        lands at least one) and the request's reservation. A constrained
+        slot keeps only the grammar-valid prefix of its proposal: a draft
+        past the first violation could never equal its masked target."""
         if self.drafter is None or not decode_idx or leftover <= 0:
             return {}
         wants = []
@@ -469,6 +787,15 @@ class ServingEngine:
                 np.concatenate([st.req.prompt, np.asarray(st.gen, np.int32)]),
                 d)
             prop = np.asarray(prop, np.int32).reshape(-1)[:d]
+            if st.fsm is not None and prop.size:
+                s_, keep = st.fsm_state, 0
+                for t in prop:
+                    s_ = st.fsm.next_state(s_, int(t))
+                    if s_ < 0:
+                        break
+                    keep += 1
+                self.stats["grammar_filtered_drafts"] += int(prop.size) - keep
+                prop = prop[:keep]
             if prop.size:
                 drafts[i] = prop
         return drafts
@@ -477,13 +804,19 @@ class ServingEngine:
         """Decide this step's rows and reserve their KV room (copying
         shared pages they write into first): one row per decoding slot
         with its drafts behind it, then prompt chunks under the budget;
-        lay them out on the token grid."""
+        lay them out on the token grid. A parked slot has no rows; one
+        that reaches this point with pages still on the host fetches them
+        now (a late prefetch, counted)."""
         B, S = self.max_batch_slots, self._spec_rows
         decode_idx: List[int] = []
         prefill_info = []
         for i, st in enumerate(self.slots):
-            if st is None:
+            if st is None or st.parked:
                 continue
+            if self._host_offload and self.pool.offloaded_pages(
+                    st.req.req_id):
+                self.stats["kv_prefetch_late_pages"] += \
+                    self.pool.prefetch_seq(st.req.req_id)
             if st.prefilling:
                 prefill_info.append((i, int(st.ids.size) - st.pos, st.req))
             else:
@@ -522,8 +855,11 @@ class ServingEngine:
         tok = np.zeros(T, np.int32)
         tok_pos = np.zeros(T, np.int32)
         tok_bt = np.zeros((T, self.pages_per_seq), np.int32)
+        tok_adp = np.zeros(T, np.int32)
         sample_rows = np.zeros((B, S), np.int32)
         sample_pos = np.zeros((B, S), np.int32)
+        # absolute grammar-table rows; 0 (all True) for free slots
+        fsm_state = np.zeros((B, S), np.int32)
         temps = np.zeros(B, np.float32)
         seeds = np.zeros(B, np.int32)
         cur = 0
@@ -534,15 +870,25 @@ class ServingEngine:
             tok_pos[cur:cur + c] = poss
             table = self.pool.block_table(st.req.req_id)
             tok_bt[cur:cur + c, :len(table)] = table
+            tok_adp[cur:cur + c] = st.adp_slot
             if is_chunk:
                 # the chunk's final token samples (kept only when the
                 # prompt is done)
                 sample_rows[i, 0] = cur + c - 1
                 sample_pos[i, 0] = int(poss[-1])
+                if st.fsm is not None:
+                    fsm_state[i, 0] = st.fsm_off + st.fsm_state
             else:
                 # column j samples the token after burst token j
                 sample_rows[i, :d + 1] = np.arange(cur, cur + d + 1)
                 sample_pos[i, :d + 1] = poss
+                if st.fsm is not None:
+                    # column j masks at the state drafts 1..j would reach
+                    s_ = st.fsm_state
+                    fsm_state[i, 0] = st.fsm_off + s_
+                    for j in range(1, d + 1):
+                        s_ = st.fsm.next_state(s_, int(toks[j]))
+                        fsm_state[i, j] = st.fsm_off + s_
             temps[i] = st.req.temperature
             seeds[i] = st.req.seed
             cur += c
@@ -550,16 +896,18 @@ class ServingEngine:
         self.stats["step_decode_tokens"] = n_decode
         self.stats["step_draft_tokens"] = n_draft
         self.stats["step_prefill_tokens"] = total - n_decode - n_draft
-        return _StepBatch(rows, total, tok, tok_pos, tok_bt, sample_rows,
-                          sample_pos, temps, seeds, n_decode, n_draft)
+        return _StepBatch(rows, total, tok, tok_pos, tok_bt, tok_adp,
+                          sample_rows, sample_pos, fsm_state, temps, seeds,
+                          n_decode, n_draft)
 
     @torch.no_grad()
     def _forward(self, batch: _StepBatch,
                  attention=ragged_paged_attention) -> torch.Tensor:
         """The unified step's model half, eagerly, with ``attention``:
-        the trunk over every grid row (KV written into the pool in place),
-        then the vocab head over the sample rows only. Returns ``[B * S,
-        V]`` f32 logits."""
+        the trunk over every grid row (KV written into the pool in place;
+        each row's adapter), then the vocab head over the sample rows
+        only. Returns ``[B * S, V]`` f32 logits, before the grammar
+        mask."""
         dev = self.device
 
         def put(a):
@@ -567,7 +915,8 @@ class ServingEngine:
 
         hidden = self.trunk.forward_paged(
             put(batch.tok), put(batch.tok_pos), put(batch.tok_bt),
-            self.pool.layer_caches(), attention=attention)
+            self.pool.layer_caches(), attention=attention,
+            adapters=AdapterRows(self.adapters, put(batch.tok_adp)))
         last_h = hidden[put(batch.sample_rows.reshape(-1)).to(torch.int64)]
         return self.model.logits(last_h).to(torch.float32)
 
@@ -587,6 +936,7 @@ class ServingEngine:
                         f"request {self.slots[i].req.req_id!r}: non-finite "
                         f"logits (the NaN quarantine is not ported)")
         finished: List[RequestOutput] = []
+        now = time.perf_counter()
         for i, toks, _poss, is_chunk, d in batch.rows:
             st = self.slots[i]
             if is_chunk:
@@ -595,10 +945,12 @@ class ServingEngine:
                     continue  # mid-prompt: more chunks to go, no token
                 if self.prefix_cache is not None and st.req.prefix_cache:
                     # index the prompt's full pages for later admissions
-                    self.prefix_cache.insert(
-                        st.req.prompt, int(st.req.prompt.size),
-                        self.pool.block_table(st.req.req_id))
-                out = self._land_token(st, slot=i, token=int(nxt[i, 0]))
+                    for node in self.prefix_cache.insert(
+                            st.req.prompt, int(st.req.prompt.size),
+                            self.pool.block_table(st.req.req_id)):
+                        self._page_writer[node.page] = st.req.adapter_id
+                out = self._land_token(st, slot=i, token=int(nxt[i, 0]),
+                                       now=now)
                 if out is not None:
                     finished.append(out)
                 continue
@@ -617,18 +969,27 @@ class ServingEngine:
                     self.pool.truncate(st.req.req_id, st.pos + a + 1)
             for t in targets[:a + 1]:
                 st.pos += 1
-                out = self._land_token(st, slot=i, token=int(t))
+                out = self._land_token(st, slot=i, token=int(t), now=now)
                 if out is not None:
                     finished.append(out)
                     break
         return finished
 
-    def _land_token(self, st: _SeqState, slot: int,
-                    token: int) -> Optional[RequestOutput]:
-        """Append a sampled token, stream it, and retire on eos/length."""
+    def _land_token(self, st: _SeqState, slot: int, token: int,
+                    now: float) -> Optional[RequestOutput]:
+        """Append a sampled token, advance the slot's grammar over it
+        (eos has no edge), stream it, and retire on eos, length or a
+        finished grammar."""
         st.last_token = token
         st.gen.append(token)
+        st.t_last = now
         self.stats["generated_tokens"] += 1
+        if st.fsm is not None and (st.req.eos_token_id is None
+                                   or token != st.req.eos_token_id):
+            nxt = st.fsm.next_state(st.fsm_state, token)
+            if nxt >= 0:
+                st.fsm_state = nxt
+            self.stats["grammar_tokens"] += 1
         if st.req.stream_cb is not None:
             st.req.stream_cb(st.req.req_id, token, False)
         return self._maybe_retire(st, slot=slot)
@@ -639,14 +1000,18 @@ class ServingEngine:
         req = st.req
         hit_eos = (req.eos_token_id is not None
                    and st.last_token == req.eos_token_id)
-        if not hit_eos and len(st.gen) < req.max_new_tokens:
+        # a grammar that admits no further token but eos is done
+        done_fsm = st.fsm is not None and st.fsm.is_complete(st.fsm_state)
+        if not (hit_eos or done_fsm) and len(st.gen) < req.max_new_tokens:
             return None
+        self._grammar_release(st)
         self.pool.free(req.req_id)
         self.slots[slot] = None
         self.stats["finished_requests"] += 1
         out = RequestOutput(req_id=req.req_id, prompt_token_ids=req.prompt,
                             token_ids=list(st.gen),
-                            finish_reason="stop" if hit_eos else "length")
+                            finish_reason=("stop" if hit_eos or done_fsm
+                                           else "length"))
         self._outputs[out.req_id] = out
         if req.stream_cb is not None:
             req.stream_cb(req.req_id, None, out.finish_reason)

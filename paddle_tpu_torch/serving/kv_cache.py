@@ -34,12 +34,24 @@ page-granular copy copies the scale rows with the bytes.
 The page and scale tensors live on the engine's device, keep their
 addresses for the pool's life, and are written IN PLACE by the model's
 paged forward (so a captured step may hold them); the JAX pool is
-functional and swaps in the arrays each compiled step returns. The host
-tier, the NaN quarantine's scrub and the pool's metrics are not ported.
+functional and swaps in the arrays each compiled step returns.
+
+The host tier: :meth:`PagedKVCachePool.offload_seq` moves a parked
+sequence's exclusively owned written pages (bytes and int8 scale rows,
+verbatim) into a :class:`HostPageStore` in pinned host memory, returns
+the device pages to the free list and journals the sequence's unwritten
+tail reservation, so admission sees a parked tenant as preempted.
+:meth:`~PagedKVCachePool.prefetch_seq` takes fresh pages and writes the
+saved bytes back into the existing page tensors (``index_copy_``), all
+or nothing, on the host's schedule before the slot's next step; the
+copies are synchronous, so no pinned source is freed under a copy in
+flight. The NaN quarantine's scrub and the pool's metrics are not
+ported.
 """
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -47,7 +59,7 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["PagedKVCachePool", "PrefixCache", "page_bytes",
+__all__ = ["PagedKVCachePool", "PrefixCache", "HostPageStore", "page_bytes",
            "normalize_kv_dtype"]
 
 _KV_DTYPE_ALIASES = {
@@ -84,6 +96,40 @@ def page_bytes(page_size: int, n_kv_heads: int, head_dim: int,
             * (head_dim * itemsize + scale_bytes))
 
 
+class HostPageStore:
+    """The host page tier: per parked sequence, the block-table indices of
+    its offloaded pages (ascending) and their bytes, one host tensor
+    ``[num_layers, n_pages, page_size, n_kv_heads, ...]`` per page tensor
+    (``k``, ``v`` and, for int8 pages, ``ks``/``vs``), pinned when the
+    pool lives on a card, so a restore is one host-to-device copy each.
+    Written by :meth:`PagedKVCachePool.offload_seq`, drained by
+    :meth:`PagedKVCachePool.prefetch_seq`; bytes are kept verbatim, so a
+    round trip is bit-exact. The JAX store keys each page apart; a
+    sequence's pages leave and come back together in both."""
+
+    def __init__(self):
+        self._seqs: Dict[object, tuple] = {}
+
+    def __len__(self) -> int:
+        """Pages held, over every sequence."""
+        return sum(len(pages) for pages, _ in self._seqs.values())
+
+    def put(self, seq_id, page_indices: Sequence[int], slabs: dict) -> None:
+        self._seqs[seq_id] = (list(page_indices), slabs)
+
+    def pop(self, seq_id):
+        """``(page_indices, slabs)`` of ``seq_id``, removed."""
+        return self._seqs.pop(seq_id)
+
+    def seq_pages(self, seq_id) -> List[int]:
+        """The block-table indices of ``seq_id``'s offloaded pages."""
+        return self._seqs[seq_id][0] if seq_id in self._seqs else []
+
+    def drop_seq(self, seq_id) -> int:
+        """Discard a retiring sequence's host copies."""
+        return len(self._seqs.pop(seq_id, ((), None))[0])
+
+
 class PagedKVCachePool:
     """Fixed K/V page pool per layer + refcounted block-table allocator.
 
@@ -95,7 +141,10 @@ class PagedKVCachePool:
     n_kv_heads]`` f32.
     Host state: free list, per-page refcounts, per-sequence block tables
     and lengths, worst-case reservations, and the high-water mark
-    ``peak_used``.
+    ``peak_used``; the host tier's ``host_store`` (a parked sequence's
+    offloaded pages, whose table entries hold the null page 0), each
+    parked sequence's journaled tail reservation, and running totals of
+    pages offloaded and prefetched with the seconds each took.
     """
 
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
@@ -134,6 +183,12 @@ class PagedKVCachePool:
         self._resv: Dict[object, int] = {}
         self.peak_used = 0
         self.cow_copies = 0
+        self.host_store = HostPageStore()
+        self._parked_resv: Dict[object, int] = {}
+        self.offloaded_total = 0
+        self.prefetched_total = 0
+        self.offload_seconds = 0.0
+        self.prefetch_seconds = 0.0
 
     # ---------------------------------------------------------- accounting
     @property
@@ -227,6 +282,7 @@ class PagedKVCachePool:
         """Grow ``seq_id``'s table to cover ``total_tokens`` of KV, and
         make the page of the last slot (the one about to be written) this
         sequence's own (copy-on-write)."""
+        self._assert_resident(seq_id, "extend")
         table = self._tables[seq_id]
         need = self.pages_needed(total_tokens)
         while len(table) < need:
@@ -243,6 +299,7 @@ class PagedKVCachePool:
         start, total = int(start), int(total_tokens)
         if total <= start:
             return
+        self._assert_resident(seq_id, "extend_write")
         table = self._tables[seq_id]
         need = self.pages_needed(total)
         while len(table) < need:
@@ -274,11 +331,9 @@ class PagedKVCachePool:
         if self._ref[old] <= 1:
             return
         fresh = self._take_page()
-        tensors = self.k_pools + self.v_pools
-        if self.quantized:
-            tensors += self.k_scales + self.v_scales
-        for t in tensors:
-            t[fresh].copy_(t[old])
+        for _name, tensors in self._page_tensors():
+            for t in tensors:
+                t[fresh].copy_(t[old])
         table[pi] = fresh
         self._ref[old] -= 1  # ours only: it was > 1
         self.cow_copies += 1
@@ -295,12 +350,18 @@ class PagedKVCachePool:
 
     def free(self, seq_id) -> None:
         """Retire a sequence now: each of its pages loses this reference,
-        and those no one else holds go back to the free list."""
+        and those no one else holds go back to the free list. A parked
+        sequence's host copies are dropped; its offloaded entries (the
+        null page) release nothing."""
         table = self._tables.pop(seq_id)
         self._lens.pop(seq_id)
         self._resv.pop(seq_id, None)
-        for p in table:
-            self._release_ref(p)
+        self._parked_resv.pop(seq_id, None)
+        off = set(self.host_store.seq_pages(seq_id))
+        self.host_store.drop_seq(seq_id)
+        for pi, p in enumerate(table):
+            if pi not in off:
+                self._release_ref(p)
 
     def fork(self, src_id, dst_id, max_total_tokens: Optional[int] = None
              ) -> List[int]:
@@ -308,6 +369,7 @@ class PagedKVCachePool:
         first write into a shared page copies it."""
         if dst_id in self._tables:
             raise ValueError(f"sequence {dst_id!r} already allocated")
+        self._assert_resident(src_id, "fork")
         src = self._tables[src_id]
         n = self._lens[src_id]
         for p in src:
@@ -318,6 +380,126 @@ class PagedKVCachePool:
             max_total_tokens if max_total_tokens is not None else n)
         self.peak_used = max(self.peak_used, self.used_pages)
         return list(src)
+
+    # ----------------------------------------------------------- host tier
+    def _page_tensors(self):
+        """``(name, per-layer tensors)`` of everything a page holds: k and
+        v, and for int8 pages their scale rows."""
+        out = [("k", self.k_pools), ("v", self.v_pools)]
+        if self.quantized:
+            out += [("ks", self.k_scales), ("vs", self.v_scales)]
+        return out
+
+    def _assert_resident(self, seq_id, op: str) -> None:
+        """Writes and forks need every page on the device: an offloaded
+        table entry is the null page 0."""
+        n = self.offloaded_pages(seq_id)
+        if n:
+            raise RuntimeError(
+                f"{op}({seq_id!r}): sequence has {n} offloaded page(s) — "
+                f"prefetch_seq() must restore them first")
+
+    def offloaded_pages(self, seq_id=None) -> int:
+        """Pages on the host tier, for one sequence or pool-wide."""
+        if seq_id is not None:
+            return len(self.host_store.seq_pages(seq_id))
+        return len(self.host_store)
+
+    def spare_pages(self) -> int:
+        """Pages the pool could hand out now without breaking any live
+        reservation: free + cache-reclaimable - promised lazy tails."""
+        return (len(self._free) + self._reclaimable_pages()
+                - self._unallocated_reserved())
+
+    def prefetch_cost(self, seq_id) -> int:
+        """Pages :meth:`prefetch_seq` charges against :meth:`spare_pages`:
+        the offloaded pages plus the journaled tail reservation."""
+        n = self.offloaded_pages(seq_id)
+        if not n:
+            return 0
+        tail = max(self._parked_resv.get(seq_id, 0)
+                   - len(self._tables[seq_id]), 0)
+        return n + tail
+
+    def can_prefetch(self, seq_id) -> bool:
+        """True when :meth:`prefetch_seq` can restore ``seq_id`` and
+        re-assume its tail reservation without overcommitting."""
+        if not self.offloaded_pages(seq_id):
+            return True
+        return self.prefetch_cost(seq_id) <= self.spare_pages()
+
+    def offload_seq(self, seq_id) -> int:
+        """Move ``seq_id``'s exclusively owned written pages (bytes and
+        scale rows) to the host tier and release them and the sequence's
+        unwritten tail reservation (journaled for :meth:`prefetch_seq`).
+        Shared pages stay: other holders read them. Returns the pages
+        moved; a parked sequence moves none (the JAX pool would move a
+        page that became exclusive since; the engine parks once)."""
+        if seq_id in self._parked_resv:
+            return 0
+        t0 = time.perf_counter()
+        table = self._tables[seq_id]
+        n = int(self._lens[seq_id])
+        written = self.pages_needed(n) if n > 0 else 0
+        move = [pi for pi in range(min(written, len(table)))
+                if self._ref[table[pi]] == 1]
+        self._parked_resv[seq_id] = self._resv.get(seq_id, 0)
+        self._resv[seq_id] = 0
+        if move:
+            idx = torch.tensor([table[pi] for pi in move], dtype=torch.int64,
+                               device=self.device)
+            pin = self.device.type == "cuda"
+            slabs = {}
+            for name, tensors in self._page_tensors():
+                dev = torch.stack([t.index_select(0, idx) for t in tensors])
+                slabs[name] = torch.empty(dev.shape, dtype=dev.dtype,
+                                          pin_memory=pin)
+                slabs[name].copy_(dev)  # synchronous: read back before use
+            self.host_store.put(seq_id, move, slabs)
+            for pi in move:
+                self._release_ref(table[pi])
+                table[pi] = 0
+            self.offloaded_total += len(move)
+        self.offload_seconds += time.perf_counter() - t0
+        return len(move)
+
+    def prefetch_seq(self, seq_id) -> int:
+        """Restore every offloaded page of ``seq_id`` into fresh pages of
+        the existing page tensors (bytes and scale rows verbatim) and
+        re-assume its journaled tail reservation. All or nothing: if the
+        pool cannot cover the restore, the pages taken go back and the
+        sequence stays parked. Returns the pages restored."""
+        n = self.offloaded_pages(seq_id)
+        if not n:
+            if seq_id in self._parked_resv:
+                self._resv[seq_id] = max(self._parked_resv.pop(seq_id),
+                                         self._resv.get(seq_id, 0))
+            return 0
+        t0 = time.perf_counter()
+        table = self._tables[seq_id]
+        fresh: List[int] = []
+        try:
+            for _ in range(n):
+                fresh.append(self._take_page())
+        except RuntimeError:
+            for p in fresh:
+                self._release_ref(p)
+            raise
+        idxs, slabs = self.host_store.pop(seq_id)
+        idx = torch.tensor(fresh, dtype=torch.int64, device=self.device)
+        for name, tensors in self._page_tensors():
+            dev = slabs[name].to(self.device)  # synchronous: slab outlives it
+            for li, t in enumerate(tensors):
+                t.index_copy_(0, idx, dev[li])
+        for pi, p in zip(idxs, fresh):
+            table[pi] = p
+        if seq_id in self._parked_resv:
+            self._resv[seq_id] = max(self._parked_resv.pop(seq_id),
+                                     self._resv.get(seq_id, 0))
+        self.prefetched_total += len(idxs)
+        self.peak_used = max(self.peak_used, self.used_pages)
+        self.prefetch_seconds += time.perf_counter() - t0
+        return len(idxs)
 
     # ------------------------------------------------------------- queries
     def has_seq(self, seq_id) -> bool:
@@ -353,10 +535,9 @@ class PagedKVCachePool:
 
     def device_bytes(self) -> int:
         """Bytes of the page (and scale) tensors on the device."""
-        tensors = self.k_pools + self.v_pools
-        if self.quantized:
-            tensors += self.k_scales + self.v_scales
-        return sum(t.numel() * t.element_size() for t in tensors)
+        return sum(t.numel() * t.element_size()
+                   for _name, tensors in self._page_tensors()
+                   for t in tensors)
 
     # ---------------------------------------------------------- cache hooks
     def attach_prefix_cache(self, cache: "PrefixCache") -> None:

@@ -20,6 +20,10 @@ split the remainder in (priority, arrival) order.
 take only what the budget leaves after decode tokens and chunks, in the
 same order.
 
+**Offload victims** (:meth:`FCFSScheduler.offload_victims`): when the
+queue head cannot admit for pages, which live streams the engine may park
+on the host page tier: strictly lower-priority ones, coldest first.
+
 Head-of-line: if the head request does not fit the pool, nothing behind
 it is admitted.
 """
@@ -56,6 +60,15 @@ class Request:
     # False opts this request out of prefix-cache matching and insertion
     # (under the engine's prefix_cache= flag)
     prefix_cache: bool = True
+    # the NAME of the LoRA adapter this request decodes under, or None for
+    # the base model (slot 0, the zero-delta identity); the engine
+    # resolves it against its AdapterStore at admission
+    adapter_id: Optional[str] = None
+    # a compiled grammar.GrammarFSM constraining every sampled token, or
+    # None for free text
+    grammar: Optional[object] = None
+    # the grammar's local DFA state to resume from (None: its start)
+    resume_fsm_state: Optional[int] = None
     req_id: object = field(default_factory=lambda: next(_req_counter))
     arrival_t: float = field(default_factory=time.perf_counter)
 
@@ -69,6 +82,15 @@ class Request:
         s = int(self.seed) & 0xFFFFFFFF
         self.seed = s - (1 << 32) if s >= (1 << 31) else s
         self.priority = int(self.priority)
+        if self.adapter_id is not None and not isinstance(self.adapter_id,
+                                                          str):
+            raise ValueError("adapter_id must be a registered adapter "
+                             "NAME (str) or None for the base model")
+        if self.grammar is not None and not hasattr(self.grammar,
+                                                    "mask_table"):
+            raise ValueError(
+                "grammar must be a compiled serving.grammar.GrammarFSM "
+                "(use GrammarFSM.compile(pattern, tokenizer))")
         if self.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
 
@@ -142,6 +164,20 @@ class FCFSScheduler:
             pending_cached += cached_pages
             free_slots -= 1
         return admitted
+
+    @staticmethod
+    def offload_victims(head: Request,
+                        candidates: Sequence[Tuple[float, object, Request]]
+                        ) -> List[object]:
+        """Which live slots may be parked on the host page tier so the
+        blocked queue ``head`` can admit: ``candidates`` is
+        ``[(last_active_t, key, request)]``; returns the keys in park
+        order. Only strictly lower-priority tenants (a tie never thrashes
+        two equal streams), the coldest (oldest ``last_active_t``)
+        first."""
+        eligible = [c for c in candidates if c[2].priority > head.priority]
+        eligible.sort(key=lambda c: c[0])
+        return [c[1] for c in eligible]
 
     def plan_chunks(self, n_decode: int,
                     prefills: Sequence[Tuple[object, int, Request]]

@@ -51,7 +51,8 @@ def test_importing_every_module_loads_no_jax():
         "ops.fused_loss", "nn.functional.attention", "nn.layer.norm",
         "optimizer.optimizers", "tools.profile_train", "ops.fused_adamw",
         "tools.bench_adamw", "distributed.fleet.recompute",
-        "nn.functional.activation")} <= walked
+        "nn.functional.activation", "serving.adapters", "serving.grammar",
+        "tools.serve_tenancy")} <= walked
 
 
 def _imports(path: Path):
