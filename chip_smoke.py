@@ -18,7 +18,12 @@ Phases, in order; any failure exits non-zero before the result line:
       and merged, one 2048-token row, lengths at a page's and a
       partition's edge, a chunk's rows tiled, tiles across slot
       boundaries, padding rows on the null table, GQA and int8 pages;
-      the decode and chunk cases timed beside their bounds;
+      the decode and chunk cases timed beside their bounds; in every
+      case one slot's live key poisoned, NaN in K, then in V (int8: in
+      the k, then the v scale row): that slot's rows non-finite on the
+      heads that read it, every other (row, head) ``torch.equal`` to the
+      clean call (K4 carries a NaN as the JAX kernel does, to the row
+      that reads it and no other);
    b. flash attention forward (K1), dQ (K2) and dK/dV (K3) at GPT-3
       1.3B's training shape (B 8, H 16, S 1024, D 128, causal; q/k/v
       strided views of one QKV projection) in bf16 (all three on tensor
@@ -49,7 +54,11 @@ Phases, in order; any failure exits non-zero before the result line:
    a step; graphed: one replayed launch a layer a step, plus one
    warm-up launch and one captured call a layer per bucket), the plain
    version never. Each run prints its decode-step p50, tokens/s, TTFT
-   p50, capture seconds per bucket and peak memory.
+   p50, capture seconds per bucket and peak memory. A third run, on the
+   graphed engine with its prefix cache cleared, switches the metrics
+   registry (``get_registry().disable()``) and the request tracer off
+   for every other step: its streams must equal the first run's, and it
+   prints the decode-step p50 with the instruments on and off.
 5. Serve checks: one mixed step (3 decode rows + a 256-token chunk) run
    with the kernel and with the plain version on the same inputs, on the
    served model (held per layer) and on the same model in f32 (held per
@@ -83,7 +92,23 @@ Phases, in order; any failure exits non-zero before the result line:
    bytes through its new block table (twice, timed per page); the pool
    empty once the cache is cleared; prints decode p50, park and unpark
    ms per page, cross-adapter prefix hits, drafts cut by the grammar,
-   peak memory. Reference: a small f32 model served on the card
+   peak memory. Serve resilience (``tools/serve_chaos.py``): the six
+   engine drills of the JAX package's chaos tool on Llama-0.76B,
+   graphed, bf16 pages of 16, 8 slots, prefix cache on: a NaN quarantine
+   (``poison_seq`` armed at ``serving.decode_step``; the mates' streams
+   equal a fault-free run's, the scrubbed pages read zero, the page
+   tensors keep their addresses, the graphs captured before the poison
+   are replayed after it, the victim's prefix nodes miss and a mate's
+   hit) on bf16 pages, on int8 pages and with an adapter and a grammar
+   row; a prefill NaN (a 2-layer model of the same width, every
+   parameter NaN in place); a ``serving.kv_alloc`` exhaustion
+   mid-decode; a transient ``serving.compile_step`` raise; deadlines and
+   cancel (queued, decoding, reentrant from a four-argument callback);
+   backpressure and the watchdog. Prints a line a drill and the
+   registry's counts (TTFT and ITL observations, ``serving_step``
+   compiles = buckets, the reason counters); K4's counts as in the serve
+   phase, summed over the drills' engines. Reference: a small f32 model
+   served on the card
    (graphed, prefix cache, ``spec_k=2``) and on the CPU (plain path, both
    off) gives the same token streams, one request on a LoRA adapter and
    one under a grammar among them.
@@ -362,6 +387,38 @@ def paged_cases(torch, pa):
     ]
 
 
+def nan_confined(torch, pa, q, k, v, bt, lens, ks, vs, base):
+    """K4 with one slot's live key poisoned: position 0 of the first row's
+    first page, kv head 0, NaN in turn in K and V (bf16/f32 pages) or in
+    their scale rows (int8 pages, whose codes cannot hold NaN). Every row
+    of that slot must come out non-finite on the query heads of kv head
+    0, and every other (row, head) ``torch.equal`` to the unpoisoned
+    call ``base``: the kernel carries the NaN as the JAX package's does,
+    to the row that reads it and to no other. Returns the kinds held."""
+    groups = q.shape[1] // k.shape[2]
+    page = int(bt[0, 0])
+    rows = (bt == bt[0]).all(dim=1)
+    mask = torch.zeros(q.shape[:2], dtype=torch.bool, device=q.device)
+    mask[rows, :groups] = True
+    inputs = {"k": k, "v": v, "ks": ks, "vs": vs}
+    kinds = ("ks", "vs") if ks is not None else ("k", "v")
+    for kind in kinds:
+        args = dict(inputs)
+        args[kind] = inputs[kind].clone()
+        args[kind][page, 0, 0] = float("nan")
+        out = pa.paged_attention(q, args["k"], args["v"], bt, lens,
+                                 k_scale=args["ks"], v_scale=args["vs"])
+        torch.cuda.synchronize()
+        read = out[mask]
+        if bool(torch.isfinite(read).any()) or not torch.equal(
+                out[~mask], base[~mask]):
+            fail(f"K4 with NaN in {kind} at page {page}: "
+                 f"{int(torch.isfinite(read).sum())} finite values on the "
+                 f"poisoned rows' heads, others equal "
+                 f"{torch.equal(out[~mask], base[~mask])}")
+    return kinds
+
+
 def phase_paged_kernels(torch):
     from paddle_tpu_torch.ops import paged_attention as pa
 
@@ -406,6 +463,12 @@ def phase_paged_kernels(torch):
         log(line)
         if not ok:
             fail(f"kernel case {name} disagrees with its plain version")
+        kinds = nan_confined(torch, pa, q, k, v, bt, lens, ks, vs, got)
+        rows = int((bt == bt[0]).all(dim=1).sum())
+        log(f"kernel {name}: NaN in {'/'.join(kinds)} of one slot's live "
+            f"key: its {rows} row(s) non-finite on the heads reading kv "
+            f"head 0, every other (row, head) equal to the clean call")
+        rec["nan_confined"] = list(kinds)
         results[name] = rec
     return results
 
@@ -788,16 +851,21 @@ def llama_076b():
                        max_position_embeddings=2048)
 
 
-def serve_traffic(torch, engine, requests, first_alone=None):
+def serve_traffic(torch, engine, requests, first_alone=None,
+                  toggle_instruments=False):
     """Serve ``requests`` (``(prompt, temperature, seed, max_new)``) to
     completion through ``engine.step``, with K4's counts zeroed just
     before and read just after and the peak memory reset. With
     ``first_alone`` (a callable) the first request is served alone to
     completion (its prompt's full pages are then in the prefix cache),
     ``first_alone(prompt, output)`` is called, and then the rest are
-    submitted. Returns the outputs in request order and the run's
-    record."""
+    submitted. With ``toggle_instruments`` the metrics registry and the
+    request tracer are switched off for every other step, and the record
+    holds the decode-step p50 of each half. Returns the outputs in
+    request order and the run's record."""
+    from paddle_tpu_torch import metrics
     from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import get_tracer
 
     first_token, rids, steps = {}, [], []
 
@@ -811,11 +879,20 @@ def serve_traffic(torch, engine, requests, first_alone=None):
                                        seed=seed, stream_cb=stream_cb))
 
     def step():
+        on = not toggle_instruments or len(steps) % 2 == 0
+        reg, tracer = metrics.get_registry(), get_tracer()
+        if not on:
+            reg.disable()
+            tracer.enabled = False
         ts = time.perf_counter()
-        engine.step()
+        try:
+            engine.step()
+        finally:
+            reg.enable()
+            tracer.enabled = True
         steps.append((engine.stats["step_decode_tokens"],
                       engine.stats["step_prefill_tokens"],
-                      time.perf_counter() - ts))
+                      time.perf_counter() - ts, on))
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -844,7 +921,7 @@ def serve_traffic(torch, engine, requests, first_alone=None):
     outs.update(engine.take_outputs())
     if set(outs) != set(rids):
         fail(f"served {len(outs)} of {len(rids)} requests")
-    decode_ms = [1e3 * s for d, p, s in steps if p == 0 and d > 0]
+    decode_ms = [1e3 * s for d, p, s, _on in steps if p == 0 and d > 0]
     ttft = sorted(first_token[r] - t_start for r in rids)
     generated = sum(outs[r].n_gen for r in rids)
     record = {
@@ -857,6 +934,11 @@ def serve_traffic(torch, engine, requests, first_alone=None):
                                else None),
         "decode_steps": len(decode_ms),
         "ttft_s_p50": statistics.median(ttft), "ttft_s_max": ttft[-1],
+        **({"decode_step_ms_p50_instruments": {
+            state: statistics.median(
+                1e3 * s for d, p, s, on in steps
+                if p == 0 and d > 0 and on == (state == "on"))
+            for state in ("on", "off")}} if toggle_instruments else {}),
         "compile_counts": engine.compile_counts(),
         "capture_s_by_bucket": engine.capture_seconds(),
         # the peak, and what was allocated when the run began (weights,
@@ -945,6 +1027,19 @@ def phase_serve(torch, card):
     if not same:
         fail("serve: the graphed step's streams differ from the eager one's")
     del eager
+    # the instruments' host cost: the same traffic on the graphed engine
+    # (its cache cleared, so the same steps replay the same graphs) with
+    # the metrics registry and the request tracer off every other step
+    engine.prefix_cache.clear()
+    outs, rec3 = serve_traffic(torch, engine, requests,
+                               toggle_instruments=True)
+    p50 = rec3["decode_step_ms_p50_instruments"]
+    log(f"serve instruments (graphed, decode steps alternating): p50 on "
+        f"{p50['on']:.4f} ms, off {p50['off']:.4f} ms, "
+        f"{rec3['decode_steps']} decode steps; {card}")
+    if [o.token_ids for o in outs] != graphed_streams:
+        fail("serve: the instruments' run changed the streams")
+    rec["decode_step_ms_p50_instruments"] = p50
     return engine, rec
 
 
@@ -1447,6 +1542,52 @@ def phase_serve_tenancy(torch, card):
     return rec
 
 
+def phase_serve_resilience(torch, card):
+    """``tools.serve_chaos``'s six drills on Llama-0.76B, graphed, bf16
+    pages of 16 (and int8 pages, and an adapter and a grammar row, for
+    the NaN quarantine), the prefill drill on a 2-layer model of the same
+    width; K4's counts zeroed just before and read just after: launched
+    in every captured bucket and replayed, the plain version never."""
+    import gc
+    from dataclasses import replace
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.tools import serve_chaos
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama_076b()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    nan_model = LlamaForCausalLM(replace(cfg, num_layers=2), device="cuda",
+                                 dtype=torch.bfloat16, seed=1)
+    made = []
+    torch.cuda.synchronize()
+    pa.reset_counters()
+    t0 = time.perf_counter()
+    records = serve_chaos.run_drills(model, nan_model, log=log,
+                                     engine_kw=dict(device="cuda"),
+                                     made=made)
+    torch.cuda.synchronize()
+    counts = {"kernel_launches": pa.kernel_launches,
+              "captured_launches": pa.captured_launches,
+              "replayed_launches": pa.replayed_launches,
+              "plain_calls": pa.plain_calls}
+    want = sum(e.n_layers * e.compile_counts()["step"] for e in made)
+    if not (counts["kernel_launches"] == counts["captured_launches"] == want
+            and counts["replayed_launches"] > 0
+            and counts["plain_calls"] == 0
+            and all(e._graphed for e in made)):
+        fail(f"serve resilience: K4 counts {counts}, {want} captured calls "
+             f"expected over {len(made)} graphed engines")
+    summary = {"card": card, "seconds": time.perf_counter() - t0,
+               "engines": len(made), **counts,
+               "metrics": records["metrics"]}
+    log("serve resilience summary: " + json.dumps(summary))
+    del made
+    return summary
+
+
 def phase_reference(torch):
     """A small f32 Llama (GQA) served on the card, graphed, with the
     prefix cache and 2-token drafts, and on the CPU through the plain
@@ -1649,6 +1790,8 @@ def main():
     torch.cuda.empty_cache()
     tenancy = phase_serve_tenancy(torch, card)
     torch.cuda.empty_cache()
+    resilience = phase_serve_resilience(torch, card)
+    torch.cuda.empty_cache()
     phase_reference(torch)
     torch.cuda.empty_cache()
     flash_launches = phase_train(torch, card, "gpt13")
@@ -1671,7 +1814,12 @@ def main():
             name: rec["kernel_launches"] + rec["replayed_launches"]
             for name, rec in (("serve", serve),
                               ("serve_features", features),
-                              ("serve_tenancy", tenancy))},
+                              ("serve_tenancy", tenancy),
+                              ("serve_resilience", resilience))},
+        # NaN in one slot's live K, V or scale rows, per phase-3a case:
+        # non-finite on that slot's rows only (the kinds held)
+        "nan_confined": {name: rec["nan_confined"]
+                         for name, rec in paged.items()},
         "max_abs_err": head["max_abs_err"],
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

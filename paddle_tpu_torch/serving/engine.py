@@ -81,12 +81,44 @@ engine's: a request on one adapter can adopt pages another adapter's
 request (or a base one) wrote, though their k/v differ.
 ``stats["prefix_hit_tokens_cross_adapter"]`` counts such hits.
 
-Not ported yet: metrics, deadlines, cancellation and the NaN quarantine
-(a non-finite sample raises here).
+Resilience and telemetry, as the JAX engine wires them:
+
+- **Faults stay with their request.** A non-finite sample row
+  quarantines only its sequence (``finish_reason="nan"``): its pages are
+  freed with a scrub (kv_cache.py), the prefix nodes its prompt created
+  are evicted, and its batch-mates go on untouched, since every op of
+  the step is row-wise. An admission failure, a KV-room failure and a
+  raising stream callback retire their request with ``"error"``.
+  Nothing else is isolated: an exception from the model, the kernel or
+  a capture leaves :meth:`ServingEngine.step` (with the watchdog's
+  bracket closed) and is never retried.
+- **Deadlines, cancel, backpressure.** ``deadline_s`` runs from enqueue:
+  a request still queued when it lapses retires ``"expired"``, an
+  admitted one ``"timeout"``; :meth:`ServingEngine.cancel` works queued,
+  mid-prefill, mid-decode and from the request's own stream callback;
+  ``max_queue`` bounds the queue with a ``retry_after_s`` hint.
+- **Health.** A :class:`~paddle_tpu_torch.faults.StepWatchdog` brackets
+  every step; :meth:`ServingEngine.health` feeds ``/healthz``.
+- **Fault points** ``serving.step``, ``serving.prefill``,
+  ``serving.decode_step`` (after the KV-room loop, before the step reads
+  the pool: the place to poison a sequence), ``serving.compile_step``
+  (around the construction of a bucket's program, on the host, retried
+  with backoff; never inside a capture) and, in the pool,
+  ``serving.kv_alloc``. A fault writes the pool in place on the host's
+  schedule, so the graph captured before it replays after it.
+- **Telemetry.** The JAX engine's ``paddle_tpu_serving_*`` families,
+  labelled ``{engine_id, model_id}``, and one
+  ``paddle_tpu_jit_compiles_total{fn="serving_step"}`` per program
+  built (captured, on a card), so it equals ``compile_counts()["step"]``;
+  every request's lifecycle goes to the process-wide request tracer
+  (tracing.py) under the JAX engine's event names. ``stats`` stays a
+  thin per-step view.
 """
 from __future__ import annotations
 
 import functools
+import inspect
+import itertools
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -94,18 +126,60 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import faults, metrics
 from ..device import resolve_device
 from ..ops import paged_attention as pa
 from ..ops.paged_attention import ragged_paged_attention
-from . import sampling
+from ..quantization.observers import KV_SCALE_FLOOR
+from . import sampling, tracing
 from .adapters import AdapterRows, AdapterStore
 from .kv_cache import PagedKVCachePool, PrefixCache
+from .overload import DrainEstimator
 from .scheduler import FCFSScheduler, Request, RequestOutput
 from .spec import NGramDrafter
 
 __all__ = ["ServingEngine"]
 
 _MIN_GRID_TOKENS = 16
+_engine_counter = itertools.count()
+
+faults.declare_point(
+    "serving.step", "top of ServingEngine.step(), before the deadline "
+    "sweep: arm latency here to stall whole iterations")
+faults.declare_point(
+    "serving.prefill", "admission of one request (cache match, page "
+    "adoption, slot binding): a raise retires that request with "
+    "finish_reason=\"error\"; batch-mates proceed")
+faults.declare_point(
+    "serving.decode_step", "after the per-slot KV-room loop and before "
+    "the step program reads the pool: arm call= here to corrupt state "
+    "(pool.poison_seq), delay_s to trip the watchdog")
+faults.declare_point(
+    "serving.compile_step", "construction of a token-grid bucket's step "
+    "program on the host, outside any capture: a transient raise is "
+    "retried with backoff; each bucket is still built once")
+
+
+def _cb_accepts_seq(cb) -> bool:
+    """True if a stream callback takes the fourth positional argument,
+    the request's token sequence number: ``*args``, a required fourth
+    positional parameter, or one named ``seq``. A three-argument
+    callback (or one whose fourth parameter has a default and another
+    name) is called with three."""
+    try:
+        sig = inspect.signature(cb)
+    except (TypeError, ValueError):
+        return False
+    positional = []
+    for prm in sig.parameters.values():
+        if prm.kind == prm.VAR_POSITIONAL:
+            return True
+        if prm.kind in (prm.POSITIONAL_ONLY, prm.POSITIONAL_OR_KEYWORD):
+            positional.append(prm)
+    if len(positional) < 4:
+        return False
+    fourth = positional[3]
+    return fourth.default is fourth.empty or fourth.name == "seq"
 
 
 class _SeqState:
@@ -119,10 +193,14 @@ class _SeqState:
     engine's store (0: none); ``fsm`` its grammar, ``fsm_off`` the
     grammar's first row in the engine's table and ``fsm_state`` its
     local DFA state; ``parked`` is False, ``"auto"`` (parked by pressure,
-    restored by the engine) or ``"manual"`` (by ``park_request``)."""
+    restored by the engine) or ``"manual"`` (by ``park_request``).
+    ``t_admit`` anchors the prefill histogram; ``inserted_nodes`` are the
+    prefix-cache nodes built from this request's KV, evicted if it is
+    quarantined."""
 
     __slots__ = ("req", "ids", "pos", "last_token", "gen", "t_last",
-                 "adp_slot", "fsm", "fsm_off", "fsm_state", "parked")
+                 "t_admit", "inserted_nodes", "adp_slot", "fsm", "fsm_off",
+                 "fsm_state", "parked")
 
     def __init__(self, req: Request, pos: int = 0):
         self.req = req
@@ -131,6 +209,8 @@ class _SeqState:
         self.last_token = -1
         self.gen: List[int] = []
         self.t_last = time.perf_counter()
+        self.t_admit = self.t_last
+        self.inserted_nodes = []
         self.adp_slot = 0
         self.fsm = None
         self.fsm_off = 0
@@ -235,9 +315,12 @@ class _StepProgram:
 
     @torch.no_grad()
     def _body(self) -> torch.Tensor:
-        """The step on the device, from the static buffers: ``[2, B*S]``
-        int64, the sampled tokens and each sample row's finite flag (of
-        the raw logits, before the grammar mask)."""
+        """The step on the device, from the static buffers: ``[2 * B*S +
+        1]`` int64, the sampled tokens, each sample row's finite flag (of
+        the raw logits, before the grammar mask) and, on int8 pages, the
+        written slots whose scale sits at ``KV_SCALE_FLOOR`` (all layers,
+        K and V; 0 otherwise), counted here so no extra read of the
+        device is needed."""
         eng = self.engine
         d = self.dev
         P = eng.pages_per_seq
@@ -256,7 +339,17 @@ class _StepProgram:
         nxt = sampling.sample(
             logits, d["temps"][:, None].expand(B, S).reshape(-1),
             d["seeds"][:, None].expand(B, S).reshape(-1), d["sample_pos"])
-        return torch.stack([nxt, fin.to(torch.int64)])
+        clips = torch.zeros(1, dtype=torch.int64, device=nxt.device)
+        if eng.pool.quantized:
+            # the slot each row wrote; padding rows wrote the null page
+            pos = d["tok_pos"].to(torch.int64)
+            pages = d["tok_bt"].view(self.T, P).to(torch.int64).gather(
+                1, (pos // eng.page_size)[:, None])[:, 0]
+            live = (pages > 0)[:, None]
+            for t in eng.pool.k_scales + eng.pool.v_scales:
+                clips += ((t[pages, pos % eng.page_size] <= KV_SCALE_FLOOR)
+                          & live).sum()
+        return torch.cat([nxt, fin.to(torch.int64), clips])
 
     def _capture(self) -> None:
         eng = self.engine
@@ -278,7 +371,8 @@ class _StepProgram:
         self.capture_s = time.perf_counter() - t0
 
     def __call__(self, batch: _StepBatch) -> np.ndarray:
-        """Run the step on ``batch``: ``[2, B*S]`` on the host."""
+        """Run the step on ``batch``: :meth:`_body`'s result on the
+        host."""
         self.stage(batch)
         if not self.engine._graphed:
             return self._body().cpu().numpy()
@@ -313,7 +407,11 @@ class ServingEngine:
     on a card too. ``host_offload=True`` arms the host page tier.
     ``adapter_capacity``/``adapter_rank`` size the LoRA store (slot 0 the
     identity), ``grammar_states`` the grammar table (row 0 the
-    identity)."""
+    identity). ``max_queue`` bounds the waiting queue (``None``:
+    unbounded); ``watchdog_stall_s`` is the step watchdog's threshold
+    (``None``: no watchdog), ``watchdog_recovery_steps`` the healthy
+    steps it needs to recover; ``engine_id`` (default: a process-wide
+    count) and ``model_id`` label every metric series."""
 
     def __init__(self, model, *, page_size: int = 16,
                  num_pages: Optional[int] = None,
@@ -326,6 +424,11 @@ class ServingEngine:
                  spec_k: int = 0, spec_ngram: int = 3, drafter=None,
                  adapter_capacity: int = 4, adapter_rank: int = 4,
                  grammar_states: int = 64,
+                 max_queue: Optional[int] = None,
+                 watchdog_stall_s: Optional[float] = 30.0,
+                 watchdog_recovery_steps: int = 3,
+                 engine_id: Optional[str] = None,
+                 model_id: str = "default",
                  cuda_graph: bool = True, device=None):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -333,6 +436,11 @@ class ServingEngine:
                              f"{self.device}")
         self.model = model
         model.eval()
+        self.engine_id = (str(engine_id) if engine_id is not None
+                          else str(next(_engine_counter)))
+        self.model_id = str(model_id)
+        self._lbl = {"engine_id": self.engine_id, "model_id": self.model_id}
+        self._trace = tracing.get_tracer()
         self.trunk = model._decode_trunk()
         n_layers, n_kv, head_dim = model._cache_spec()
         self.n_layers = n_layers
@@ -382,11 +490,22 @@ class ServingEngine:
             num_pages = self.max_batch_slots * self.pages_per_seq + 1
         self.pool = PagedKVCachePool(n_layers, num_pages, self.page_size,
                                      n_kv, head_dim, dtype=kv_dtype,
-                                     device=self.device)
+                                     device=self.device,
+                                     engine_id=self.engine_id,
+                                     model_id=self.model_id)
         self.prefix_cache: Optional[PrefixCache] = (
             PrefixCache(self.pool) if prefix_cache else None)
-        self.scheduler = FCFSScheduler(self.max_batch_slots,
-                                       self.token_budget)
+        self.scheduler = FCFSScheduler(
+            self.max_batch_slots, self.token_budget, max_queue=max_queue,
+            retry_after_cb=self._estimate_retry_after)
+        self.watchdog = (faults.StepWatchdog(
+            stall_threshold_s=watchdog_stall_s,
+            recovery_steps=watchdog_recovery_steps)
+            if watchdog_stall_s is not None else None)
+        # step wall-time EWMA, seeded at 50 ms: the drain rate behind the
+        # backpressure hint
+        self._avg_step_s = 0.05
+        self._estimator = DrainEstimator()
         self.slots: List[Optional[_SeqState]] = [None] * self.max_batch_slots
         self._graphed = bool(cuda_graph) and self.device.type == "cuda"
         self._graph_pool = None
@@ -412,6 +531,160 @@ class ServingEngine:
             "parks": 0, "unparks": 0, "kv_offloaded_pages": 0,
             "kv_prefetched_pages": 0, "kv_prefetch_late_pages": 0,
         }
+        self._register_metrics()
+
+    def _register_metrics(self) -> None:
+        """The JAX engine's instruments, under its names and help, each
+        series labelled ``{engine_id, model_id}``."""
+        reg = metrics.get_registry()
+        eng = ("engine_id", "model_id")
+        lbl = self._lbl
+
+        def hist(name, help_):
+            return reg.histogram(name, help_, labels=eng).labels(**lbl)
+
+        def counter(name, help_):
+            return reg.counter(name, help_, labels=eng).labels(**lbl)
+
+        self._m_ttft = hist(
+            "paddle_tpu_serving_ttft_seconds",
+            "Time to first token: request enqueue -> first sampled token")
+        self._m_itl = hist(
+            "paddle_tpu_serving_inter_token_seconds",
+            "Inter-token latency: gap between consecutive tokens of one "
+            "sequence during decode")
+        self._m_step = hist(
+            "paddle_tpu_serving_step_seconds",
+            "Full engine step: admit + unified ragged step + retire")
+        self._m_prefill = hist(
+            "paddle_tpu_serving_prefill_seconds",
+            "One request's whole chunked prefill: admission -> first "
+            "sampled token")
+        self._m_decode = hist(
+            "paddle_tpu_serving_decode_step_seconds",
+            "One unified compiled step over all live slots (decode "
+            "tokens + prompt chunks)")
+        mix = reg.histogram(
+            "paddle_tpu_serving_step_mix",
+            "Per-step token split of the unified step: tokens of each "
+            "kind (decode, prefill chunk, speculative draft) the step "
+            "carried", labels=("kind",) + eng)
+        self._m_mix_decode = mix.labels(kind="decode", **lbl)
+        self._m_mix_prefill = mix.labels(kind="prefill", **lbl)
+        self._m_mix_draft = mix.labels(kind="draft", **lbl)
+        self._m_spec_drafted = counter(
+            "paddle_tpu_serving_spec_drafted_tokens_total",
+            "Draft tokens proposed by the speculative drafter and scored "
+            "as extra unified-step rows")
+        self._m_spec_accepted = counter(
+            "paddle_tpu_serving_spec_accepted_tokens_total",
+            "Draft tokens accepted (exact match against the per-position "
+            "sampled target); the rest rolled back by KV truncation")
+        self._m_spec_accept = hist(
+            "paddle_tpu_serving_spec_acceptance_ratio",
+            "Per-burst acceptance: accepted/drafted for each decode step "
+            "that carried draft rows")
+        self._m_chunk = hist(
+            "paddle_tpu_serving_prefill_chunk_tokens",
+            "Tokens per prompt chunk the scheduler sliced under the step "
+            "token budget")
+        self._m_requests = reg.counter(
+            "paddle_tpu_serving_requests_total",
+            "Requests by lifecycle event", labels=("event",) + eng)
+        self._m_tokens = counter(
+            "paddle_tpu_serving_generated_tokens_total",
+            "Tokens sampled by the engine (prefill first tokens included)")
+        for ev in ("admitted", "rejected", "retired", "preempted"):
+            self._m_requests.labels(event=ev, **lbl)  # scrapes show 0
+        self._m_cb_errors = counter(
+            "paddle_tpu_serving_callback_errors_total",
+            "Exceptions raised by user stream callbacks (isolated: the "
+            "engine step survives; the request retires \"error\")")
+        self._m_wd_trips = counter(
+            "paddle_tpu_serving_watchdog_trips_total",
+            "Watchdog trip episodes (healthy->tripped transitions, not "
+            "slow-step count)")
+        self._m_degraded = reg.gauge(
+            "paddle_tpu_serving_degraded",
+            "1 while the step watchdog holds this engine degraded "
+            "(/healthz returns 503), else 0; refreshed at step end and "
+            "on every health() probe", labels=eng).labels(**lbl)
+        # one counter per abnormal finish reason, moved once per event
+        self._reason_counters = {
+            reason: counter(name, help_) for reason, name, help_ in (
+                ("timeout", "paddle_tpu_serving_request_timeouts_total",
+                 "Admitted requests retired on deadline expiry mid-stream "
+                 "(finish_reason=\"timeout\"); queued expiry counts "
+                 "paddle_tpu_serving_expired_total instead"),
+                ("expired", "paddle_tpu_serving_expired_total",
+                 "QUEUED requests whose deadline lapsed before admission "
+                 "(finish_reason=\"expired\"): retired with pages never "
+                 "allocated"),
+                ("cancelled", "paddle_tpu_serving_cancellations_total",
+                 "Requests retired by cancel() "
+                 "(finish_reason=\"cancelled\")"),
+                ("nan", "paddle_tpu_serving_nan_quarantines_total",
+                 "Sequences quarantined for non-finite decode logits "
+                 "(finish_reason=\"nan\"); batch-mates are unaffected"),
+                ("error", "paddle_tpu_serving_request_errors_total",
+                 "Requests retired on an internal failure "
+                 "(finish_reason=\"error\": admission/alloc/callback "
+                 "faults)"),
+                ("unavailable", "paddle_tpu_serving_unavailable_total",
+                 "Queued requests retired because no healthy engine could "
+                 "adopt them (finish_reason=\"unavailable\": the router's "
+                 "requeue-impossible path)"))}
+        self._m_adapter_req = reg.counter(
+            "paddle_tpu_serving_adapter_requests_total",
+            "Requests admitted under a named LoRA adapter (base/slot-0 "
+            "requests are not counted)", labels=("adapter_id",) + eng)
+        self._m_adapter_slots = reg.gauge(
+            "paddle_tpu_serving_adapter_slots",
+            "Named adapters currently registered in this engine's "
+            "AdapterStore (the slot-0 identity is not counted)",
+            labels=eng).labels(**lbl)
+        self._m_grammar_req = counter(
+            "paddle_tpu_serving_grammar_requests_total",
+            "Grammar-constrained requests admitted (regex/JSON-schema "
+            "FSM attached)")
+        self._m_grammar_tokens = counter(
+            "paddle_tpu_serving_grammar_tokens_total",
+            "Tokens landed under an in-step grammar mask (FSM advanced "
+            "on the host)")
+        self._m_grammar_completions = reg.counter(
+            "paddle_tpu_serving_grammar_completions_total",
+            "Constrained requests retired normally (stop/length) by "
+            "whether the finished stream walks its grammar to an "
+            "accepting state", labels=("result",) + eng)
+        for r in ("valid", "invalid"):
+            self._m_grammar_completions.labels(result=r, **lbl)
+        self._m_grammar_filtered = counter(
+            "paddle_tpu_serving_grammar_draft_filtered_total",
+            "Speculative draft tokens dropped before staging because "
+            "they would leave the proposer slot's grammar (an unmasked "
+            "draft would collapse acceptance)")
+        self._m_grammar_states = reg.gauge(
+            "paddle_tpu_serving_grammar_states",
+            "Grammar-table rows in use (interned DFA states plus the "
+            "row-0 identity) out of the grammar_states capacity",
+            labels=eng).labels(**lbl)
+        self._m_grammar_states.set(1.0)
+        self._m_prefetch_late = counter(
+            "paddle_tpu_serving_kv_prefetch_late_total",
+            "KV pages prefetched host→HBM inside the step path (late: "
+            "the unpark-time prefetch should have restored them first)")
+        self._m_compiles = reg.counter(
+            "paddle_tpu_jit_compiles_total",
+            "Step programs built: one per token-grid bucket (on a card, "
+            "its CUDA-graph capture)", labels=("fn", "source")).labels(
+                fn="serving_step", source="fresh")
+        # the JAX engine's record_counter gauges, under the names its
+        # profiler bridge gives them
+        self._m_gauges = {k: reg.gauge(
+            f"paddle_tpu_serving_{k}",
+            f"record_counter('serving.{k}') gauge (profiler bridge)")
+            for k in ("queue_depth", "running_seqs", "tokens_per_sec",
+                      "page_utilization")}
 
     # ------------------------------------------------------------ frontend
     def check_request(self, prompt_len: int, max_new_tokens: int) -> None:
@@ -419,21 +692,27 @@ class ServingEngine:
         served, naming the limit it breaks."""
         p, m = int(prompt_len), int(max_new_tokens)
         if p > self.max_model_len:
+            self._reject()
             raise ValueError(
                 f"prompt_len {p} exceeds the context window (limit: "
                 f"max_model_len={self.max_model_len})")
         total = p + m
         if total > self.max_model_len:
+            self._reject()
             raise ValueError(
                 f"prompt_len {p} + max_new_tokens {m} = {total} exceeds "
                 f"the per-request token cap (limit: max_model_len="
                 f"{self.max_model_len})")
         need = self.pool.pages_needed(total)
         if need > self.pool.usable_pages:
+            self._reject()
             raise ValueError(
                 f"max_total_tokens {total} needs {need} KV pages but the "
                 f"pool has only {self.pool.usable_pages} usable pages "
                 f"(limit: num_pages={self.pool.num_pages})")
+
+    def _reject(self) -> None:
+        self._m_requests.labels(event="rejected", **self._lbl).inc()
 
     def _check_features(self, req: Request) -> None:
         """Raise ValueError at enqueue for an adapter this engine does not
@@ -441,6 +720,7 @@ class ServingEngine:
         than the grammar table."""
         if (req.adapter_id is not None
                 and not self.adapters.holds(req.adapter_id)):
+            self._reject()
             raise ValueError(
                 f"adapter {req.adapter_id!r} is not registered on this "
                 f"engine (holding {list(self.adapters.names())}); "
@@ -448,12 +728,14 @@ class ServingEngine:
         fsm = req.grammar
         if fsm is not None:
             if int(fsm.vocab_size) != self._vocab_size:
+                self._reject()
                 raise ValueError(
                     f"grammar was compiled for vocab_size "
                     f"{int(fsm.vocab_size)} but this model's vocab is "
                     f"{self._vocab_size}; recompile the GrammarFSM "
                     f"against this model's tokenizer")
             if fsm.n_states > self._grammar_cap - 1:
+                self._reject()
                 raise ValueError(
                     f"grammar needs {fsm.n_states} DFA states but the "
                     f"table holds at most {self._grammar_cap - 1} "
@@ -463,24 +745,93 @@ class ServingEngine:
     def add_request(self, prompt, max_new_tokens: int = 32,
                     temperature: float = 0.0,
                     eos_token_id: Optional[int] = None, seed: int = 0,
-                    stream_cb=None, priority: int = 0,
-                    prefix_cache: bool = True,
+                    stream_cb=None, deadline_s: Optional[float] = None,
+                    priority: int = 0, prefix_cache: bool = True,
                     adapter_id: Optional[str] = None, grammar=None):
         """Queue a request; returns its ``req_id``. Generation starts at
-        the next :meth:`step` with capacity. ``prefix_cache=False`` keeps
-        this request out of the prefix cache. ``adapter_id`` names a LoRA
-        adapter this engine holds (:meth:`register_adapter`); ``grammar``
-        is a compiled ``GrammarFSM`` constraining every sampled token."""
+        the next :meth:`step` with capacity. ``deadline_s`` bounds the
+        request from enqueue, queue wait included. ``prefix_cache=False``
+        keeps this request out of the prefix cache. ``adapter_id`` names
+        a LoRA adapter this engine holds (:meth:`register_adapter`);
+        ``grammar`` is a compiled ``GrammarFSM`` constraining every
+        sampled token. Raises :class:`~.scheduler.BackpressureError`
+        when a bounded queue (``max_queue``) is full."""
         req = Request(prompt=np.asarray(prompt, np.int32).reshape(-1),
                       max_new_tokens=max_new_tokens, temperature=temperature,
                       eos_token_id=eos_token_id, seed=seed,
-                      stream_cb=stream_cb, priority=priority,
-                      prefix_cache=prefix_cache, adapter_id=adapter_id,
-                      grammar=grammar)
+                      stream_cb=stream_cb, deadline_s=deadline_s,
+                      priority=priority, prefix_cache=prefix_cache,
+                      adapter_id=adapter_id, grammar=grammar)
         self.check_request(req.prompt.size, req.max_new_tokens)
         self._check_features(req)
-        self.scheduler.add(req)
+        try:
+            self.scheduler.add(req)
+        except Exception:
+            self._reject()
+            raise
+        self._trace.emit("req.enqueue", req.req_id,
+                         arg=float(req.prompt.size), label=self.engine_id)
         return req.req_id
+
+    def cancel(self, req_id) -> bool:
+        """Cancel a request wherever it is: pulled from the queue, or
+        retired mid-prefill or mid-decode with its pages freed in this
+        call (also from its own stream callback). Its output (the tokens
+        so far, ``finish_reason="cancelled"``) comes out of :meth:`run`
+        and the terminal callback fires. False if the request is unknown
+        or finished."""
+        req = self.scheduler.remove(req_id)
+        if req is not None:
+            self._finish_queued(req, "cancelled")
+            return True
+        for i, st in enumerate(self.slots):
+            if st is not None and st.req.req_id == req_id:
+                self._retire_abnormal(st, slot=i, reason="cancelled")
+                return True
+        return False
+
+    def health(self) -> Dict[str, object]:
+        """The liveness view ``MetricsServer(health_cb=engine.health)``
+        serves: ``status`` is ``"degraded"`` while the watchdog is
+        tripped or a step is hung past its threshold (readable from the
+        scrape thread mid-step)."""
+        degraded = (self.watchdog is not None
+                    and self.watchdog.status() != "ok")
+        self._m_degraded.set(1.0 if degraded else 0.0)
+        return {
+            "status": "degraded" if degraded else "ok",
+            "watchdog_trips": (0 if self.watchdog is None
+                               else self.watchdog.trips),
+            "queue_depth": self.scheduler.queue_depth,
+            "running_seqs": sum(1 for s in self.slots if s is not None),
+        }
+
+    def _estimate_retry_after(self) -> float:
+        """The backpressure hint: queue depth x the step EWMA, floored at
+        50 ms (:class:`~.overload.DrainEstimator`)."""
+        return self._estimator.for_engine(self)
+
+    @property
+    def avg_step_s(self) -> float:
+        """Step wall-time EWMA, the drain rate behind ``retry_after_s``."""
+        return self._avg_step_s
+
+    def load_score(self) -> float:
+        """Estimated seconds to drain this engine's commitment: the steps
+        its queued and live requests still need (prompt chunks under the
+        token budget, one step per remaining new token) x the step
+        EWMA."""
+        budget = max(self.scheduler.token_budget, 1)
+        steps = 0
+        for r in self.scheduler.waiting:
+            steps += max(-(-int(r.prompt.size) // budget), 1)
+            steps += int(r.max_new_tokens)
+        for st in self.slots:
+            if st is None:
+                continue
+            steps += -(-max(int(st.ids.size) - st.pos, 0) // budget)
+            steps += max(int(st.req.max_new_tokens) - len(st.gen), 0)
+        return steps * self._avg_step_s
 
     @property
     def has_work(self) -> bool:
@@ -517,7 +868,9 @@ class ServingEngine:
         store's existing storage, so no step program changes
         (``compile_counts()`` before == after) and a captured step reads
         the new weights at its next replay. Returns the slot."""
-        return self.adapters.register(name, weights)
+        slot = self.adapters.register(name, weights)
+        self._m_adapter_slots.set(float(len(self.adapters.names())))
+        return slot
 
     def unregister_adapter(self, name: str) -> None:
         """Zero and free adapter ``name``'s slot; refused while an
@@ -527,6 +880,7 @@ class ServingEngine:
                 f"adapter {name!r} is in use by an admitted or queued "
                 f"request; drain it before unregistering")
         self.adapters.unregister(name)
+        self._m_adapter_slots.set(float(len(self.adapters.names())))
 
     def _adapter_in_use(self, name: str) -> bool:
         for st in self.slots:
@@ -560,7 +914,12 @@ class ServingEngine:
                 f"raise grammar_states or drain constrained requests")
         self._write_grammar_rows(off, fsm.mask_table)
         self._grammar_segments[fsm.key] = [off, n, 1, fsm]
+        self._count_grammar_rows()
         return off
+
+    def _count_grammar_rows(self) -> None:
+        self._m_grammar_states.set(float(1 + sum(
+            s[1] for s in self._grammar_segments.values())))
 
     def _grammar_release(self, st: _SeqState) -> None:
         """Drop ``st``'s reference on its interned grammar; at refcount
@@ -577,6 +936,7 @@ class ServingEngine:
             self._write_grammar_rows(off, np.zeros((n, self._vocab_size),
                                                    bool))
             del self._grammar_segments[fsm.key]
+        self._count_grammar_rows()
 
     def _write_grammar_rows(self, off: int, rows: np.ndarray) -> None:
         """Rows ``off..`` of the grammar table, host copy and device table
@@ -587,37 +947,45 @@ class ServingEngine:
 
     # ---------------------------------------------------------------- step
     def step(self) -> List[RequestOutput]:
-        """One engine iteration: admit, one unified ragged step, land,
-        retire. Returns the requests that finished in it."""
+        """One engine iteration: sweep deadlines, admit, one unified
+        ragged step, land, retire. Returns the requests that finished in
+        it. The watchdog's bracket closes even when the body raises."""
         t0 = time.perf_counter()
+        if self.watchdog is not None:
+            self.watchdog.begin_step()
         tokens_before = self.stats["generated_tokens"]
-        if self._host_offload:
-            # pressure relief before admission: a parked stream's pages
-            # and tail reservation are what the queue head needs
-            self._park_for_pressure()
-        free = sum(1 for s in self.slots if s is None)
-        for req in self.scheduler.admit(free, self.pool):
-            self._admit(req)
-        if self._host_offload:
-            # after admission, so a just-admitted head is never displaced
-            # by the stream it preempted
-            self._unpark_ready()
         finished: List[RequestOutput] = []
-        batch = self._plan()
-        if batch is not None:
-            T = batch.tok.size
-            self._grid_buckets_seen.add(T)
-            # a bucket's program counts once its first run (its capture,
-            # on a card) went through
-            prog = self._programs.get(T) or _StepProgram(self, T)
-            out = prog(batch)
-            self._programs[T] = prog
-            finished.extend(self._land(batch, out[0], out[1]))
-        else:
-            for k in ("step_decode_tokens", "step_draft_tokens",
-                      "step_prefill_tokens"):
-                self.stats[k] = 0
-        dt = time.perf_counter() - t0
+        try:
+            faults.point("serving.step")
+            finished.extend(self._sweep_deadlines())
+            if self._host_offload:
+                # pressure relief before admission: a parked stream's
+                # pages and tail reservation are what the queue head needs
+                self._park_for_pressure()
+            free = sum(1 for s in self.slots if s is None)
+            for req in self.scheduler.admit(free, self.pool):
+                self._m_requests.labels(event="admitted", **self._lbl).inc()
+                try:
+                    self._admit(req)
+                except Exception as e:
+                    # an admission failure fails this request only
+                    finished.append(self._fail_admitted_request(req, e))
+            if self._host_offload:
+                # after admission, so a just-admitted head is never
+                # displaced by the stream it preempted
+                self._unpark_ready()
+            self._set_step_mix(0, 0, 0)
+            if any(s is not None for s in self.slots):
+                finished.extend(self._step_once())
+        finally:
+            dt = time.perf_counter() - t0
+            self._avg_step_s = 0.8 * self._avg_step_s + 0.2 * dt
+            if self.watchdog is not None:
+                if self.watchdog.end_step(dt):
+                    self._m_wd_trips.inc()
+                self._m_degraded.set(
+                    0.0 if self.watchdog.status() == "ok" else 1.0)
+        self._m_step.observe(dt)
         self.stats["steps"] += 1
         self.stats["queue_depth"] = self.scheduler.queue_depth
         self.stats["running_seqs"] = sum(1 for s in self.slots
@@ -626,7 +994,68 @@ class ServingEngine:
         self.stats["tokens_per_sec"] = produced / dt if dt > 0.0 else 0.0
         self.stats["page_utilization"] = self.pool.utilization()
         self.stats["peak_pages"] = self.pool.peak_used
+        for k, g in self._m_gauges.items():
+            g.set(self.stats[k])
+        self._trace.emit("step.tokens", self.engine_id, arg=float(produced))
         return finished
+
+    def _set_step_mix(self, decode: int, draft: int, prefill: int) -> None:
+        self.stats["step_decode_tokens"] = decode
+        self.stats["step_draft_tokens"] = draft
+        self.stats["step_prefill_tokens"] = prefill
+
+    def _step_once(self) -> List[RequestOutput]:
+        """Plan the step (retiring with ``"error"`` a slot whose KV room
+        fails), build the bucket's program if it is new (under
+        ``serving.compile_step``, retried), run it and land its
+        samples."""
+        t0 = time.perf_counter()
+        finished: List[RequestOutput] = []
+        batch = self._plan(finished)
+        if batch is None:
+            return finished
+        T = batch.tok.size
+        fresh = T not in self._grid_buckets_seen
+        self._grid_buckets_seen.add(T)
+        prog = self._programs.get(T)
+        if prog is None:
+            prog = self._compile_with_retry(
+                "serving.compile_step", lambda: _StepProgram(self, T))
+        t_prog = time.perf_counter()
+        out = prog(batch)
+        if T not in self._programs:
+            # a bucket's program counts once its first run (its capture,
+            # on a card) went through
+            self._programs[T] = prog
+            self._m_compiles.inc()
+        BS = self.max_batch_slots * self._spec_rows
+        self.pool.count_scale_clips(int(out[2 * BS]))
+        now = time.perf_counter()
+        self._m_decode.observe(now - t0)
+        self._m_mix_decode.observe(batch.n_decode)
+        self._m_mix_draft.observe(batch.n_draft)
+        self._m_mix_prefill.observe(batch.total - batch.n_decode
+                                    - batch.n_draft)
+        if fresh:
+            # the bucket's build and capture ran under every rider
+            for i, *_rest in batch.rows:
+                if self.slots[i] is not None:
+                    self._trace.emit("req.compile", self.slots[i].req.req_id,
+                                     arg=now - t_prog, t=now)
+        finished.extend(self._land(batch, out[:BS], out[BS:2 * BS],
+                                   now=now))
+        return finished
+
+    def _compile_with_retry(self, point_name: str, make_fn):
+        """Build a step program under a fault point with a short seeded
+        backoff: a transient failure costs milliseconds, a persistent one
+        propagates. Only the successful build counts."""
+        def build():
+            faults.point(point_name)
+            return make_fn()
+
+        return faults.retry(build, attempts=3, base_delay_s=0.01,
+                            max_delay_s=0.1)
 
     # ------------------------------------------------- host-tier parking
     def _find_slot(self, req_id):
@@ -658,6 +1087,7 @@ class ServingEngine:
         st.parked = mode
         self.stats["parks"] += 1
         self.stats["kv_offloaded_pages"] += n
+        self._trace.emit("req.park", req_id, arg=float(n))
         return n
 
     def unpark_request(self, req_id) -> int:
@@ -673,6 +1103,7 @@ class ServingEngine:
         st.parked = False
         self.stats["unparks"] += 1
         self.stats["kv_prefetched_pages"] += n
+        self._trace.emit("req.unpark", req_id, arg=float(n))
         return n
 
     def _head_cached_pages(self, head: Request) -> int:
@@ -728,7 +1159,10 @@ class ServingEngine:
         the longest cached prefix of its prompt (full pages, capped one
         token short) joins its table by refcount and its chunk cursor
         starts after it; the rest prefills inside the next steps. Binds
-        its adapter slot and interns its grammar."""
+        its adapter slot and interns its grammar. A raise (the
+        ``serving.prefill`` point, a full grammar table) leaves the pages
+        to :meth:`_fail_admitted_request`."""
+        faults.point("serving.prefill")
         cache = self.prefix_cache if req.prefix_cache else None
         matched, shared = 0, []
         if cache is not None:
@@ -743,15 +1177,23 @@ class ServingEngine:
         try:
             st.adp_slot = self.adapters.slot(req.adapter_id)
         except KeyError as e:
-            self.pool.free(req.req_id)
             raise ValueError(str(e)) from None
+        if req.adapter_id is not None:
+            self._m_adapter_req.labels(adapter_id=req.adapter_id,
+                                       **self._lbl).inc()
         if req.grammar is not None:
             st.fsm_off = self._grammar_intern(req.grammar)
             st.fsm = req.grammar
             st.fsm_state = (req.grammar.start_state
                             if req.resume_fsm_state is None
                             else int(req.resume_fsm_state))
+            self._m_grammar_req.inc()
         self.slots[self.slots.index(None)] = st
+        self._trace.emit("req.admit", req.req_id, arg=float(matched),
+                         label=self.engine_id)
+        if matched:
+            self._trace.emit("req.prefix_hit", req.req_id,
+                             arg=float(matched))
 
     def _grid_tokens(self, total: int) -> int:
         """Token-grid bucket: the slot grid (or ``min_step_tokens`` when
@@ -794,19 +1236,30 @@ class ServingEngine:
                     if s_ < 0:
                         break
                     keep += 1
-                self.stats["grammar_filtered_drafts"] += int(prop.size) - keep
-                prop = prop[:keep]
+                if keep < prop.size:
+                    self.stats["grammar_filtered_drafts"] += \
+                        int(prop.size) - keep
+                    self._m_grammar_filtered.inc(int(prop.size) - keep)
+                    prop = prop[:keep]
             if prop.size:
                 drafts[i] = prop
+                self._trace.emit("req.drafts", st.req.req_id,
+                                 arg=float(prop.size))
         return drafts
 
-    def _plan(self) -> Optional[_StepBatch]:
+    def _plan(self, finished: Optional[List[RequestOutput]] = None
+              ) -> Optional[_StepBatch]:
         """Decide this step's rows and reserve their KV room (copying
         shared pages they write into first): one row per decoding slot
         with its drafts behind it, then prompt chunks under the budget;
         lay them out on the token grid. A parked slot has no rows; one
         that reaches this point with pages still on the host fetches them
-        now (a late prefetch, counted)."""
+        now (a late prefetch, counted). A slot whose prefetch or KV room
+        fails retires with ``"error"`` (appended to ``finished``) and its
+        batch-mates go on. The ``serving.decode_step`` fault point fires
+        after the KV room is reserved."""
+        if finished is None:
+            finished = []
         B, S = self.max_batch_slots, self._spec_rows
         decode_idx: List[int] = []
         prefill_info = []
@@ -815,39 +1268,60 @@ class ServingEngine:
                 continue
             if self._host_offload and self.pool.offloaded_pages(
                     st.req.req_id):
-                self.stats["kv_prefetch_late_pages"] += \
-                    self.pool.prefetch_seq(st.req.req_id)
+                try:
+                    n = self.pool.prefetch_seq(st.req.req_id)
+                except Exception as e:
+                    finished.append(self._retire_abnormal(
+                        st, slot=i, reason="error", error=e))
+                    continue
+                self.stats["kv_prefetch_late_pages"] += n
+                self._m_prefetch_late.inc(n)
             if st.prefilling:
                 prefill_info.append((i, int(st.ids.size) - st.pos, st.req))
             else:
                 decode_idx.append(i)
         chunks = self.scheduler.plan_chunks(len(decode_idx), prefill_info)
+        for i, c in chunks:
+            self._trace.emit("req.chunk_planned", self.slots[i].req.req_id,
+                             arg=float(c))
         drafts = self._plan_drafts(
             decode_idx,
             self.token_budget - len(decode_idx) - sum(c for _, c in chunks))
         rows = []
-        n_draft = 0
+        n_decode = n_draft = 0
         for i in decode_idx:
             st = self.slots[i]
             d_toks = drafts.get(i)
             d = 0 if d_toks is None else int(d_toks.size)
-            if d:
-                self.pool.extend_write(st.req.req_id, st.pos, st.pos + 1 + d)
-                toks = np.concatenate([[st.last_token], d_toks]).astype(
-                    np.int32)
-            else:
-                self.pool.extend(st.req.req_id, st.pos + 1)
-                toks = np.asarray([st.last_token], np.int32)
+            try:
+                if d:
+                    self.pool.extend_write(st.req.req_id, st.pos,
+                                           st.pos + 1 + d)
+                else:
+                    self.pool.extend(st.req.req_id, st.pos + 1)
+            except Exception as e:
+                finished.append(self._retire_abnormal(
+                    st, slot=i, reason="error", error=e))
+                continue
+            toks = (np.concatenate([[st.last_token], d_toks]).astype(
+                np.int32) if d else np.asarray([st.last_token], np.int32))
             rows.append((i, toks,
                          np.arange(st.pos, st.pos + 1 + d, dtype=np.int32),
                          False, d))
+            n_decode += 1
             n_draft += d
         for i, c in chunks:
             st = self.slots[i]
-            self.pool.extend_write(st.req.req_id, st.pos, st.pos + c)
+            try:
+                self.pool.extend_write(st.req.req_id, st.pos, st.pos + c)
+            except Exception as e:
+                finished.append(self._retire_abnormal(
+                    st, slot=i, reason="error", error=e))
+                continue
             rows.append((i, st.ids[st.pos:st.pos + c],
                          np.arange(st.pos, st.pos + c, dtype=np.int32),
                          True, 0))
+        faults.point("serving.decode_step")
         if not rows:
             return None
         total = sum(r[1].size for r in rows)
@@ -892,10 +1366,7 @@ class ServingEngine:
             temps[i] = st.req.temperature
             seeds[i] = st.req.seed
             cur += c
-        n_decode = len(decode_idx)
-        self.stats["step_decode_tokens"] = n_decode
-        self.stats["step_draft_tokens"] = n_draft
-        self.stats["step_prefill_tokens"] = total - n_decode - n_draft
+        self._set_step_mix(n_decode, n_draft, total - n_decode - n_draft)
         return _StepBatch(rows, total, tok, tok_pos, tok_bt, tok_adp,
                           sample_rows, sample_pos, fsm_state, temps, seeds,
                           n_decode, n_draft)
@@ -920,35 +1391,50 @@ class ServingEngine:
         last_h = hidden[put(batch.sample_rows.reshape(-1)).to(torch.int64)]
         return self.model.logits(last_h).to(torch.float32)
 
-    def _land(self, batch: _StepBatch, nxt, finite=None
-              ) -> List[RequestOutput]:
+    def _land(self, batch: _StepBatch, nxt, finite=None,
+              now: Optional[float] = None) -> List[RequestOutput]:
         """Advance every row's slot by what the step computed and land the
         sampled tokens (``nxt`` ``[B * S]``): a final chunk's first token,
         or a decode row's accepted drafts and the token after them.
-        ``finite`` flags each sample row's logits."""
+        ``finite`` flags each sample row's logits: a slot with a
+        non-finite one is quarantined (``"nan"``), its sample never
+        landed, the KV its chunk wrote as suspect as the sample."""
         B, S = self.max_batch_slots, self._spec_rows
         nxt = np.asarray(nxt).reshape(B, S)
-        if finite is not None:
-            fin = np.asarray(finite).reshape(B, S).astype(bool)
-            for i, _toks, _poss, is_chunk, d in batch.rows:
-                if not fin[i, :1 if is_chunk else d + 1].all():
-                    raise FloatingPointError(
-                        f"request {self.slots[i].req.req_id!r}: non-finite "
-                        f"logits (the NaN quarantine is not ported)")
+        fin = (None if finite is None
+               else np.asarray(finite).reshape(B, S).astype(bool))
         finished: List[RequestOutput] = []
-        now = time.perf_counter()
+        if now is None:
+            now = time.perf_counter()
         for i, toks, _poss, is_chunk, d in batch.rows:
             st = self.slots[i]
+            if st is None:
+                continue  # an earlier row's callback cancelled it
+            if fin is not None and not fin[i, :1 if is_chunk else d + 1].all():
+                if is_chunk:
+                    st.pos += toks.size
+                    self._m_chunk.observe(toks.size)
+                finished.append(self._retire_abnormal(st, slot=i,
+                                                      reason="nan"))
+                continue
             if is_chunk:
                 st.pos += toks.size
+                self._m_chunk.observe(toks.size)
+                self._trace.emit("req.chunk", st.req.req_id,
+                                 arg=float(toks.size), t=now)
                 if st.prefilling:
                     continue  # mid-prompt: more chunks to go, no token
                 if self.prefix_cache is not None and st.req.prefix_cache:
-                    # index the prompt's full pages for later admissions
-                    for node in self.prefix_cache.insert(
-                            st.req.prompt, int(st.req.prompt.size),
-                            self.pool.block_table(st.req.req_id)):
+                    # index the prompt's full pages for later admissions;
+                    # the nodes created are evicted if this request is
+                    # later quarantined
+                    st.inserted_nodes = self.prefix_cache.insert(
+                        st.req.prompt, int(st.req.prompt.size),
+                        self.pool.block_table(st.req.req_id))
+                    for node in st.inserted_nodes:
                         self._page_writer[node.page] = st.req.adapter_id
+                self._m_prefill.observe(now - st.t_admit)
+                self._m_ttft.observe(now - st.req.arrival_t)
                 out = self._land_token(st, slot=i, token=int(nxt[i, 0]),
                                        now=now)
                 if out is not None:
@@ -965,33 +1451,54 @@ class ServingEngine:
             if d:
                 self.stats["spec_drafted"] += d
                 self.stats["spec_accepted"] += a
+                self._m_spec_drafted.inc(d)
+                self._m_spec_accepted.inc(a)
+                self._m_spec_accept.observe(a / d)
+                self._trace.emit("req.spec_accept", st.req.req_id,
+                                 arg=float(a), t=now)
                 if a < d:
+                    self._trace.emit("req.spec_reject", st.req.req_id,
+                                     arg=float(d - a), t=now)
                     self.pool.truncate(st.req.req_id, st.pos + a + 1)
             for t in targets[:a + 1]:
                 st.pos += 1
+                self._m_itl.observe(now - st.t_last)
                 out = self._land_token(st, slot=i, token=int(t), now=now)
                 if out is not None:
                     finished.append(out)
                     break
+                if self.slots[i] is not st:
+                    break  # cancelled from its own stream callback
         return finished
 
     def _land_token(self, st: _SeqState, slot: int, token: int,
                     now: float) -> Optional[RequestOutput]:
         """Append a sampled token, advance the slot's grammar over it
-        (eos has no edge), stream it, and retire on eos, length or a
-        finished grammar."""
+        (eos has no edge), stream it (isolated; a callback may cancel its
+        own request), and retire on eos, length or a finished grammar."""
         st.last_token = token
         st.gen.append(token)
         st.t_last = now
         self.stats["generated_tokens"] += 1
+        self._m_tokens.inc()
+        self._trace.emit("req.token", st.req.req_id,
+                         arg=float(len(st.gen) - 1), t=now)
         if st.fsm is not None and (st.req.eos_token_id is None
                                    or token != st.req.eos_token_id):
             nxt = st.fsm.next_state(st.fsm_state, token)
             if nxt >= 0:
                 st.fsm_state = nxt
             self.stats["grammar_tokens"] += 1
+            self._m_grammar_tokens.inc()
+            self._trace.emit("req.grammar_mask", st.req.req_id,
+                             arg=float(st.fsm_state), t=now)
         if st.req.stream_cb is not None:
-            st.req.stream_cb(st.req.req_id, token, False)
+            cb_err = self._safe_cb(st.req, token, False, len(st.gen) - 1)
+            if self.slots[slot] is not st:
+                return None  # cancel() retired it inside the callback
+            if cb_err is not None:
+                return self._retire_abnormal(st, slot=slot, reason="error",
+                                             error=cb_err)
         return self._maybe_retire(st, slot=slot)
 
     # -------------------------------------------------------------- retire
@@ -1004,15 +1511,109 @@ class ServingEngine:
         done_fsm = st.fsm is not None and st.fsm.is_complete(st.fsm_state)
         if not (hit_eos or done_fsm) and len(st.gen) < req.max_new_tokens:
             return None
+        if st.fsm is not None:
+            valid = st.fsm.is_accepting(st.fsm_state)
+            self._m_grammar_completions.labels(
+                result="valid" if valid else "invalid", **self._lbl).inc()
         self._grammar_release(st)
-        self.pool.free(req.req_id)
+        if self.pool.has_seq(req.req_id):
+            self.pool.free(req.req_id)
         self.slots[slot] = None
+        self._m_requests.labels(event="retired", **self._lbl).inc()
         self.stats["finished_requests"] += 1
         out = RequestOutput(req_id=req.req_id, prompt_token_ids=req.prompt,
                             token_ids=list(st.gen),
                             finish_reason=("stop" if hit_eos or done_fsm
                                            else "length"))
+        self._trace.emit("req.retire", req.req_id, label=out.finish_reason)
+        self._outputs[out.req_id] = out  # before the callback: it may raise
+        if req.stream_cb is not None:
+            self._safe_cb(req, None, out.finish_reason, len(st.gen))
+        return out
+
+    def _safe_cb(self, req: Request, token, finished, seq: int):
+        """Call ``req.stream_cb`` isolated: an exception is counted, the
+        callback is dropped for the rest of the request, and the
+        exception is returned (None on success) for the caller to retire
+        the request with ``"error"``. A callback that takes four
+        arguments also gets ``seq``, the token's index in the stream (the
+        terminal call: the count)."""
+        cb = req.stream_cb
+        wants_seq = getattr(req, "_cb_wants_seq", None)
+        if wants_seq is None:
+            wants_seq = _cb_accepts_seq(cb)
+            req._cb_wants_seq = wants_seq
+        try:
+            if wants_seq:
+                cb(req.req_id, token, finished, seq)
+            else:
+                cb(req.req_id, token, finished)
+            return None
+        except Exception as e:
+            self._m_cb_errors.inc()
+            req.stream_cb = None
+            return e
+
+    def _emit_terminal(self, req: Request, gen, reason: str,
+                       error=None) -> RequestOutput:
+        """The common tail of every abnormal retirement: the reason's
+        counter, the lifecycle counter, the output (registered at once,
+        so it is delivered even if the rest of the step raises) and the
+        terminal callback."""
+        self._reason_counters[reason].inc()
+        self._trace.emit("req.retire", req.req_id, label=reason)
+        self._m_requests.labels(event="retired", **self._lbl).inc()
+        self.stats["finished_requests"] += 1
+        out = RequestOutput(req_id=req.req_id, prompt_token_ids=req.prompt,
+                            token_ids=list(gen), finish_reason=reason,
+                            error=None if error is None else repr(error))
         self._outputs[out.req_id] = out
         if req.stream_cb is not None:
-            req.stream_cb(req.req_id, None, out.finish_reason)
+            self._safe_cb(req, None, reason, len(out.token_ids))
         return out
+
+    def _finish_queued(self, req: Request, reason: str) -> RequestOutput:
+        """Retire a request that never ran (expired or cancelled while
+        queued)."""
+        return self._emit_terminal(req, [], reason)
+
+    def _fail_admitted_request(self, req: Request,
+                               error: Exception) -> RequestOutput:
+        """Retire a request whose admission failed partway; the pages its
+        allocation took go back now."""
+        if self.pool.has_seq(req.req_id):
+            self.pool.free(req.req_id)
+        return self._emit_terminal(req, [], "error", error)
+
+    def _retire_abnormal(self, st: _SeqState, slot: int, reason: str,
+                         error=None) -> RequestOutput:
+        """Retire a live sequence off the eos/length path (timeout,
+        cancelled, nan, error): pages freed in this call, slot cleared,
+        the tokens so far delivered. A quarantine (``"nan"``) evicts the
+        prefix nodes built from the sequence's KV and frees its pages
+        with a scrub: masked attention weighs a stale slot 0, and 0 x NaN
+        is NaN, so a poisoned page would poison its next owner."""
+        req = st.req
+        if (reason == "nan" and st.inserted_nodes
+                and self.prefix_cache is not None):
+            self.prefix_cache.evict_nodes(st.inserted_nodes)
+        if self.pool.has_seq(req.req_id):
+            self.pool.free(req.req_id, scrub=(reason == "nan"))
+        self.slots[slot] = None
+        self._grammar_release(st)
+        return self._emit_terminal(req, st.gen, reason, error)
+
+    def _sweep_deadlines(self) -> List[RequestOutput]:
+        """Retire every request past its deadline, at the top of each
+        step: still queued ``"expired"`` (pages never allocated),
+        admitted ``"timeout"`` with the tokens so far."""
+        finished: List[RequestOutput] = []
+        for req in self.scheduler.pop_expired():
+            self._trace.emit("req.expire", req.req_id, label=self.engine_id)
+            finished.append(self._finish_queued(req, "expired"))
+        for i, st in enumerate(self.slots):
+            if (st is not None and st.req.deadline is not None
+                    and st.req.deadline.expired()):
+                finished.append(
+                    self._retire_abnormal(st, slot=i, reason="timeout"))
+        return finished

@@ -45,8 +45,24 @@ tail reservation, so admission sees a parked tenant as preempted.
 saved bytes back into the existing page tensors (``index_copy_``), all
 or nothing, on the host's schedule before the slot's next step; the
 copies are synchronous, so no pinned source is freed under a copy in
-flight. The NaN quarantine's scrub and the pool's metrics are not
-ported.
+flight.
+
+The NaN quarantine: ``free(seq_id, scrub=True)`` marks the pages a
+quarantined sequence releases dirty, and :meth:`PagedKVCachePool._take_page`
+zeroes every dirty page (bytes and int8 scale rows, one ``index_fill_``
+per tensor) in place before one of them re-enters a block table. Masked
+attention gives a padding lane weight 0, but 0 x NaN is NaN, so a
+poisoned page must never reach a new owner unscrubbed. The scrub is
+refcount-aware: a page a fork or the prefix cache still holds is only
+marked, and whoever drops the last reference turns the mark into a
+scrub. :meth:`PagedKVCachePool.poison_seq` is the drill's fault: NaN
+into a sequence's exclusively owned written slots (int8: their scale
+rows), in place. Neither ever rebinds a page tensor, so a captured step
+reads both at its next replay.
+
+Telemetry: the pool and the prefix cache keep the JAX package's
+``paddle_tpu_serving_kv_*`` and ``paddle_tpu_serving_prefix_*``
+families, labelled ``{engine_id, model_id}``.
 """
 from __future__ import annotations
 
@@ -57,7 +73,13 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import faults, metrics
 from ..device import resolve_device
+
+faults.declare_point(
+    "serving.kv_alloc",
+    "PagedKVCachePool._take_page, before a page leaves the free list; "
+    "arm ResourceExhausted here to drill pool exhaustion")
 
 __all__ = ["PagedKVCachePool", "PrefixCache", "HostPageStore", "page_bytes",
            "normalize_kv_dtype"]
@@ -144,14 +166,17 @@ class PagedKVCachePool:
     ``peak_used``; the host tier's ``host_store`` (a parked sequence's
     offloaded pages, whose table entries hold the null page 0), each
     parked sequence's journaled tail reservation, and running totals of
-    pages offloaded and prefetched with the seconds each took.
+    pages offloaded and prefetched with the seconds each took; the
+    quarantine's dirty and scrub-pending pages. ``engine_id`` and
+    ``model_id`` label the pool's metric series.
     """
 
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
                  n_kv_heads: int, head_dim: int, dtype=torch.float32,
-                 device=None):
+                 device=None, engine_id: str = "", model_id: str = ""):
         if num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
+        self._lbl = {"engine_id": str(engine_id), "model_id": str(model_id)}
         self.num_layers = int(num_layers)
         self.num_pages = int(num_pages)
         self.page_size = int(page_size)
@@ -177,6 +202,11 @@ class PagedKVCachePool:
         # LIFO: a just-freed page is the next handed out
         self._free: List[int] = list(range(self.num_pages - 1, 0, -1))
         self._ref = np.zeros(self.num_pages, np.int32)
+        # free pages a quarantine released, zeroed when one is next taken
+        self._dirty: set = set()
+        # pages a quarantine released while another holder still reads
+        # them: dirty once the last reference drops
+        self._scrub_pending: set = set()
         self.prefix_cache: Optional["PrefixCache"] = None
         self._tables: Dict[object, List[int]] = {}
         self._lens: Dict[object, int] = {}
@@ -189,6 +219,48 @@ class PagedKVCachePool:
         self.prefetched_total = 0
         self.offload_seconds = 0.0
         self.prefetch_seconds = 0.0
+        reg = metrics.get_registry()
+        _eng = ("engine_id", "model_id")
+        self._m_pages_used = reg.gauge(
+            "paddle_tpu_serving_kv_pages_used",
+            "KV pages currently allocated out of the pool",
+            labels=_eng).labels(**self._lbl)
+        self._m_pages_total = reg.gauge(
+            "paddle_tpu_serving_kv_pages_total",
+            "Usable KV pages in the pool (page 0 reserved excluded)",
+            labels=_eng).labels(**self._lbl)
+        self._m_page_events = reg.counter(
+            "paddle_tpu_serving_kv_page_events_total",
+            "Page allocator traffic", labels=("event",) + _eng)
+        tier = reg.gauge(
+            "paddle_tpu_serving_kv_page_tier",
+            "KV pages currently resident per tier: hbm = pages pinned by "
+            "live sequences, host = pages parked in the HostPageStore",
+            labels=("tier",) + _eng)
+        self._m_tier_hbm = tier.labels(tier="hbm", **self._lbl)
+        self._m_tier_host = tier.labels(tier="host", **self._lbl)
+        self._m_offload = reg.counter(
+            "paddle_tpu_serving_kv_offload_pages_total",
+            "KV pages swapped HBM → host by offload_seq (parked tenants)",
+            labels=_eng).labels(**self._lbl)
+        self._m_prefetch = reg.counter(
+            "paddle_tpu_serving_kv_prefetch_pages_total",
+            "KV pages swapped host → HBM by prefetch_seq (unpark)",
+            labels=_eng).labels(**self._lbl)
+        self._m_scale_clips = reg.counter(
+            "paddle_tpu_serving_kv_dequant_scale_clip_total",
+            "Quantized KV slots written at the absmax scale floor "
+            "(absmax underflowed KV_SCALE_FLOOR — dynamic range lost)",
+            labels=_eng).labels(**self._lbl)
+        self._refresh_gauges()
+
+    def _refresh_gauges(self) -> None:
+        """Re-set the pool gauges after every allocator event, the totals
+        too, so a registry ``reset()`` heals at the next event."""
+        self._m_pages_used.set(self.used_pages)
+        self._m_pages_total.set(self.usable_pages)
+        self._m_tier_hbm.set(self.used_pages)
+        self._m_tier_host.set(len(self.host_store))
 
     # ---------------------------------------------------------- accounting
     @property
@@ -233,6 +305,7 @@ class PagedKVCachePool:
 
     # ---------------------------------------------------------- allocation
     def _take_page(self) -> int:
+        faults.point("serving.kv_alloc")
         # evict pages only the prefix cache holds before giving up
         while not self._free and self.prefix_cache is not None:
             if not self.prefix_cache.evict_one():
@@ -242,9 +315,22 @@ class PagedKVCachePool:
                 "KV page pool exhausted — admission accounting should have "
                 "prevented this")
         p = self._free.pop()
+        if p in self._dirty:
+            self._scrub(sorted(self._dirty))
+            self._dirty.clear()
         self._ref[p] = 1
         self.peak_used = max(self.peak_used, self.used_pages)
+        self._m_page_events.labels(event="alloc", **self._lbl).inc()
+        self._refresh_gauges()
         return p
+
+    def _scrub(self, pages: Sequence[int]) -> None:
+        """Zero ``pages`` (bytes and int8 scale rows) of every layer in
+        place: one ``index_fill_`` per tensor, whatever the count."""
+        idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
+        for _name, tensors in self._page_tensors():
+            for t in tensors:
+                t.index_fill_(0, idx, 0)
 
     def allocate(self, seq_id, n_tokens: int,
                  max_total_tokens: Optional[int] = None,
@@ -272,8 +358,10 @@ class PagedKVCachePool:
         if int(n_tokens) > int(prefix_tokens):
             try:
                 self.extend(seq_id, n_tokens)
-            except RuntimeError:
-                self.free(seq_id)  # atomic: no half-built sequence
+            except Exception:
+                # atomic: a failure midway (exhaustion, an armed
+                # serving.kv_alloc fault) leaves no half-built sequence
+                self.free(seq_id)
                 raise
         self.peak_used = max(self.peak_used, self.used_pages)
         return list(self._tables[seq_id])
@@ -337,20 +425,34 @@ class PagedKVCachePool:
         table[pi] = fresh
         self._ref[old] -= 1  # ours only: it was > 1
         self.cow_copies += 1
+        self._m_page_events.labels(event="cow", **self._lbl).inc()
         self.peak_used = max(self.peak_used, self.used_pages)
+        self._refresh_gauges()
 
-    def _release_ref(self, p: int) -> bool:
+    def _release_ref(self, p: int, scrub: bool = False) -> bool:
         """Drop one reference on page ``p``; True when it went back to the
-        free list."""
+        free list. Every release path (retirement, eviction, offload)
+        goes through here. ``scrub`` (a quarantine) while another holder
+        still reads the page only marks it scrub-pending; whoever drops
+        the last reference, scrubbing or not, then marks it dirty, so
+        :meth:`_take_page` zeroes it before reuse."""
         self._ref[p] -= 1
         if self._ref[p] > 0:
+            if scrub:
+                self._scrub_pending.add(p)
             return False
         self._free.append(p)
+        if scrub or p in self._scrub_pending:
+            self._dirty.add(p)
+        self._scrub_pending.discard(p)
+        self._m_page_events.labels(event="free", **self._lbl).inc()
         return True
 
-    def free(self, seq_id) -> None:
+    def free(self, seq_id, scrub: bool = False) -> None:
         """Retire a sequence now: each of its pages loses this reference,
-        and those no one else holds go back to the free list. A parked
+        and those no one else holds go back to the free list; with
+        ``scrub`` (the NaN quarantine) they are zeroed before reuse, at
+        once or when their last other holder lets go. A parked
         sequence's host copies are dropped; its offloaded entries (the
         null page) release nothing."""
         table = self._tables.pop(seq_id)
@@ -361,7 +463,8 @@ class PagedKVCachePool:
         self.host_store.drop_seq(seq_id)
         for pi, p in enumerate(table):
             if pi not in off:
-                self._release_ref(p)
+                self._release_ref(p, scrub=scrub)
+        self._refresh_gauges()
 
     def fork(self, src_id, dst_id, max_total_tokens: Optional[int] = None
              ) -> List[int]:
@@ -460,7 +563,11 @@ class PagedKVCachePool:
                 self._release_ref(table[pi])
                 table[pi] = 0
             self.offloaded_total += len(move)
+            self._m_offload.inc(len(move))
+            self._m_page_events.labels(event="offload", **self._lbl).inc(
+                len(move))
         self.offload_seconds += time.perf_counter() - t0
+        self._refresh_gauges()
         return len(move)
 
     def prefetch_seq(self, seq_id) -> int:
@@ -481,9 +588,10 @@ class PagedKVCachePool:
         try:
             for _ in range(n):
                 fresh.append(self._take_page())
-        except RuntimeError:
+        except Exception:
             for p in fresh:
                 self._release_ref(p)
+            self._refresh_gauges()
             raise
         idxs, slabs = self.host_store.pop(seq_id)
         idx = torch.tensor(fresh, dtype=torch.int64, device=self.device)
@@ -497,9 +605,53 @@ class PagedKVCachePool:
             self._resv[seq_id] = max(self._parked_resv.pop(seq_id),
                                      self._resv.get(seq_id, 0))
         self.prefetched_total += len(idxs)
+        self._m_prefetch.inc(len(idxs))
+        self._m_page_events.labels(event="prefetch", **self._lbl).inc(
+            len(idxs))
         self.peak_used = max(self.peak_used, self.used_pages)
         self.prefetch_seconds += time.perf_counter() - t0
+        self._refresh_gauges()
         return len(idxs)
+
+    # ----------------------------------------------------- quarantine drill
+    def poison_seq(self, seq_id, value: float = float("nan")) -> int:
+        """Write ``value`` (NaN by default) into every exclusively owned
+        written KV slot of one sequence, all layers, K and V, in place
+        (``index_put_``). Shared pages (a fork or the prefix cache holds
+        them) are skipped, since attention reads them for other tenants
+        too; raises ``ValueError`` when every written page is shared.
+        int8 pools poison the scale rows: a code cannot hold NaN, but
+        the dequantized value does. Returns the slots poisoned."""
+        self._assert_resident(seq_id, "poison_seq")
+        n = int(self._lens[seq_id])
+        table = np.asarray(self._tables[seq_id], np.int64)
+        idx = np.arange(n)
+        idx = idx[self._ref[table[idx // self.page_size]] == 1]
+        if idx.size == 0:
+            raise ValueError(
+                f"poison_seq({seq_id!r}): every written page is shared "
+                f"(fork sibling or prefix cache holds a reference) — "
+                f"poisoning would corrupt healthy tenants; poison a "
+                f"sequence with exclusive pages instead")
+        pages = torch.from_numpy(table[idx // self.page_size]).to(
+            self.device)
+        offs = torch.from_numpy(idx % self.page_size).to(self.device)
+        targets = ((self.k_scales, self.v_scales) if self.quantized
+                   else (self.k_pools, self.v_pools))
+        for tensors in targets:
+            for t in tensors:
+                t.index_put_((pages, offs),
+                             torch.tensor(value, dtype=t.dtype,
+                                          device=self.device))
+        return int(idx.size)
+
+    def count_scale_clips(self, n: int) -> None:
+        """Add ``n`` written int8 slots whose absmax scale sat at
+        ``KV_SCALE_FLOOR`` (their dynamic range underflowed) to
+        ``kv_dequant_scale_clip_total``; the step program counts them on
+        the device."""
+        if n:
+            self._m_scale_clips.inc(n)
 
     # ------------------------------------------------------------- queries
     def has_seq(self, seq_id) -> bool:
@@ -591,6 +743,32 @@ class PrefixCache:
         self._nodes: Dict[int, _PrefixNode] = {}
         self._page_arr: Optional[np.ndarray] = None
         self._clock = 0
+        reg = metrics.get_registry()
+        _eng = ("engine_id", "model_id")
+        lbl = pool._lbl
+        self._m_hits = reg.counter(
+            "paddle_tpu_serving_prefix_hits_total",
+            "Admissions that matched a cached prefix and prefilled only "
+            "their uncovered suffix", labels=_eng).labels(**lbl)
+        self._m_misses = reg.counter(
+            "paddle_tpu_serving_prefix_misses_total",
+            "Admissions that found no cached prefix (full prefill)",
+            labels=_eng).labels(**lbl)
+        self._m_saved = reg.counter(
+            "paddle_tpu_serving_prefill_tokens_saved_total",
+            "Prompt tokens NOT prefilled because a cached prefix covered "
+            "them (the prefix-cache capacity win)",
+            labels=_eng).labels(**lbl)
+        self._m_pages = reg.gauge(
+            "paddle_tpu_serving_prefix_cached_pages",
+            "KV pages currently resident in the prefix cache (shared "
+            "pages pinned by live sequences included)",
+            labels=_eng).labels(**lbl)
+        self._m_evictions = reg.counter(
+            "paddle_tpu_serving_prefix_evictions_total",
+            "Cache nodes evicted (LRU under pool pressure, or quarantine "
+            "of a suspect prefix)", labels=_eng).labels(**lbl)
+        self._m_pages.set(0)
 
     def __len__(self) -> int:
         return len(self._nodes)
@@ -629,9 +807,15 @@ class PrefixCache:
 
     def match(self, ids):
         """``(matched_tokens, page_ids, nodes)`` of the longest cached
-        prefix of ``ids``; touches LRU."""
+        prefix of ``ids``; touches LRU and counts the hit or miss."""
         path = self._walk(ids, touch=True)
-        return len(path) * self.page_size, [n.page for n in path], path
+        if not path:
+            self._m_misses.inc()
+            return 0, [], []
+        matched = len(path) * self.page_size
+        self._m_hits.inc()
+        self._m_saved.inc(matched)
+        return matched, [n.page for n in path], path
 
     def insert(self, ids, n_tokens: int, table: Sequence[int]
                ) -> List[_PrefixNode]:
@@ -655,11 +839,15 @@ class PrefixCache:
                 created.append(node)
             node.last_used = self._clock
             cur = node
+        if created:
+            self._m_pages.set(len(self._nodes))
+            self.pool._refresh_gauges()
         return created
 
-    def _detach(self, node: _PrefixNode) -> bool:
-        """Drop one childless node and the cache's page reference; True
-        when the page went back to the free list."""
+    def _detach(self, node: _PrefixNode, scrub: bool = False) -> bool:
+        """Drop one childless node and the cache's page reference
+        (scrub-marked for a quarantine); True when the page went back to
+        the free list."""
         if node.detached:
             return False
         assert not node.children, "evicting a node with children"
@@ -667,7 +855,10 @@ class PrefixCache:
         node.parent.children.pop(node.key, None)
         self._nodes.pop(id(node), None)
         self._page_arr = None
-        return self.pool._release_ref(node.page)
+        freed = self.pool._release_ref(node.page, scrub=scrub)
+        self._m_evictions.inc()
+        self._m_pages.set(len(self._nodes))
+        return freed
 
     def evict_one(self) -> bool:
         """Evict the least recently used unreferenced leaf; True when a
@@ -680,19 +871,32 @@ class PrefixCache:
                 best = n
         if best is None:
             return False
-        return self._detach(best)
+        freed = self._detach(best)
+        self.pool._refresh_gauges()
+        return freed
+
+    def evict_nodes(self, nodes: Sequence[_PrefixNode]) -> None:
+        """The quarantine's eviction: drop ``nodes`` and their subtrees,
+        so a prefix built from a poisoned request's KV never serves
+        another admission. Pages live sequences still hold stay theirs;
+        the releases are scrub-marked."""
+        for node in nodes:
+            self._evict_subtree(node, scrub=True)
+        self.pool._refresh_gauges()
 
     def clear(self) -> int:
         """Drop every node (required after a weight change); returns how
-        many."""
+        many. No scrub: stale finite bytes are masked like any retired
+        page's."""
         n = len(self._nodes)
         for child in list(self._root.children.values()):
-            self._evict_subtree(child)
+            self._evict_subtree(child, scrub=False)
+        self.pool._refresh_gauges()
         return n
 
-    def _evict_subtree(self, node: _PrefixNode) -> None:
+    def _evict_subtree(self, node: _PrefixNode, scrub: bool) -> None:
         if node.detached:
             return
         for child in list(node.children.values()):
-            self._evict_subtree(child)
-        self._detach(node)
+            self._evict_subtree(child, scrub)
+        self._detach(node, scrub=scrub)

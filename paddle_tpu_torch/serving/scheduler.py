@@ -1,8 +1,9 @@
 """Chunked-prefill scheduler: priority admission + a shared token budget.
 
 Counterpart of ``paddle_tpu/serving/scheduler.py`` (``Request``,
-``RequestOutput``, ``FCFSScheduler``), without its metrics, faults,
-deadlines and brownout caps. Three decisions per engine step:
+``RequestOutput``, ``FCFSScheduler``, ``BackpressureError``), without
+the brownout caps and the migration journal. Three decisions per engine
+step:
 
 **Admission** (:meth:`FCFSScheduler.admit`): waiting requests enter free
 batch slots in (priority, arrival) order while a slot is free and the KV
@@ -14,11 +15,19 @@ admits at once and prefills in chunks.
 **Chunking** (:meth:`FCFSScheduler.plan_chunks`): each step has a fixed
 ``token_budget``. Decode tokens are charged first, so a running stream's
 next token is never displaced by prompt work, and mid-prefill slots
-split the remainder in (priority, arrival) order.
+split the remainder in SLO order: priority, then earliest deadline,
+then arrival.
 
 **Drafts** (:meth:`FCFSScheduler.plan_drafts`): speculative draft rows
 take only what the budget leaves after decode tokens and chunks, in the
 same order.
+
+**Deadlines and backpressure**: a request's ``deadline_s`` becomes a
+:class:`~paddle_tpu_torch.faults.Deadline` running from enqueue;
+:meth:`FCFSScheduler.pop_expired` pulls the lapsed ones out of the queue
+for the engine to retire. With ``max_queue`` set, :meth:`FCFSScheduler.add`
+rejects past that depth with :class:`BackpressureError`, whose
+``retry_after_s`` comes from the engine's drain estimate.
 
 **Offload victims** (:meth:`FCFSScheduler.offload_victims`): when the
 queue head cannot admit for pages, which live streams the engine may park
@@ -30,6 +39,7 @@ it is admitted.
 from __future__ import annotations
 
 import itertools
+import math
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -37,7 +47,24 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["Request", "RequestOutput", "FCFSScheduler"]
+from .. import faults, metrics
+
+__all__ = ["BackpressureError", "Request", "RequestOutput", "FCFSScheduler"]
+
+
+class BackpressureError(RuntimeError):
+    """The scheduler queue is full: the request was rejected, not queued.
+
+    ``retry_after_s`` is the engine's drain-rate estimate of when a slot
+    is likely to open (an HTTP front door maps it onto ``429`` and
+    ``Retry-After``); ``queue_depth`` the depth that refused it."""
+
+    def __init__(self, message: str, retry_after_s: float,
+                 queue_depth: int):
+        super().__init__(message)
+        self.retry_after_s = float(retry_after_s)
+        self.queue_depth = int(queue_depth)
+
 
 _req_counter = itertools.count()
 
@@ -51,10 +78,14 @@ class Request:
     temperature: float = 0.0
     eos_token_id: Optional[int] = None
     seed: int = 0
-    # called with (req_id, token_id, finished) as each token lands;
-    # finished is False per token, and the terminal call passes token=None
-    # and the finish reason ("stop" | "length") as finished
+    # called with (req_id, token_id, finished) as each token lands, and a
+    # fourth argument, the request's token sequence number, when the
+    # callback asks for it; finished is False per token, and the terminal
+    # call passes token=None and the finish reason as finished
     stream_cb: Optional[Callable] = None
+    # seconds from enqueue until the engine retires the request (queued:
+    # "expired", admitted: "timeout"); None is no deadline
+    deadline_s: Optional[float] = None
     # lower is more urgent; honoured at admission and at chunking
     priority: int = 0
     # False opts this request out of prefix-cache matching and insertion
@@ -93,6 +124,11 @@ class Request:
                 "(use GrammarFSM.compile(pattern, tokenizer))")
         if self.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if self.deadline_s is not None and self.deadline_s < 0:
+            raise ValueError("deadline_s must be >= 0")
+        # the clock starts at enqueue, as TTFT's: queue wait burns budget
+        self.deadline = (faults.Deadline(self.deadline_s)
+                         if self.deadline_s is not None else None)
 
     @property
     def max_total_tokens(self) -> int:
@@ -106,8 +142,12 @@ class RequestOutput:
     req_id: object
     prompt_token_ids: np.ndarray
     token_ids: List[int]            # generated tokens (incl. eos if hit)
-    finish_reason: str              # "stop" (eos) | "length"
+    # "stop" (eos or a finished grammar) | "length" | "timeout" |
+    # "expired" (deadline lapsed while queued) | "cancelled" | "nan"
+    # (quarantined) | "error"
+    finish_reason: str
     n_gen: int = 0
+    error: Optional[str] = None     # the diagnostic of an "error"
 
     def __post_init__(self):
         self.n_gen = len(self.token_ids)
@@ -116,23 +156,87 @@ class RequestOutput:
 class FCFSScheduler:
     """Priority-tiered waiting queue + per-step admission + chunk planning
     (policy only: slots and pages stay with the engine and the pool).
-    Within one priority tier the order is first-come-first-served."""
+    Within one priority tier the order is first-come-first-served.
+    ``max_queue`` bounds the queue (``None``: unbounded);
+    ``retry_after_cb`` gives the backpressure hint (the engine installs
+    its drain estimate)."""
 
-    def __init__(self, max_batch_slots: int, token_budget: int = 1024):
+    def __init__(self, max_batch_slots: int, token_budget: int = 1024,
+                 max_queue: Optional[int] = None,
+                 retry_after_cb: Optional[Callable[[], float]] = None):
         if max_batch_slots < 1:
             raise ValueError("max_batch_slots must be >= 1")
+        if max_queue is not None and max_queue < 1:
+            raise ValueError("max_queue must be >= 1 (or None: unbounded)")
         if token_budget < 1:
             raise ValueError("token_budget must be >= 1")
         self.max_batch_slots = int(max_batch_slots)
         self.token_budget = int(token_budget)
+        self.max_queue = None if max_queue is None else int(max_queue)
+        self._retry_after_cb = retry_after_cb
         self.waiting: deque = deque()
+        # queued requests with a deadline: pop_expired is free without
+        self._n_deadlined = 0
+        reg = metrics.get_registry()
+        self._m_queue_wait = reg.histogram(
+            "paddle_tpu_serving_queue_wait_seconds",
+            "Time a request waits in the FCFS queue before admission")
+        self._m_rejections = reg.counter(
+            "paddle_tpu_serving_queue_rejections_total",
+            "Requests rejected at enqueue because the bounded queue was "
+            "full (BackpressureError)")
+
+    def _retry_after(self) -> float:
+        if self._retry_after_cb is not None:
+            return max(float(self._retry_after_cb()), 0.0)
+        return max(0.05, 0.1 * len(self.waiting) / self.max_batch_slots)
 
     def add(self, request: Request) -> None:
-        """Queue a request in (priority, arrival) order."""
+        """Queue a request in (priority, arrival) order, or raise
+        :class:`BackpressureError` when the bounded queue is full
+        (priority does not bypass it)."""
+        if self.max_queue is not None and len(self.waiting) >= self.max_queue:
+            self._m_rejections.inc()
+            hint = self._retry_after()
+            raise BackpressureError(
+                f"scheduler queue full ({len(self.waiting)}/{self.max_queue}"
+                f" waiting, limit: max_queue={self.max_queue}); retry in "
+                f"~{hint:.3f}s", retry_after_s=hint,
+                queue_depth=len(self.waiting))
         idx = len(self.waiting)
         while idx > 0 and self.waiting[idx - 1].priority > request.priority:
             idx -= 1
         self.waiting.insert(idx, request)
+        if request.deadline is not None:
+            self._n_deadlined += 1
+
+    def pop_expired(self) -> List[Request]:
+        """Pull every deadline-expired request out of the queue in one
+        pass; free when nothing queued carries a deadline."""
+        if self._n_deadlined == 0:
+            return []
+        expired: List[Request] = []
+        alive: deque = deque()
+        for r in self.waiting:
+            if r.deadline is not None and r.deadline.expired():
+                expired.append(r)
+            else:
+                alive.append(r)
+        self.waiting = alive
+        self._n_deadlined -= len(expired)
+        return expired
+
+    def remove(self, req_id) -> Optional[Request]:
+        """Pull a waiting request out of the queue (cancellation); None
+        if it is not queued."""
+        # by index: dataclass equality would compare prompt arrays
+        for i, r in enumerate(self.waiting):
+            if r.req_id == req_id:
+                del self.waiting[i]
+                if r.deadline is not None:
+                    self._n_deadlined -= 1
+                return r
+        return None
 
     @property
     def queue_depth(self) -> int:
@@ -158,13 +262,15 @@ class FCFSScheduler:
                                   pending_cached=pending_cached):
                 break  # head-of-line blocks: no overtaking
             self.waiting.popleft()
+            if req.deadline is not None:
+                self._n_deadlined -= 1
             admitted.append(req)
+            self._m_queue_wait.observe(time.perf_counter() - req.arrival_t)
             pending_pages += (pool.pages_needed(req.max_total_tokens)
                               - cached_pages)
             pending_cached += cached_pages
             free_slots -= 1
         return admitted
-
     @staticmethod
     def offload_victims(head: Request,
                         candidates: Sequence[Tuple[float, object, Request]]
@@ -185,12 +291,11 @@ class FCFSScheduler:
         """Slice this step's prompt work under the token budget:
         ``n_decode`` decode tokens are charged first, then mid-prefill
         slots ``[(key, remaining_prompt_tokens, request)]`` take what is
-        left in (priority, arrival) order. Returns ``[(key, chunk)]``,
+        left in SLO order (:func:`_slo_key`). Returns ``[(key, chunk)]``,
         chunks >= 1, in service order."""
         left = max(self.token_budget - int(n_decode), 0)
         plan: List[Tuple[object, int]] = []
-        order = sorted(prefills, key=lambda e: (e[2].priority,
-                                                e[2].arrival_t))
+        order = sorted(prefills, key=_slo_key)
         for key, remaining, _req in order:
             if left <= 0:
                 break
@@ -205,13 +310,13 @@ class FCFSScheduler:
                     ) -> List[Tuple[object, int]]:
         """Share the budget this step leaves after decode tokens and
         chunks (``leftover``) among speculative drafts: ``wants`` is
-        ``[(key, max_draft_tokens, request)]``, served in (priority,
-        arrival) order. Returns ``[(key, granted)]``, granted >= 1."""
+        ``[(key, max_draft_tokens, request)]``, served in SLO order.
+        Returns ``[(key, granted)]``, granted >= 1."""
         left = max(int(leftover), 0)
         plan: List[Tuple[object, int]] = []
         if left <= 0 or not wants:
             return plan
-        order = sorted(wants, key=lambda e: (e[2].priority, e[2].arrival_t))
+        order = sorted(wants, key=_slo_key)
         for key, want, _req in order:
             if left <= 0:
                 break
@@ -221,3 +326,12 @@ class FCFSScheduler:
             plan.append((key, d))
             left -= d
         return plan
+
+
+def _slo_key(entry) -> tuple:
+    """SLO order of a ``(key, n, request)`` entry: priority tier, then
+    earliest deadline (a request without one last), then arrival."""
+    req = entry[2]
+    return (req.priority,
+            req.deadline.remaining() if req.deadline is not None
+            else math.inf, req.arrival_t)

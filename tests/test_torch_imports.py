@@ -52,7 +52,13 @@ def test_importing_every_module_loads_no_jax():
         "optimizer.optimizers", "tools.profile_train", "ops.fused_adamw",
         "tools.bench_adamw", "distributed.fleet.recompute",
         "nn.functional.activation", "serving.adapters", "serving.grammar",
-        "tools.serve_tenancy")} <= walked
+        "tools.serve_tenancy", "metrics", "metrics.registry",
+        "metrics.server", "faults", "faults.injection", "faults.watchdog",
+        "faults.retry", "faults.deadline", "faults.sanitizer",
+        "faults.signals", "serving.tracing", "serving.overload",
+        "tools.serve_chaos")} <= walked
+    # the training sentinel of the JAX package is not ported
+    assert "paddle_tpu_torch.faults.sentinel" not in walked
 
 
 def _imports(path: Path):
@@ -95,6 +101,11 @@ def test_entry_points_need_a_card_unless_told_cpu(no_cuda):
     model = LlamaForCausalLM(cfg, device="cpu")
     with pytest.raises(RuntimeError):
         ServingEngine(model, page_size=4)
+    # the resilience keywords change nothing about where it runs
+    with pytest.raises(RuntimeError):
+        ServingEngine(model, page_size=4, device=None, max_queue=2,
+                      watchdog_stall_s=1.0, watchdog_recovery_steps=2,
+                      engine_id="e", model_id="m")
     engine = ServingEngine(model, page_size=4, device="cpu")
     assert engine.pool.k_pools[0].device.type == "cpu"
 
@@ -134,6 +145,24 @@ def test_llama_training_and_adamw_entry_points_need_a_card(no_cuda):
         bench_adamw.bench_adamw()
     with pytest.raises(RuntimeError):
         bench_adamw.main([])
+
+
+def test_engine_without_a_device_resolves_to_cuda(monkeypatch):
+    """``ServingEngine(device=None)`` with the resilience keywords resolves
+    to ``cuda``, as before them: on a host that reports a card, a CPU
+    model is refused for living on another device than ``cuda:0``."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = llama_tiny(vocab_size=32, hidden_size=16, num_layers=1,
+                     num_heads=2, max_position_embeddings=16)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(ValueError, match="engine on cuda:0"):
+        ServingEngine(model, page_size=4, max_queue=2, watchdog_stall_s=1.0,
+                      watchdog_recovery_steps=2, engine_id="e",
+                      model_id="m")
 
 
 def test_engine_refuses_a_model_on_another_device():
