@@ -107,11 +107,36 @@ Phases, in order; any failure exits non-zero before the result line:
    backpressure and the watchdog. Prints a line a drill and the
    registry's counts (TTFT and ITL observations, ``serving_step``
    compiles = buckets, the reason counters); K4's counts as in the serve
-   phase, summed over the drills' engines. Reference: a small f32 model
-   served on the card
-   (graphed, prefix cache, ``spec_k=2``) and on the CPU (plain path, both
-   off) gives the same token streams, one request on a LoRA adapter and
-   one under a grammar among them.
+   phase, summed over the drills' engines. Serve GPT: GPT-3 1.3B (vocab
+   50304, hidden 2048, 24 layers, 16 heads of 128, intermediate 8192,
+   ``max_position_embeddings`` 2048) with seeded random weights cast by
+   O2's rule (bf16, the LayerNorms f32; the paged step bf16 throughout,
+   as the JAX package's), bf16 pages of 16, 8 slots, budget 1024, 8
+   requests of 64-1024 prompt tokens and 64 new tokens (two at t = 0.8),
+   graphed and eagerly: equal streams, one capture a bucket, K4 in every
+   layer of every step and its plain version never; decode p50, tokens/s,
+   TTFT p50, capture seconds per bucket and peak memory printed. Serve
+   fleet (``tools/serve_fleet.py``): the JAX chaos tool's scenarios 7 and
+   9-20 on routers of Llama-0.76B engines at full width, graphed, bf16
+   pages of 16 (int8 for scenario 18): failover with requeue-once,
+   least-loaded dispatch, kills mid-decode, through a cached prefix,
+   between prompt chunks, mid speculative burst, mid constrained adapter
+   stream, with the flight recorder and with a parked stream, the
+   control-plane thread fuzz under the lock sanitizer (no reload racer),
+   the autoscaler, the brownout ladder, and the WAL-armed child process
+   SIGKILLed mid-decode and recovered on one engine fewer; plus
+   ``CompletionAPI`` routing by model between a three-engine Llama fleet
+   and the GPT engine. Every drill must pass; each prints its seconds,
+   migrations, captures and ``nvcc`` runs (0 after the build: a new
+   engine and the restarted process capture only their own buckets and
+   build nothing); the phase prints the WAL's fsyncs and ms per step,
+   recovery seconds and peak memory. K4's counts, zeroed just before and
+   read just after here and in the restart drill's children: launched,
+   replayed, the plain version never. Reference: a small f32 Llama and a
+   small f32 GPT served on the card (graphed, prefix cache,
+   ``spec_k=2``) and on the CPU (plain path, both off) give the same
+   token streams, one request on a LoRA adapter and one under a grammar
+   among them.
 6. Train: GPT-3 1.3B (vocab 50304, hidden 2048, 24 layers, 16 heads)
    through ``paddle_tpu_torch.bench`` (B 8, S 1024, O2 bf16 without
    master weights, fused cross entropy, AdamW), 8 steps (1 + 2 warm + 5
@@ -1588,22 +1613,159 @@ def phase_serve_resilience(torch, card):
     return summary
 
 
-def phase_reference(torch):
-    """A small f32 Llama (GQA) served on the card, graphed, with the
-    prefix cache and 2-token drafts, and on the CPU through the plain
-    version with both off: the same token streams. The fifth request
-    shares the first one's two full pages; the sixth runs on a LoRA
-    adapter (the same seeded weights on both) and the seventh under a
-    grammar, whose stream must validate."""
+def gpt13_serving():
+    from paddle_tpu_torch.models import gpt3_1_3b
+
+    return gpt3_1_3b(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+
+
+def phase_serve_gpt(torch, card):
+    """GPT-3 1.3B served twice on the same requests, graphed and eagerly,
+    as ``phase_serve`` serves Llama: equal streams, one capture a bucket,
+    K4 in every layer of every step and its plain version never. Returns
+    the model (the fleet phase routes to it) and the graphed record."""
+    import gc
+
     import numpy as np
 
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = gpt13_serving()
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    rng = np.random.default_rng(1)
+    lengths = rng.integers(64, 1025, 8)
+    requests = [(rng.integers(0, cfg.vocab_size, int(n)),
+                 0.8 if i in (1, 6) else 0.0, 2000 + i, 64)
+                for i, n in enumerate(lengths)]
+    runs = {}
+    for graphed in (True, False):
+        engine = ServingEngine(model, page_size=16, max_batch_slots=8,
+                               max_model_len=2048, token_budget=1024,
+                               kv_dtype=torch.bfloat16, cuda_graph=graphed,
+                               device="cuda", model_id="gpt")
+        if graphed:
+            log(f"serve gpt: GPT-3 1.3B {n_params / 1e9:.3f} B params "
+                f"({', '.join(dtypes)}: O2's rule, LayerNorms f32), vocab "
+                f"{cfg.vocab_size}, max_position_embeddings "
+                f"{cfg.max_position_embeddings}, pool "
+                f"{engine.pool.num_pages} pages, set up in "
+                f"{time.perf_counter() - t0:.1f} s")
+        outs, rec = serve_traffic(torch, engine, requests)
+        rec["card"] = card
+        log(f"serve gpt ({rec['step']}): " + json.dumps(rec))
+        check_k4_counts(f"serve gpt ({rec['step']})", engine, rec)
+        if engine.pool.used_pages != 0:
+            fail(f"serve gpt: {engine.pool.used_pages} pages in use after "
+                 "the run")
+        runs[graphed] = ([o.token_ids for o in outs], rec)
+        del engine
+    same = runs[True][0] == runs[False][0]
+    log(f"serve gpt: graphed and eager streams "
+        f"{'identical' if same else 'DIFFER'} over {len(requests)} requests")
+    if not same:
+        fail("serve gpt: the graphed step's streams differ from the eager "
+             "one's")
+    return model, runs[True][1]
+
+
+def phase_serve_fleet(torch, card, gpt_model):
+    """``tools.serve_fleet``'s drills (scenarios 7, 9-20 and the
+    multi-model one) on Llama-0.76B at full width, graphed, bf16 pages of
+    16, with ``gpt_model`` behind the completion API. K4's counts are
+    zeroed just before and read just after, in this process and in every
+    child of the restart drill (the killed one's up to its last step):
+    launched, replayed, and the plain version never."""
+    import gc
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.tools import serve_fleet
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = LlamaForCausalLM(llama_076b(), device="cuda",
+                             dtype=torch.bfloat16, seed=0)
+    fleet = serve_fleet.Fleet(model, torch.device("cuda", 0), gpt=gpt_model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nvcc0 = _build.nvcc_runs
+    pa.reset_counters()
+    t0 = time.perf_counter()
+    try:
+        records = serve_fleet.run_drills(fleet, log=log)
+    except serve_fleet.DrillFailed as e:
+        fail(f"serve fleet: {e}")
+    torch.cuda.synchronize()
+    counts = {"kernel_launches": pa.kernel_launches,
+              "captured_launches": pa.captured_launches,
+              "replayed_launches": pa.replayed_launches,
+              "plain_calls": pa.plain_calls}
+    children = records["kill-serving-process-mid-decode"]["child_counts"]
+    launches = counts["kernel_launches"] + counts["replayed_launches"]
+    for name, c in children.items():
+        if c["plain_calls"] != 0 or c["kernel_launches"] == 0 \
+                or c["replayed_launches"] == 0 or c["nvcc_runs"] != 0:
+            fail(f"serve fleet: restart child {name}: K4 counts {c}")
+        launches += c["kernel_launches"] + c["replayed_launches"]
+    if counts["plain_calls"] != 0 or counts["replayed_launches"] == 0 \
+            or counts["captured_launches"] == 0:
+        fail(f"serve fleet: K4 counts {counts}")
+    if _build.nvcc_runs != nvcc0:
+        fail("serve fleet: a kernel was built during the drills")
+    restart = records["kill-serving-process-mid-decode"]
+    summary = {
+        "card": card, "seconds": time.perf_counter() - t0,
+        "drill_seconds": {k: r["seconds"] for k, r in records.items()},
+        "migrations": sum(r["migrations"] for r in records.values()),
+        "engines": sum(r["engines"] for r in records.values()),
+        "captures": sum(r["captures"] for r in records.values()),
+        "capture_s": sum(r["capture_s"] for r in records.values()),
+        "wal_fsyncs_per_step": restart["wal_fsyncs_per_step"],
+        "wal_fsync_ms_per_step": restart["wal_fsync_ms_per_step"],
+        "recover_s": restart["recover_s"], "rto_s": restart["rto_s"],
+        "recover_captures": restart["recover_captures"],
+        "recover_nvcc_runs": restart["recover_nvcc_runs"],
+        "autoscale_new_engine_captures":
+            records["autoscale-under-burst"]["new_engine_captures"],
+        "autoscale_capture_s": records["autoscale-under-burst"]["capture_s"],
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        **counts, "child_counts": children, "launches": launches}
+    log("serve fleet summary: " + json.dumps(summary, default=str))
+    del fleet, model
+    return summary
+
+
+def phase_reference(torch):
+    """A small f32 Llama (GQA), then a small f32 GPT, each served on the
+    card, graphed, with the prefix cache and 2-token drafts, and on the
+    CPU through the plain version with both off: the same token streams.
+    The fifth request shares the first one's two full pages; the sixth
+    runs on a LoRA adapter (the same seeded weights on both) and the
+    seventh under a grammar, whose stream must validate."""
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                         gpt_tiny, llama_tiny)
+
+    reference_streams(torch, "llama", LlamaForCausalLM, llama_tiny(
+        vocab_size=256, hidden_size=256, num_layers=2, num_heads=4,
+        num_key_value_heads=2, max_position_embeddings=256))
+    reference_streams(torch, "gpt", GPTForCausalLM, gpt_tiny(
+        vocab_size=256, hidden_size=256, num_layers=2, num_heads=4,
+        max_position_embeddings=256))
+
+
+def reference_streams(torch, name, model_cls, cfg):
+    import numpy as np
+
     from paddle_tpu_torch.serving import (GrammarFSM, ServingEngine,
                                           random_adapter, toy_tokenizer)
 
-    cfg = llama_tiny(vocab_size=256, hidden_size=256, num_layers=2,
-                     num_heads=4, num_key_value_heads=2,
-                     max_position_embeddings=256)
     rng = np.random.default_rng(2)
     work = [(rng.integers(0, 256, int(n)), t, s) for n, t, s in
             ((40, 0.0, 0), (7, 0.8, 1), (130, 0.0, 2), (64, 0.8, 3))]
@@ -1617,7 +1779,7 @@ def phase_reference(torch):
     streams, stats = {}, {}
     for dev, kw in (("cuda", dict(spec_k=2)),
                     ("cpu", dict(prefix_cache=False))):
-        model = LlamaForCausalLM(cfg, device="cpu", seed=5).to(dev)
+        model = model_cls(cfg, device="cpu", seed=5).to(dev)
         eng = ServingEngine(model, page_size=16, max_batch_slots=3,
                             token_budget=48, device=dev, **kw)
         eng.register_adapter("t1", random_adapter(eng.adapters, seed=9,
@@ -1633,17 +1795,18 @@ def phase_reference(torch):
         stats[dev]["compile_counts"] = eng.compile_counts()
     same = streams["cuda"] == streams["cpu"]
     card = stats["cuda"]
-    log(f"reference: small f32 Llama, card (graphed, prefix cache, spec_k 2: "
+    log(f"reference: small f32 {name}, card (graphed, prefix cache, spec_k 2: "
         f"{json.dumps(card)}) vs CPU (plain, both off) streams "
         f"{'identical' if same else 'DIFFER'} over {len(work)} requests, one "
         f"on a LoRA adapter, one under a grammar")
     if not same or not fsm.validates(streams["cuda"][6]):
-        fail(f"streams differ, or the constrained one is invalid: {streams}")
+        fail(f"{name}: streams differ, or the constrained one is invalid: "
+             f"{streams}")
     cc = card["compile_counts"]
     if card["prefix_hit_tokens"] <= 0 or card["spec_drafted"] <= 0 \
             or cc["step"] != cc["step_buckets"]:
-        fail(f"reference: the card run took no prefix hit or no draft, or "
-             f"its compile counts differ: {card}")
+        fail(f"reference {name}: the card run took no prefix hit or no "
+             f"draft, or its compile counts differ: {card}")
 
 
 # ───────────────────────────── training ─────────────────────────────
@@ -1792,6 +1955,10 @@ def main():
     torch.cuda.empty_cache()
     resilience = phase_serve_resilience(torch, card)
     torch.cuda.empty_cache()
+    gpt_model, serve_gpt = phase_serve_gpt(torch, card)
+    fleet = phase_serve_fleet(torch, card, gpt_model)
+    del gpt_model
+    torch.cuda.empty_cache()
     phase_reference(torch)
     torch.cuda.empty_cache()
     flash_launches = phase_train(torch, card, "gpt13")
@@ -1815,7 +1982,11 @@ def main():
             for name, rec in (("serve", serve),
                               ("serve_features", features),
                               ("serve_tenancy", tenancy),
-                              ("serve_resilience", resilience))},
+                              ("serve_resilience", resilience),
+                              ("serve_gpt", serve_gpt))}
+        # every engine of the fleet phase, the restart drill's children
+        # (the killed one up to its last step) included
+        | {"serve_fleet": fleet["launches"]},
         # NaN in one slot's live K, V or scale rows, per phase-3a case:
         # non-finite on that slot's rows only (the kinds held)
         "nan_confined": {name: rec["nan_confined"]

@@ -1,11 +1,12 @@
-"""GPT for training: pre-LN decoder blocks, flash attention, tied head.
+"""GPT: pre-LN decoder blocks, flash attention, tied head.
 
-Counterpart of ``paddle_tpu/models/gpt.py``, training half: the dense
-forward with its loss (``GPTForCausalLM.forward(input_ids, labels=...)``),
-the unfused cross entropy and the fused chunked linear-cross-entropy
-branch. Module and parameter names match the JAX package
-(``gpt.layers.0.attn.qkv_proj.weight``, ...), so its ``state_dict`` loads
-here key for key (``models/convert.py``).
+Counterpart of ``paddle_tpu/models/gpt.py``: the dense forward with its
+loss (``GPTForCausalLM.forward(input_ids, labels=...)``), the unfused
+cross entropy and the fused chunked linear-cross-entropy branch; and the
+paged forward (``forward_paged``) that the serving engine's ragged step
+runs, with the paged-attention kernel K4. Module and parameter names
+match the JAX package (``gpt.layers.0.attn.qkv_proj.weight``, ...), so
+its ``state_dict`` loads here key for key (``models/convert.py``).
 
 Every op goes through the port's layers and functionals, and so through
 the amp cast rule under the JAX package's op names (``amp.py``); the
@@ -13,13 +14,30 @@ residual and embedding adds cast as its ``add``. Attention is
 ``nn.functional.flash_attention`` on q/k/v that are ``[B, S, H, D]``
 strided views of the fused QKV projection (no copy).
 
+The paged step (``forward_paged``, no ``auto_cast``) keeps the JAX
+package's dtypes. Under ``amp.decorate(level="O2")`` every parameter but
+the LayerNorms' is bf16, biases included, so the embeddings give bf16, a
+LayerNorm over bf16 gives bf16 (on its f32 weight), the fused QKV and
+its bias give a bf16 q, k and v, K4 takes the bf16 q over the pages and
+gives bf16, and the residual stream stays bf16 to the final LayerNorm;
+the tied head's logits are bf16 (the engine widens them to f32 for the
+sampler). Unlike Llama's paged step, nothing widens to f32 on the way.
+
+The paged forward takes ``adapters=`` (``serving/adapters.py``
+``AdapterRows``) at GPT's four sites, each reading its own input: one
+delta on the fused ``[T, 3H]`` QKV output, which splits with it, one on
+``out_proj`` over the merged attention output, and one each on ``fc1``
+and ``fc2``. Every delta is exactly zero on the rows of slot 0.
+
 Differences from the JAX package, by design of the port: Linear weights
 are ``[out, in]``; parameters are drawn from an explicit
 ``torch.Generator`` on the target device (Normal(0, 0.02) for
 projections and embeddings, ``0.02 / sqrt(2 * layers)`` for ``out_proj``
-and ``fc2``, zero biases, unit norms). Tensor/pipeline/sequence
-parallelism, recompute, the KV-cache and paged paths and ``generate()``
-belong to later slices.
+and ``fc2``, zero biases, unit norms); the paged step's grid is
+flattened to ``[T, H]`` (the JAX step's ``[B, 1, H]``) and the KV pools
+are written in place. The head is always tied (``tie_word_embeddings``
+is the JAX default). Tensor/pipeline/sequence parallelism, recompute,
+the KV-cache forward and ``generate()`` are not ported.
 """
 from __future__ import annotations
 
@@ -36,6 +54,8 @@ from ..generator import next_seed
 from ..nn import Embedding, LayerNorm, Linear
 from ..nn import functional as F
 from ..ops.fused_loss import fused_linear_cross_entropy
+from ..ops.paged_attention import ragged_paged_attention
+from ..quantization.observers import quantize_kv
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
            "gpt3_1_3b"]
@@ -106,6 +126,49 @@ class GPTAttention(nn.Module):
             dropout=self.attn_drop_p if self.training else 0.0)
         return self.out_proj(ctx.reshape(B, S, H))
 
+    def forward_paged(self, x, positions, block_tables, k_pool, v_pool,
+                      attention=ragged_paged_attention, k_scale=None,
+                      v_scale=None, adapters=None, layer_idx=0):
+        """Paged-KV ragged step: one query token per row of ``x`` ``[T, H]``
+        at ``positions`` ``[T]`` (int32), each with its owner's block table
+        ``[T, pages]`` (int32). The fused QKV (plus its one LoRA delta,
+        which splits with it) gives q, k and v; every row's k/v is written
+        into its page slot (in place, rounded to the page dtype; int8
+        pages quantized per slot with their scales, both or neither),
+        then ``attention`` runs each row over its pages masked at its own
+        position, which makes a chunk's rows causal over their freshly
+        written chunk-mates. Padding rows carry the null table and
+        position 0, so their writes land on page 0. Every write is an
+        ``index_put_`` at int64 indices, so the step can be captured in a
+        CUDA graph. Position embeddings were added by the trunk. Returns
+        ``[T, H]`` in q's dtype."""
+        T, H = x.shape
+        nh, hd = self.cfg.num_heads, self.head_dim
+        qkv = self.qkv_proj(x)
+        if adapters is not None:
+            qkv = adapters.apply("qkv_proj", layer_idx, x, qkv)
+        q, k, v = (t.reshape(T, nh, hd) for t in qkv.split(H, dim=-1))
+        page_size = k_pool.shape[1]
+        pos = positions.to(torch.int64)
+        rows = torch.arange(T, device=x.device)
+        page_ids = block_tables[rows, pos // page_size].to(torch.int64)
+        offs = pos % page_size
+        if k_scale is not None:
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+            k_scale[page_ids, offs] = ks
+            v_scale[page_ids, offs] = vs
+        k_pool[page_ids, offs] = k.to(k_pool.dtype)
+        v_pool[page_ids, offs] = v.to(v_pool.dtype)
+        ctx = attention(q.contiguous(), k_pool, v_pool, block_tables,
+                        positions + 1, scale=1.0 / math.sqrt(hd),
+                        k_scale=k_scale, v_scale=v_scale)
+        merged = ctx.reshape(T, H)
+        out = self.out_proj(merged)
+        if adapters is not None:
+            out = adapters.apply("out_proj", layer_idx, merged, out)
+        return out
+
 
 class GPTMLP(nn.Module):
     def __init__(self, config: GPTConfig):
@@ -115,8 +178,15 @@ class GPTMLP(nn.Module):
         self.fc2 = Linear(ff, h)
         self._gelu_approx = config.gelu_approximate
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate=self._gelu_approx))
+    def forward(self, x, adapters=None, layer_idx=0):
+        """``adapters`` (an ``AdapterRows``, paged step only) adds the
+        fc1 and fc2 deltas of layer ``layer_idx``."""
+        if adapters is None:
+            return self.fc2(F.gelu(self.fc1(x),
+                                   approximate=self._gelu_approx))
+        h = adapters.apply("fc1", layer_idx, x, self.fc1(x))
+        a = F.gelu(h, approximate=self._gelu_approx)
+        return adapters.apply("fc2", layer_idx, a, self.fc2(a))
 
 
 class GPTDecoderLayer(nn.Module):
@@ -136,6 +206,16 @@ class GPTDecoderLayer(nn.Module):
         x = _add(x, h)
         h = F.dropout(self.mlp(self.ln2(x)), self.drop_p, self.training)
         return _add(x, h)
+
+    def forward_paged(self, x, positions, block_tables, k_pool, v_pool,
+                      attention=ragged_paged_attention, k_scale=None,
+                      v_scale=None, adapters=None, layer_idx=0):
+        x = _add(x, self.attn.forward_paged(
+            self.ln1(x), positions, block_tables, k_pool, v_pool,
+            attention=attention, k_scale=k_scale, v_scale=v_scale,
+            adapters=adapters, layer_idx=layer_idx))
+        return _add(x, self.mlp(self.ln2(x), adapters=adapters,
+                                layer_idx=layer_idx))
 
 
 class GPTModel(nn.Module):
@@ -169,16 +249,40 @@ class GPTModel(nn.Module):
             x = layer(x)
         return self.ln_f(x)
 
+    def forward_paged(self, input_ids, positions, block_tables, caches,
+                      attention=ragged_paged_attention, adapters=None):
+        """Paged trunk of the serving step: ``input_ids`` ``[T]``,
+        ``positions`` ``[T]`` int32 (the learned position embedding is
+        gathered per row at its position), ``block_tables`` ``[T, pages]``
+        int32, ``caches`` a per-layer list of ``(k_pool, v_pool)``, or
+        ``(k_pool, v_pool, k_scale, v_scale)`` for int8 pages, written in
+        place; ``adapters`` an ``AdapterRows`` or None. Returns the final
+        LayerNorm's hidden states ``[T, H]``."""
+        x = _add(self.embeddings(input_ids.to(torch.int64)),
+                 self.position_embeddings(positions.to(torch.int64)))
+        for li, (layer, (kp, vp, *scales)) in enumerate(
+                zip(self.layers, caches)):
+            ks, vs = scales or (None, None)
+            x = layer.forward_paged(x, positions, block_tables, kp, vp,
+                                    attention=attention, k_scale=ks,
+                                    v_scale=vs, adapters=adapters,
+                                    layer_idx=li)
+        return self.ln_f(x)
+
 
 class GPTForCausalLM(nn.Module):
     """The LM head, tied to the input embedding. Built on ``device``
     (default ``cuda``; ``RuntimeError`` without a card unless
     ``device="cpu"``) in f32, its parameters drawn from
     ``torch.Generator(device).manual_seed(seed)``; ``seed`` defaults to
-    the next seed of the global generator (``generator.seed``)."""
+    the next seed of the global generator (``generator.seed``). With
+    ``dtype`` bf16 or fp16 they are then cast by ``amp.decorate(level=
+    "O2")``'s rule: every parameter but the LayerNorms' (which stay
+    f32)."""
 
     def __init__(self, config: GPTConfig, *, device=None,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         device = resolve_device(device)
         self.config = config
@@ -187,6 +291,10 @@ class GPTForCausalLM(nn.Module):
         self.to_empty(device=device)
         seed = next_seed() if seed is None else int(seed)
         self._init_weights(torch.Generator(device=device).manual_seed(seed))
+        if dtype in (torch.bfloat16, torch.float16):
+            amp.decorate(self, level="O2", dtype=dtype)
+        elif dtype != torch.float32:
+            raise ValueError(f"dtype {dtype}: float32, bfloat16 or float16")
 
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator) -> None:
@@ -227,3 +335,28 @@ class GPTForCausalLM(nn.Module):
         loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
                                labels.reshape(-1))
         return logits, loss
+
+    # ---------------------------------------------------- serving hooks
+    def _decode_trunk(self):
+        return self.gpt
+
+    def _cache_spec(self):
+        cfg = self.config
+        return (cfg.num_layers, cfg.num_heads,
+                cfg.hidden_size // cfg.num_heads)
+
+    def lora_sites(self):
+        """The ``AdapterStore`` contract: ordered ``(site, in_dim,
+        out_dim)`` triples and the layer count. GPT's QKV is fused, so one
+        ``qkv_proj`` site covers q, k and v with a ``[H -> 3H]`` delta."""
+        cfg = self.config
+        h, ff = cfg.hidden_size, cfg.intermediate_size
+        sites = [("qkv_proj", h, 3 * h), ("out_proj", h, h),
+                 ("fc1", h, ff), ("fc2", ff, h)]
+        return sites, cfg.num_layers
+
+    def lora_site_groups(self):
+        """No two of GPT's sites read one input (the LayerNorm's output,
+        the merged attention, the LayerNorm's output after the residual,
+        the GELU), so each is a group of its own."""
+        return ()

@@ -29,6 +29,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
+# nvcc processes this process started: the serving fleet's compile
+# contract reads it (a scaled-up engine or a restarted process builds
+# nothing the warm phase or the parent already built)
+nvcc_runs = 0
+
 
 def find_nvcc() -> str:
     """Path of ``nvcc``: on ``PATH``, else ``$CUDA_HOME/bin/nvcc``
@@ -64,6 +69,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     secs = {n: 0.0 for n in names}
     if not todo:
         return secs
+    global nvcc_runs
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -74,6 +80,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)
+        nvcc_runs += 1
     failed = []
     for n, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()

@@ -8,8 +8,13 @@ decoding (grammar.py), the per-request sampling keys (sampling.py) and
 the engine's unified ragged step, captured per token-grid bucket as a
 CUDA graph (engine.py), whose attention is the CUDA kernel of
 ``ops/paged_attention.py``; the request tracer (tracing.py) and the
-drain estimate behind backpressure (overload.py). The engine's deadlines,
-cancel, NaN quarantine, watchdog and metrics ride the same step.
+overload controller with its shed decision, brownout ladder and retry
+budget (overload.py). The engine's deadlines, cancel, NaN quarantine,
+watchdog and metrics ride the same step. Over engines of either model
+family (Llama, GPT) the control plane: the router with health gates,
+crash containment and in-flight migration (router.py), the request
+write-ahead log and its recovery (wal.py), and an OpenAI-shaped
+completion front door (api.py).
 
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
     from paddle_tpu_torch.serving import ServingEngine
@@ -21,22 +26,30 @@ cancel, NaN quarantine, watchdog and metrics ride the same step.
 """
 from .adapters import (AdapterRows, AdapterStore, grouped_lora_delta,
                        lora_delta, random_adapter)
+from .api import CompletionAPI
 from .engine import ServingEngine
 from .grammar import GrammarFSM, ToyTokenizer, schema_to_regex, toy_tokenizer
 from .kv_cache import (HostPageStore, PagedKVCachePool, PrefixCache,
-                       normalize_kv_dtype, page_bytes)
-from .overload import DrainEstimator
+                       normalize_kv_dtype, page_bytes, pages_for_hbm_budget)
+from .overload import (AdmissionShedError, DrainEstimator, OverloadConfig,
+                       OverloadController, RetryBudget)
+from .router import EngineHandle, NoHealthyEngineError, Router
 from .scheduler import (BackpressureError, FCFSScheduler, Request,
                         RequestOutput)
 from .spec import NGramDrafter
 from .tracing import (TTFT_BUCKETS, RequestTracer, attribute_ttft,
                       get_tracer, set_tracer, validate_events)
+from .wal import RequestWAL, WalRequest, WalState
 
 __all__ = ["ServingEngine", "PagedKVCachePool", "PrefixCache",
            "HostPageStore", "FCFSScheduler", "Request", "RequestOutput",
-           "NGramDrafter", "AdapterStore", "AdapterRows", "random_adapter",
-           "lora_delta", "grouped_lora_delta", "GrammarFSM", "ToyTokenizer",
-           "toy_tokenizer", "schema_to_regex", "page_bytes",
-           "normalize_kv_dtype", "BackpressureError", "DrainEstimator",
-           "RequestTracer", "TTFT_BUCKETS", "attribute_ttft", "get_tracer",
-           "set_tracer", "validate_events"]
+           "CompletionAPI", "BackpressureError", "Router", "EngineHandle",
+           "NoHealthyEngineError", "NGramDrafter", "page_bytes",
+           "pages_for_hbm_budget", "normalize_kv_dtype", "AdapterStore",
+           "AdapterRows", "random_adapter", "lora_delta",
+           "grouped_lora_delta", "GrammarFSM", "ToyTokenizer",
+           "toy_tokenizer", "schema_to_regex", "RequestTracer",
+           "TTFT_BUCKETS", "attribute_ttft", "get_tracer", "set_tracer",
+           "validate_events", "OverloadController", "OverloadConfig",
+           "DrainEstimator", "AdmissionShedError", "RetryBudget",
+           "RequestWAL", "WalRequest", "WalState"]

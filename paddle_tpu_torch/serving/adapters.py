@@ -79,10 +79,13 @@ def grouped_lora_delta(x: torch.Tensor, A_l: torch.Tensor,
 
 def _b_product(h: torch.Tensor, B_l: torch.Tensor, dtype: torch.dtype,
                base: Optional[torch.Tensor]) -> torch.Tensor:
-    """``h @ B_l`` cast to ``dtype``, or with ``base`` (the paged step's
-    f32 projection output) ``base + h @ B_l`` in one ``addmm``."""
-    if base is None:
-        return (h @ B_l).to(dtype)
+    """``h @ B_l`` cast to ``dtype``, or with ``base`` ``base + h @ B_l``:
+    in one ``addmm`` where ``base`` has the slabs' dtype (Llama's f32
+    projections), else ``base`` plus the delta cast to ``dtype`` (GPT's
+    bf16 projections under O2, as the JAX package adds them)."""
+    if base is None or base.dtype != h.dtype:
+        delta = (h @ B_l).to(dtype)
+        return delta if base is None else base + delta
     return torch.addmm(base, h, B_l)
 
 

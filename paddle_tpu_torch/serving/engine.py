@@ -1,8 +1,13 @@
 """Continuous-batching LLM inference engine over the paged KV cache.
 
-Counterpart of ``paddle_tpu/serving/engine.py`` (``ServingEngine``), its
-main path. The engine keeps a fixed grid of ``max_batch_slots`` slots;
-requests join and retire mid-decode. Each :meth:`ServingEngine.step`
+Counterpart of ``paddle_tpu/serving/engine.py`` (``ServingEngine``). It
+serves any model with the paged-trunk contract (``_decode_trunk()``
+whose ``forward_paged`` writes the pools, ``_cache_spec()``,
+``logits()``, ``lora_sites()``, ``lora_site_groups()`` and a config with
+``vocab_size``, ``num_heads`` and ``max_position_embeddings``): the
+port's ``LlamaForCausalLM`` and ``GPTForCausalLM``. The engine keeps a
+fixed grid of ``max_batch_slots`` slots; requests join and retire
+mid-decode. Each :meth:`ServingEngine.step`
 
 1. **admits** waiting requests into free slots in (priority, arrival)
    order under the pool's worst-case page accounting (scheduler.py); a
@@ -81,6 +86,28 @@ engine's: a request on one adapter can adopt pages another adapter's
 request (or a base one) wrote, though their k/v differ.
 ``stats["prefix_hit_tokens_cross_adapter"]`` counts such hits.
 
+The control plane's surface (``serving/router.py``), between steps and
+never inside one:
+
+- **Migration.** :meth:`ServingEngine.steal_queued` hands over the
+  queue; :meth:`ServingEngine.export_inflight` pops every live slot and
+  journals it (``resume_tokens``: the tokens it streamed, committed ones
+  only, since rejected drafts are rolled back before anything lands;
+  ``resume_fsm_state``; a parked slot's host pages are dropped with its
+  pages); :meth:`ServingEngine.adopt_request` queues such a journal,
+  which admits over prompt + journal, re-prefills it in chunks through
+  this engine's own step programs (its buckets, its prefix cache) and
+  streams on from seq ``len(resume_tokens)``: sampling is keyed on
+  (seed, position), so the stream is the one the dead engine would have
+  given. :meth:`ServingEngine.retire_queued` retires a request that
+  could not be placed (``"unavailable"``).
+- **Overload** (``serving/overload.py``): an attached controller gates
+  :meth:`ServingEngine.add_request` (shedding doomed work), and its
+  brownout ladder pauses drafts, caps the batch tier's prompt chunks,
+  preempts batch-tier decode slots into the queue by the migration
+  journal and holds tiers at admission. All of it is planning data: no
+  bucket and no program is added by it.
+
 Resilience and telemetry, as the JAX engine wires them:
 
 - **Faults stay with their request.** A non-finite sample row
@@ -117,6 +144,7 @@ Resilience and telemetry, as the JAX engine wires them:
 from __future__ import annotations
 
 import functools
+import gc
 import inspect
 import itertools
 import time
@@ -135,7 +163,8 @@ from . import sampling, tracing
 from .adapters import AdapterRows, AdapterStore
 from .kv_cache import PagedKVCachePool, PrefixCache
 from .overload import DrainEstimator
-from .scheduler import FCFSScheduler, Request, RequestOutput
+from .scheduler import (BackpressureError, FCFSScheduler, Request,
+                        RequestOutput)
 from .spec import NGramDrafter
 
 __all__ = ["ServingEngine"]
@@ -183,9 +212,11 @@ def _cb_accepts_seq(cb) -> bool:
 
 
 class _SeqState:
-    """One live slot. ``ids`` is the prompt, ``pos`` counts tokens of KV
-    in the pool (chunked-prefill progress and prefix hits are both a
-    cache length) and ``gen`` the tokens sampled so far. While ``pos <
+    """One live slot. ``ids`` is what it prefills (the prompt, then a
+    migrated request's journal), ``pos`` counts tokens of KV in the pool
+    (chunked-prefill progress and prefix hits are both a cache length)
+    and ``gen`` the tokens of its stream so far (seeded with the
+    journal, so seqs and ``max_new_tokens`` carry on). While ``pos <
     len(ids)`` the slot feeds its next prompt chunk; the final chunk's
     sample is the first generated token. Then it decodes: ``last_token``
     feeds back at ``pos``, with its drafts behind it. ``t_last`` is when
@@ -202,12 +233,12 @@ class _SeqState:
                  "t_admit", "inserted_nodes", "adp_slot", "fsm", "fsm_off",
                  "fsm_state", "parked")
 
-    def __init__(self, req: Request, pos: int = 0):
+    def __init__(self, req: Request, ids: np.ndarray, pos: int = 0):
         self.req = req
-        self.ids = req.prompt
+        self.ids = np.asarray(ids, np.int32).reshape(-1)
         self.pos = int(pos)
         self.last_token = -1
-        self.gen: List[int] = []
+        self.gen: List[int] = list(req.resume_tokens or ())
         self.t_last = time.perf_counter()
         self.t_admit = self.t_last
         self.inserted_nodes = []
@@ -364,8 +395,17 @@ class _StepProgram:
             eng._graph_pool = torch.cuda.graph_pool_handle()
         before = pa.captured_launches
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=eng._graph_pool):
-            out = self._body()
+        # no cyclic collection inside the capture: an engine dropped
+        # earlier (its graphs in a reference cycle) would destroy a graph
+        # mid-capture, which invalidates the capture
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=eng._graph_pool):
+                out = self._body()
+        finally:
+            if gc_was_on:
+                gc.enable()
         self.k4_calls = pa.captured_launches - before
         self.graph, self._out = graph, out
         self.capture_s = time.perf_counter() - t0
@@ -389,9 +429,10 @@ class _StepProgram:
 
 
 class ServingEngine:
-    """Continuous-batching engine for ``LlamaForCausalLM``: paged KV pool
-    + radix prefix cache + chunked-prefill scheduler + one unified ragged
-    step per iteration, captured per token-grid bucket on a card.
+    """Continuous-batching engine for a paged-trunk model (the port's
+    ``LlamaForCausalLM`` or ``GPTForCausalLM``): paged KV pool + radix
+    prefix cache + chunked-prefill scheduler + one unified ragged step
+    per iteration, captured per token-grid bucket on a card.
 
     ``device`` defaults to ``cuda`` (``RuntimeError`` without a card
     unless ``device="cpu"``); the model must already live there.
@@ -506,6 +547,9 @@ class ServingEngine:
         # backpressure hint
         self._avg_step_s = 0.05
         self._estimator = DrainEstimator()
+        # the OverloadController attached by overload.attach(); None is
+        # stock behaviour (no admission gate, no brownout action)
+        self._overload = None
         self.slots: List[Optional[_SeqState]] = [None] * self.max_batch_slots
         self._graphed = bool(cuda_graph) and self.device.type == "cuda"
         self._graph_pool = None
@@ -764,6 +808,14 @@ class ServingEngine:
                       adapter_id=adapter_id, grammar=grammar)
         self.check_request(req.prompt.size, req.max_new_tokens)
         self._check_features(req)
+        if self._overload is not None:
+            # deadline-aware admission: doomed work is shed before it
+            # queues; adopt_request (accepted work) is never gated
+            try:
+                self._overload.admission_check(self, req)
+            except BackpressureError:
+                self._reject()
+                raise
         try:
             self.scheduler.add(req)
         except Exception:
@@ -819,13 +871,11 @@ class ServingEngine:
     def load_score(self) -> float:
         """Estimated seconds to drain this engine's commitment: the steps
         its queued and live requests still need (prompt chunks under the
-        token budget, one step per remaining new token) x the step
-        EWMA."""
+        token budget, one step per remaining new token; the queue's kept
+        by the scheduler) x the step EWMA. The router dispatches onto
+        the least."""
         budget = max(self.scheduler.token_budget, 1)
-        steps = 0
-        for r in self.scheduler.waiting:
-            steps += max(-(-int(r.prompt.size) // budget), 1)
-            steps += int(r.max_new_tokens)
+        steps = self.scheduler.pending_steps
         for st in self.slots:
             if st is None:
                 continue
@@ -846,8 +896,88 @@ class ServingEngine:
         return self.take_outputs()
 
     def take_outputs(self) -> Dict[object, RequestOutput]:
+        """The outputs finished since the last call, without stepping
+        (each handed out once): the router's collection path."""
         out, self._outputs = self._outputs, {}
         return out
+
+    # ------------------------------------------------ the control plane
+    def steal_queued(self) -> List[Request]:
+        """Pull every queued (never admitted) request out and return it:
+        the router's drain and failover path. No lifecycle counter
+        moves; live slots are untouched."""
+        return self.scheduler.pop_all()
+
+    def export_inflight(self) -> List[Request]:
+        """Pop every live slot (decoding, mid-prefill or parked) and
+        return its request journaled: ``resume_tokens`` the tokens it
+        streamed here, ``resume_fsm_state`` its grammar's local state.
+        Pages are freed (host pages with them) where the pool still
+        allows it; no lifecycle counter moves. A slot popped between
+        prompt chunks journals ``[]``: its chunk progress was a cache
+        length, which the adoptive engine's prefix cache covers again.
+        Runs between steps, on the host."""
+        states: List[_SeqState] = []
+        for i, st in enumerate(self.slots):
+            if st is not None:
+                states.append(st)
+                self.slots[i] = None
+        out: List[Request] = []
+        for st in states:
+            req = self._journal(st)
+            self._trace.emit("req.export", req.req_id,
+                             arg=float(len(req.resume_tokens)),
+                             label=self.engine_id)
+            out.append(req)
+        return out
+
+    def _journal(self, st: _SeqState) -> Request:
+        """Journal a slot already taken off the grid: its pages freed
+        where the pool still allows it (a dead pool must not stop the
+        journal), ``resume_tokens`` and ``resume_fsm_state`` set on its
+        request, its grammar rows released. Returns the request."""
+        try:
+            if self.pool.has_seq(st.req.req_id):
+                self.pool.free(st.req.req_id)
+        except Exception:
+            pass
+        st.req.resume_tokens = list(st.gen)
+        if st.fsm is not None:
+            st.req.resume_fsm_state = st.fsm_state
+        self._grammar_release(st)
+        return st.req
+
+    def inflight_fsm_states(self) -> Dict[object, Optional[int]]:
+        """``{req_id: local grammar state}`` of every live slot (None when
+        unconstrained), read only: what the router's WAL group commit
+        journals beside each progress record."""
+        return {st.req.req_id: (int(st.fsm_state) if st.fsm is not None
+                                else None)
+                for st in self.slots if st is not None}
+
+    def adopt_request(self, req: Request) -> None:
+        """Queue a request taken from another engine (its id, arrival
+        time, running deadline, seed and callback ride along). A journaled
+        one admits over prompt + journal and streams on token for token.
+        Raises as :meth:`add_request` does, without the overload gate:
+        the fleet already accepted it."""
+        self.check_request(req.prompt.size, req.max_new_tokens)
+        self._check_features(req)
+        try:
+            self.scheduler.add(req)
+        except Exception:
+            self._reject()
+            raise
+        self._trace.emit("req.adopt", req.req_id,
+                         arg=float(len(req.resume_tokens or ())),
+                         label=self.engine_id)
+
+    def retire_queued(self, req: Request,
+                      reason: str = "unavailable") -> RequestOutput:
+        """Retire a request that is no longer queued here (stolen) and
+        could not be placed: its terminal callback, reason counter and
+        output, delivered once through :meth:`take_outputs`."""
+        return self._finish_queued(req, reason)
 
     def compile_counts(self) -> Dict[str, int]:
         """``step``: the step programs built (captured, on a card);
@@ -958,12 +1088,19 @@ class ServingEngine:
         try:
             faults.point("serving.step")
             finished.extend(self._sweep_deadlines())
+            if self._overload is not None:
+                # brownout level >= 3 preempts batch-tier decode slots
+                # before admission, so interactive work takes them now
+                self._brownout_enforce()
             if self._host_offload:
                 # pressure relief before admission: a parked stream's
                 # pages and tail reservation are what the queue head needs
                 self._park_for_pressure()
             free = sum(1 for s in self.slots if s is None)
-            for req in self.scheduler.admit(free, self.pool):
+            cap = (None if self._overload is None
+                   else self._overload.admit_priority_cap())
+            for req in self.scheduler.admit(free, self.pool,
+                                            max_priority=cap):
                 self._m_requests.labels(event="admitted", **self._lbl).inc()
                 try:
                     self._admit(req)
@@ -1107,9 +1244,36 @@ class ServingEngine:
         return n
 
     def _head_cached_pages(self, head: Request) -> int:
-        matched = (self.pool.prefix_match_len(head.prompt)
+        matched = (self.pool.prefix_match_len(head.admission_ids())
                    if head.prefix_cache else 0)
         return matched // self.page_size
+
+    def _brownout_enforce(self) -> None:
+        """Brownout level >= 3: preempt every live decoding slot at or
+        below the ladder's priority cut (``preempt_priority_cut``) into
+        the queue by :meth:`export_inflight`'s journal, freeing its slot
+        and pages for higher tiers. Its restoration is an ordinary
+        admission once the ladder lets its tier in again, and its stream
+        goes on token for token. A preemption that would overflow a
+        bounded queue is skipped."""
+        cut = self._overload.preempt_priority_cut()
+        if cut is None:
+            return
+        sched = self.scheduler
+        for i, st in enumerate(self.slots):
+            if (st is None or st.parked or st.prefilling
+                    or st.req.priority < cut):
+                continue
+            if (sched.max_queue is not None
+                    and len(sched.waiting) >= sched.max_queue):
+                return
+            self.slots[i] = None
+            req = self._journal(st)
+            self._trace.emit("req.preempt", req.req_id,
+                             arg=float(len(req.resume_tokens)),
+                             label=self.engine_id)
+            self._m_requests.labels(event="preempted", **self._lbl).inc()
+            sched.add(req)
 
     def _park_for_pressure(self) -> None:
         """When the queue head cannot admit for pages while a slot is
@@ -1163,17 +1327,18 @@ class ServingEngine:
         ``serving.prefill`` point, a full grammar table) leaves the pages
         to :meth:`_fail_admitted_request`."""
         faults.point("serving.prefill")
+        ids = req.admission_ids()
         cache = self.prefix_cache if req.prefix_cache else None
         matched, shared = 0, []
         if cache is not None:
-            matched, shared, _nodes = cache.match(req.prompt)
+            matched, shared, _nodes = cache.match(ids)
         self.pool.allocate(req.req_id, matched,
                            max_total_tokens=req.max_total_tokens,
                            prefix_pages=shared, prefix_tokens=matched)
         self.stats["prefix_hit_tokens"] += matched
         self.stats["prefix_hit_tokens_cross_adapter"] += self.page_size * sum(
             self._page_writer.get(p) != req.adapter_id for p in shared)
-        st = _SeqState(req, pos=matched)
+        st = _SeqState(req, ids, pos=matched)
         try:
             st.adp_slot = self.adapters.slot(req.adapter_id)
         except KeyError as e:
@@ -1184,7 +1349,9 @@ class ServingEngine:
         if req.grammar is not None:
             st.fsm_off = self._grammar_intern(req.grammar)
             st.fsm = req.grammar
-            st.fsm_state = (req.grammar.start_state
+            # a journal without its state walks the grammar over it
+            st.fsm_state = (req.grammar.advance(req.grammar.start_state,
+                                                req.resume_tokens or ())
                             if req.resume_fsm_state is None
                             else int(req.resume_fsm_state))
             self._m_grammar_req.inc()
@@ -1211,7 +1378,9 @@ class ServingEngine:
         lands at least one) and the request's reservation. A constrained
         slot keeps only the grammar-valid prefix of its proposal: a draft
         past the first violation could never equal its masked target."""
-        if self.drafter is None or not decode_idx or leftover <= 0:
+        if (self.drafter is None or not decode_idx or leftover <= 0
+                or (self._overload is not None
+                    and self._overload.drafts_paused)):
             return {}
         wants = []
         for i in decode_idx:
@@ -1280,7 +1449,12 @@ class ServingEngine:
                 prefill_info.append((i, int(st.ids.size) - st.pos, st.req))
             else:
                 decode_idx.append(i)
-        chunks = self.scheduler.plan_chunks(len(decode_idx), prefill_info)
+        # the brownout's chunk cap is planning data: no bucket changes
+        ovl = self._overload
+        chunks = self.scheduler.plan_chunks(
+            len(decode_idx), prefill_info,
+            batch_cap=None if ovl is None else ovl.chunk_cap(),
+            batch_priority=2 if ovl is None else ovl.config.batch_priority)
         for i, c in chunks:
             self._trace.emit("req.chunk_planned", self.slots[i].req.req_id,
                              arg=float(c))
@@ -1434,7 +1608,9 @@ class ServingEngine:
                     for node in st.inserted_nodes:
                         self._page_writer[node.page] = st.req.adapter_id
                 self._m_prefill.observe(now - st.t_admit)
-                self._m_ttft.observe(now - st.req.arrival_t)
+                if not st.req.resume_tokens:
+                    # a resumed stream's first token landed long ago
+                    self._m_ttft.observe(now - st.req.arrival_t)
                 out = self._land_token(st, slot=i, token=int(nxt[i, 0]),
                                        now=now)
                 if out is not None:
@@ -1573,9 +1749,11 @@ class ServingEngine:
         return out
 
     def _finish_queued(self, req: Request, reason: str) -> RequestOutput:
-        """Retire a request that never ran (expired or cancelled while
-        queued)."""
-        return self._emit_terminal(req, [], reason)
+        """Retire a request that is not running here (expired, cancelled
+        or unplaceable while queued); a journaled one delivers its
+        journal, which its stream already carried."""
+        return self._emit_terminal(req, list(req.resume_tokens or ()),
+                                   reason)
 
     def _fail_admitted_request(self, req: Request,
                                error: Exception) -> RequestOutput:
@@ -1583,7 +1761,8 @@ class ServingEngine:
         allocation took go back now."""
         if self.pool.has_seq(req.req_id):
             self.pool.free(req.req_id)
-        return self._emit_terminal(req, [], "error", error)
+        return self._emit_terminal(req, list(req.resume_tokens or ()),
+                                   "error", error)
 
     def _retire_abnormal(self, st: _SeqState, slot: int, reason: str,
                          error=None) -> RequestOutput:
@@ -1606,9 +1785,15 @@ class ServingEngine:
     def _sweep_deadlines(self) -> List[RequestOutput]:
         """Retire every request past its deadline, at the top of each
         step: still queued ``"expired"`` (pages never allocated),
-        admitted ``"timeout"`` with the tokens so far."""
+        admitted ``"timeout"`` with the tokens so far. A queued request
+        with a journal (migrated or preempted: the fleet did run it)
+        retires ``"timeout"``, so ``"expired"`` counts untouched work
+        only."""
         finished: List[RequestOutput] = []
         for req in self.scheduler.pop_expired():
+            if req.resume_tokens is not None:
+                finished.append(self._finish_queued(req, "timeout"))
+                continue
             self._trace.emit("req.expire", req.req_id, label=self.engine_id)
             finished.append(self._finish_queued(req, "expired"))
         for i, st in enumerate(self.slots):

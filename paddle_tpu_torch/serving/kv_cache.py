@@ -118,6 +118,16 @@ def page_bytes(page_size: int, n_kv_heads: int, head_dim: int,
             * (head_dim * itemsize + scale_bytes))
 
 
+def pages_for_hbm_budget(hbm_bytes: int, page_size: int, n_kv_heads: int,
+                         head_dim: int, num_layers: int,
+                         kv_dtype=torch.float32) -> int:
+    """Pool sizing: how many pages of ``kv_dtype`` fit ``hbm_bytes`` of
+    device memory (the caller budgets weights and activations apart)."""
+    per = page_bytes(page_size, n_kv_heads, head_dim, num_layers,
+                     kv_dtype=kv_dtype)
+    return max(int(hbm_bytes) // per, 0)
+
+
 class HostPageStore:
     """The host page tier: per parked sequence, the block-table indices of
     its offloaded pages (ascending) and their bytes, one host tensor

@@ -1,9 +1,8 @@
 """Chunked-prefill scheduler: priority admission + a shared token budget.
 
 Counterpart of ``paddle_tpu/serving/scheduler.py`` (``Request``,
-``RequestOutput``, ``FCFSScheduler``, ``BackpressureError``), without
-the brownout caps and the migration journal. Three decisions per engine
-step:
+``RequestOutput``, ``FCFSScheduler``, ``BackpressureError``). Three
+decisions per engine step:
 
 **Admission** (:meth:`FCFSScheduler.admit`): waiting requests enter free
 batch slots in (priority, arrival) order while a slot is free and the KV
@@ -28,6 +27,17 @@ same order.
 for the engine to retire. With ``max_queue`` set, :meth:`FCFSScheduler.add`
 rejects past that depth with :class:`BackpressureError`, whose
 ``retry_after_s`` comes from the engine's drain estimate.
+
+**Migration journal**: a request moved off another engine (or preempted
+by the brownout ladder) carries ``resume_tokens``, the tokens it already
+streamed, and ``resume_fsm_state``; it admits over prompt + journal
+(:meth:`Request.admission_ids`) and its charges count the journal
+(``prefill_tokens``, ``remaining_new_tokens``). ``wal_admission`` is its
+durable record (``serving/wal.py``).
+
+**Brownout caps** (``serving/overload.py``): ``admit(max_priority=)``
+holds tiers above the cap queued; ``plan_chunks(batch_cap=)`` trickles
+the batch tier's prompt chunks.
 
 **Offload victims** (:meth:`FCFSScheduler.offload_victims`): when the
 queue head cannot admit for pages, which live streams the engine may park
@@ -88,6 +98,12 @@ class Request:
     deadline_s: Optional[float] = None
     # lower is more urgent; honoured at admission and at chunking
     priority: int = 0
+    # the migration journal: tokens this request already streamed on an
+    # engine that died (or that the brownout ladder preempted it from);
+    # the adopting engine re-prefills prompt + journal and streams on
+    # from seq len(resume_tokens). [] (moved between prompt chunks) is a
+    # journal too: only None means "never admitted"
+    resume_tokens: Optional[List[int]] = None
     # False opts this request out of prefix-cache matching and insertion
     # (under the engine's prefix_cache= flag)
     prefix_cache: bool = True
@@ -134,6 +150,57 @@ class Request:
     def max_total_tokens(self) -> int:
         return int(self.prompt.size) + int(self.max_new_tokens)
 
+    @property
+    def prefill_tokens(self) -> int:
+        """Tokens the admitting engine prefills: the prompt and the
+        journal."""
+        return int(self.prompt.size) + len(self.resume_tokens or ())
+
+    def admission_ids(self) -> np.ndarray:
+        """The ids an admitting engine prefills (and the prefix cache is
+        matched against): the prompt, then the journal."""
+        if not self.resume_tokens:
+            return self.prompt
+        return np.concatenate(
+            [self.prompt, np.asarray(self.resume_tokens, np.int32)])
+
+    @property
+    def remaining_new_tokens(self) -> int:
+        """Decode tokens still owed: ``max_new_tokens`` less the
+        journal."""
+        return max(int(self.max_new_tokens)
+                   - len(self.resume_tokens or ()), 0)
+
+    def wal_admission(self, wal_id: int, model: Optional[str] = None,
+                      walltime: Optional[float] = None,
+                      resume_from: Optional[int] = None) -> dict:
+        """The JSON-able WAL admission record (``serving/wal.py``), the
+        JAX package's field for field: what a restarted process needs to
+        rebuild this request exactly (sampling and SLO identity, the
+        adapter name, the grammar's spec key, the prefix-cache opt-out)
+        and the journal carried so far; ``resume_from`` names the
+        incarnation a recovery re-admission supersedes."""
+        return {
+            "id": int(wal_id), "model": model,
+            "prompt": [int(t) for t in self.prompt],
+            "max_new_tokens": int(self.max_new_tokens),
+            "temperature": float(self.temperature),
+            "eos": (None if self.eos_token_id is None
+                    else int(self.eos_token_id)),
+            "seed": int(self.seed), "priority": int(self.priority),
+            "deadline_s": (None if self.deadline_s is None
+                           else float(self.deadline_s)),
+            "t": time.time() if walltime is None else float(walltime),
+            "adapter_id": self.adapter_id,
+            "grammar": (list(self.grammar.key)
+                        if self.grammar is not None else None),
+            "prefix_cache": bool(self.prefix_cache),
+            "resume_from": resume_from,
+            "tokens": [int(t) for t in (self.resume_tokens or ())],
+            "fsm": (None if self.resume_fsm_state is None
+                    else int(self.resume_fsm_state)),
+        }
+
 
 @dataclass
 class RequestOutput:
@@ -144,7 +211,8 @@ class RequestOutput:
     token_ids: List[int]            # generated tokens (incl. eos if hit)
     # "stop" (eos or a finished grammar) | "length" | "timeout" |
     # "expired" (deadline lapsed while queued) | "cancelled" | "nan"
-    # (quarantined) | "error"
+    # (quarantined) | "error" | "unavailable" (the router could not place
+    # it)
     finish_reason: str
     n_gen: int = 0
     error: Optional[str] = None     # the diagnostic of an "error"
@@ -177,6 +245,9 @@ class FCFSScheduler:
         self.waiting: deque = deque()
         # queued requests with a deadline: pop_expired is free without
         self._n_deadlined = 0
+        # engine steps the queue holds (prompt chunks + decode tokens),
+        # kept at every queue change: the queue half of load_score
+        self._pending_steps = 0
         reg = metrics.get_registry()
         self._m_queue_wait = reg.histogram(
             "paddle_tpu_serving_queue_wait_seconds",
@@ -190,6 +261,12 @@ class FCFSScheduler:
         if self._retry_after_cb is not None:
             return max(float(self._retry_after_cb()), 0.0)
         return max(0.05, 0.1 * len(self.waiting) / self.max_batch_slots)
+
+    def _step_charge(self, request: Request) -> int:
+        """Engine steps a request takes end to end: its prompt chunks
+        under the token budget, and a decode step a remaining token."""
+        chunks = -(-request.prefill_tokens // self.token_budget)
+        return max(chunks, 1) + request.remaining_new_tokens
 
     def add(self, request: Request) -> None:
         """Queue a request in (priority, arrival) order, or raise
@@ -207,6 +284,7 @@ class FCFSScheduler:
         while idx > 0 and self.waiting[idx - 1].priority > request.priority:
             idx -= 1
         self.waiting.insert(idx, request)
+        self._pending_steps += self._step_charge(request)
         if request.deadline is not None:
             self._n_deadlined += 1
 
@@ -224,7 +302,18 @@ class FCFSScheduler:
                 alive.append(r)
         self.waiting = alive
         self._n_deadlined -= len(expired)
+        for r in expired:
+            self._pending_steps -= self._step_charge(r)
         return expired
+
+    def pop_all(self) -> List[Request]:
+        """Empty the queue in its order and return the requests (the
+        router's drain and failover path)."""
+        out = list(self.waiting)
+        self.waiting = deque()
+        self._n_deadlined = 0
+        self._pending_steps = 0
+        return out
 
     def remove(self, req_id) -> Optional[Request]:
         """Pull a waiting request out of the queue (cancellation); None
@@ -233,6 +322,7 @@ class FCFSScheduler:
         for i, r in enumerate(self.waiting):
             if r.req_id == req_id:
                 del self.waiting[i]
+                self._pending_steps -= self._step_charge(r)
                 if r.deadline is not None:
                     self._n_deadlined -= 1
                 return r
@@ -242,19 +332,30 @@ class FCFSScheduler:
     def queue_depth(self) -> int:
         return len(self.waiting)
 
-    def admit(self, free_slots: int, pool) -> List[Request]:
+    @property
+    def pending_steps(self) -> int:
+        """Engine steps queued here (prompt chunks and decode tokens)."""
+        return self._pending_steps
+
+    def admit(self, free_slots: int, pool,
+              max_priority: Optional[int] = None) -> List[Request]:
         """Pop the (priority, arrival)-ordered prefix that fits this step:
         free slots and worst-case page reservations, charging the pages
         of requests admitted earlier in the same call. Pages the prefix
-        cache holds for a prompt join its table by refcount, so they are
-        discounted, and taken off the reclaimable side for later
-        batch-mates."""
+        cache holds for a request's admission ids join its table by
+        refcount, so they are discounted, and taken off the reclaimable
+        side for later batch-mates. ``max_priority`` is the brownout
+        ladder's hold: a head above it stays queued, and so does
+        everything behind it. A journaled request's queue wait is not
+        observed again."""
         admitted: List[Request] = []
         pending_pages = 0
         pending_cached = 0
         while self.waiting and free_slots > 0:
             req = self.waiting[0]
-            matched = (pool.prefix_match_len(req.prompt)
+            if max_priority is not None and req.priority > max_priority:
+                break  # brownout hold
+            matched = (pool.prefix_match_len(req.admission_ids())
                        if req.prefix_cache else 0)
             cached_pages = matched // pool.page_size
             if not pool.can_admit(req.max_total_tokens, pending_pages,
@@ -262,10 +363,13 @@ class FCFSScheduler:
                                   pending_cached=pending_cached):
                 break  # head-of-line blocks: no overtaking
             self.waiting.popleft()
+            self._pending_steps -= self._step_charge(req)
             if req.deadline is not None:
                 self._n_deadlined -= 1
             admitted.append(req)
-            self._m_queue_wait.observe(time.perf_counter() - req.arrival_t)
+            if req.resume_tokens is None:
+                self._m_queue_wait.observe(
+                    time.perf_counter() - req.arrival_t)
             pending_pages += (pool.pages_needed(req.max_total_tokens)
                               - cached_pages)
             pending_cached += cached_pages
@@ -286,20 +390,26 @@ class FCFSScheduler:
         return [c[1] for c in eligible]
 
     def plan_chunks(self, n_decode: int,
-                    prefills: Sequence[Tuple[object, int, Request]]
+                    prefills: Sequence[Tuple[object, int, Request]],
+                    batch_cap: Optional[int] = None,
+                    batch_priority: int = 2
                     ) -> List[Tuple[object, int]]:
         """Slice this step's prompt work under the token budget:
         ``n_decode`` decode tokens are charged first, then mid-prefill
         slots ``[(key, remaining_prompt_tokens, request)]`` take what is
-        left in SLO order (:func:`_slo_key`). Returns ``[(key, chunk)]``,
-        chunks >= 1, in service order."""
+        left in SLO order (:func:`_slo_key`). ``batch_cap`` (the brownout
+        ``chunks-capped`` action) caps the chunk of a request at priority
+        >= ``batch_priority``. Returns ``[(key, chunk)]``, chunks >= 1, in
+        service order."""
         left = max(self.token_budget - int(n_decode), 0)
         plan: List[Tuple[object, int]] = []
         order = sorted(prefills, key=_slo_key)
-        for key, remaining, _req in order:
+        for key, remaining, req in order:
             if left <= 0:
                 break
             chunk = min(int(remaining), left)
+            if batch_cap is not None and req.priority >= batch_priority:
+                chunk = min(chunk, int(batch_cap))
             if chunk > 0:
                 plan.append((key, chunk))
                 left -= chunk

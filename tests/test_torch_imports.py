@@ -56,7 +56,10 @@ def test_importing_every_module_loads_no_jax():
         "metrics.server", "faults", "faults.injection", "faults.watchdog",
         "faults.retry", "faults.deadline", "faults.sanitizer",
         "faults.signals", "serving.tracing", "serving.overload",
-        "tools.serve_chaos")} <= walked
+        "tools.serve_chaos", "serving.router", "serving.wal",
+        "serving.api", "loadgen", "loadgen.trace", "loadgen.driver",
+        "loadgen.autoscaler", "loadgen.chaos", "loadgen.restart",
+        "tools.serve_fleet")} <= walked
     # the training sentinel of the JAX package is not ported
     assert "paddle_tpu_torch.faults.sentinel" not in walked
 
@@ -194,3 +197,41 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build(["fused_adamw"])
     assert not (tmp_path / "build").exists()
+
+
+def test_router_and_gpt_engine_need_a_card_unless_told_cpu(no_cuda):
+    """``Router.add_model`` builds its engines where ``ServingEngine``
+    would: ``cuda`` unless the caller asks for the CPU; so does an engine
+    over a GPT."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
+    from paddle_tpu_torch.serving import Router, ServingEngine
+
+    gpt = GPTForCausalLM(gpt_tiny(num_layers=1, vocab_size=64,
+                                  max_position_embeddings=32), device="cpu")
+    with pytest.raises(RuntimeError):
+        ServingEngine(gpt, page_size=4)
+    r = Router()
+    with pytest.raises(RuntimeError):
+        r.add_model("g", gpt, page_size=4)
+    assert r.models == []
+    assert r.add_model("g", gpt, page_size=4, device="cpu") == ["g/0"]
+    assert r.engine("g/0").pool.k_pools[0].device.type == "cpu"
+    with pytest.raises(RuntimeError):
+        r.add_engine("g", device=None)
+
+
+def test_restart_child_and_fleet_tool_need_a_card(no_cuda, tmp_path):
+    """The restart drill's child runs on ``cuda`` unless told ``--device
+    cpu``; the fleet tool runs on nothing else."""
+    from paddle_tpu_torch.loadgen import restart
+    from paddle_tpu_torch.tools import serve_fleet
+
+    args = ["--wal-dir", str(tmp_path / "w"), "--chunks",
+            str(tmp_path / "c"), "--manifest", str(tmp_path / "m")]
+    with pytest.raises(RuntimeError):
+        restart._main(args)
+    with pytest.raises(RuntimeError):
+        restart.build_model()
+    assert restart.build_model("cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError):
+        serve_fleet.main([])
