@@ -158,9 +158,28 @@ Phases, in order; any failure exits non-zero before the result line:
 10. Train check: a small f32 Llama with GQA (2 layers, hidden 256, 4
    heads of 64 over 2 KV heads, S 512, recompute on) takes three AdamW
    steps on the card and on the CPU: the losses and parameters agree.
+11. Facade (the Paddle eager core, ``import paddle_tpu_torch as
+   paddle``): (a) every ``tests/op_registry.py`` case
+   (``paddle_tpu_torch/tools/op_cases.py``, 233 specs over their dtypes,
+   and the 119 grad specs' grads) on ``cuda`` against the CPU from the
+   same numpy inputs, at the case's tolerance with equal dtypes; (b)
+   GPT-3 1.3B's attention written in facade ops (B 8, S 1024, 16 heads
+   of 128, bf16: ``paddle.matmul`` of an activation by a ``Parameter``,
+   ``reshape``, ``split``, ``F.scaled_dot_product_attention(is_causal=
+   True)``, ``paddle.mean``, ``loss.backward()``): K1, K2, K3 once each,
+   plain versions never, the output and the grads of q, k, v held
+   against the plain versions at ``FLASH_TOL``; ``paddle.grad(
+   create_graph=True)`` on the card against the analytic second
+   derivative; the facade's host cost per op (10,000 small
+   ``paddle.add``/``paddle.matmul`` against the bare torch calls); (c)
+   the root ``bench.py``'s gpt13 step verbatim through the facade
+   (``bench.facade_step``), 8 steps: 24 launches a step of each flash
+   kernel, plain versions never, every loss finite and compared with
+   phase 6's, then one more torch step and facade step in turns.
 
-The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}.
+The last two lines are the kernels' JSON record (K1-K3 with their
+launches by path: ``train_gpt13``, ``train_llama``, ``facade_attention``,
+``facade_train``) and {"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -1841,7 +1860,7 @@ def phase_train(torch, card, model):
         fail(f"train {model}: flash launches {launches} != {want} "
              f"({cfg.num_layers} layers x {steps} steps), or plain calls "
              f"{plain} != 0")
-    return launches
+    return launches, summary
 
 
 def phase_train_reference(torch, model):
@@ -1931,6 +1950,311 @@ def phase_adamw_path(torch):
     return launches
 
 
+# ───────────────────────────── facade ─────────────────────────────
+
+
+def _flat(out):
+    if isinstance(out, (list, tuple)):
+        return [o for x in out for o in _flat(x)]
+    return [out]
+
+
+def _as_np(paddle, o):
+    """(dtype name, numpy value) of an op's output."""
+    import numpy as np
+
+    if isinstance(o, paddle.Tensor):
+        return paddle.dtypes.dtype_name(o.dtype), o.numpy()
+    return type(o).__name__, np.asarray(o)
+
+
+def case_run(paddle, case, dt, device, grad=False):
+    """One op case on ``device``: its outputs as (dtype, array) pairs,
+    or with ``grad`` the gradients of the sum of its outputs with respect
+    to its f32 inputs."""
+    paddle.set_device(device)
+    inputs = case.make("float32" if grad else dt)
+    ts = [paddle.to_tensor(x, stop_gradient=not grad) for x in inputs]
+    outs = _flat(case.call(paddle, *ts))
+    if not grad:
+        return [_as_np(paddle, o) for o in outs]
+    loss = None
+    for o in outs:
+        s = o.sum() if o.ndim > 0 else o
+        loss = s if loss is None else loss + s
+    loss.backward()
+    return [("float32", t.grad.numpy()) for t in ts]
+
+
+def facade_ops(torch, paddle):
+    """(a) Every registry case of the op library (``tools/op_cases``) on
+    ``cuda`` and on the CPU from the same numpy inputs: outputs at the
+    case's tolerance with equal dtypes, and the grad cases' grads at
+    1e-4. Returns the number of cases and seconds."""
+    import numpy as np
+
+    from paddle_tpu_torch.tools.op_cases import CASES, tol
+
+    t0 = time.perf_counter()
+    runs, bad = 0, []
+    for name, case in sorted(CASES.items()):
+        checks = [(dt, False, tol(case, dt)) for dt in case.dtypes]
+        if case.grad:
+            checks.append(("float32", True, 1e-4))
+        for dt, grad, t in checks:
+            runs += 1
+            try:
+                got = case_run(paddle, case, dt, "cuda", grad)
+                want = case_run(paddle, case, dt, "cpu", grad)
+            except Exception as e:  # noqa: BLE001 - reported, then fail
+                bad.append(f"{name}[{dt}{' grad' if grad else ''}]: "
+                           f"{type(e).__name__}: {e}")
+                continue
+            what = f"{name}[{dt}{' grad' if grad else ''}]"
+            if len(got) != len(want):
+                bad.append(f"{what}: {len(got)} outputs vs {len(want)}")
+                continue
+            for i, ((gd, g), (wd, w)) in enumerate(zip(got, want)):
+                if gd != wd or g.shape != w.shape or not np.allclose(
+                        g, w, atol=t, rtol=t, equal_nan=True):
+                    bad.append(f"{what} output {i}: cuda {gd}{g.shape} vs "
+                               f"cpu {wd}{w.shape}, max err "
+                               f"{np.max(np.abs(g - w)) if g.shape == w.shape and g.size else 'n/a'}")
+    paddle.set_device(None)
+    secs = time.perf_counter() - t0
+    log(f"facade ops: {len(CASES)} registry cases, {runs} runs (dtypes and "
+        f"grads) on cuda against the CPU in {secs:.1f} s: "
+        + ("ok" if not bad else f"{len(bad)} MISMATCH"))
+    for b in bad:
+        log(f"  {b}")
+    if bad:
+        fail(f"facade ops: {len(bad)} case(s) differ between cuda and CPU")
+    return {"cases": len(CASES), "runs": runs, "seconds": secs}
+
+
+def facade_attention(torch, paddle):
+    """(b) GPT-3 1.3B's attention written in facade ops (B 8, S 1024, 16
+    heads of 128, bf16): QKV = ``paddle.matmul`` of an activation by a
+    ``Parameter``, ``paddle.reshape`` and ``paddle.split`` into strided
+    q, k, v, then ``F.scaled_dot_product_attention(is_causal=True)``, a
+    ``paddle.mean`` loss and ``loss.backward()``. K1, K2 and K3 must
+    launch once each and the plain versions never; the output and the
+    grads of q, k and v are held against the plain flash versions on the
+    same inputs at ``FLASH_TOL``."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = 8, 1024, 16, 128
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = paddle.Tensor(torch.randn((B, S, H * D), generator=gen,
+                                  device="cuda").to(torch.bfloat16),
+                      stop_gradient=False)
+    w = paddle.Parameter((torch.randn((H * D, 3 * H * D), generator=gen,
+                                      device="cuda") * 0.02).to(
+                                          torch.bfloat16))
+    grads = {}
+    fa.reset_counters()
+    qkv = paddle.reshape(paddle.matmul(x, w), [B, S, 3 * H, D])
+    q, k, v = paddle.split(qkv, 3, axis=2)
+    for label, t in (("dq", q), ("dk", k), ("dv", v)):
+        t.register_hook(lambda g, label=label: grads.__setitem__(label, g))
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    out.register_hook(lambda g: grads.__setitem__("do", g))
+    loss = paddle.mean(out)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches, plain = dict(fa.kernel_launches), dict(fa.plain_calls)
+    want = flash_plain(fa, q._value.detach(), k._value.detach(),
+                       v._value.detach(), grads["do"]._value, True, D ** -0.5,
+                       0.0, 0, None)
+    tol = FLASH_TOL["bf16"]
+    res = {}
+    for label, got, ref in (("o", out._value.detach(), want[0]),
+                            ("dq", grads["dq"]._value, want[2]),
+                            ("dk", grads["dk"]._value, want[3]),
+                            ("dv", grads["dv"]._value, want[4])):
+        res[label] = held(torch, got, ref, tol)
+    ok = all(r[0] for r in res.values())
+    log(f"facade attention: B={B} S={S} H={H} D={D} bf16, strided q/k/v "
+        f"from paddle.matmul/reshape/split, loss {float(loss):.6e}; "
+        f"launches {launches}, plain {plain}; vs plain flash: "
+        + " ".join(f"{n} max {m:.2e} rel {r:.2e}" for n, (_ok, m, r)
+                   in res.items())
+        + f" (atol {tol[0]:g}, rtol {tol[1]:g}, rel {tol[2]:g}) "
+        + ("ok" if ok else "MISMATCH"))
+    if launches != dict.fromkeys(fa.KERNELS, 1) or any(plain.values()):
+        fail(f"facade attention: flash launches {launches} != 1 each, or "
+             f"plain calls {plain} != 0")
+    if not ok or x.grad is None or w.grad is None:
+        fail("facade attention: a kernel's output or grad disagrees with "
+             "the plain version, or x/W got no grad")
+    return launches
+
+
+def facade_double_grad(torch, paddle):
+    """``paddle.grad(create_graph=True)`` on the card through an
+    elementwise and matmul chain, f64: u = x W, y = sum(u^3), g = dy/dx =
+    3 u^2 W^T, and d sum(g)/dx = 6 (u * colsum(W)) W^T, analytically."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    xv = torch.randn((64, 48), generator=gen, device="cuda",
+                     dtype=torch.float64)
+    wv = torch.randn((48, 32), generator=gen, device="cuda",
+                     dtype=torch.float64)
+    x = paddle.Tensor(xv, stop_gradient=False)
+    w = paddle.Tensor(wv, stop_gradient=False)
+    y = paddle.sum(paddle.pow(paddle.matmul(x, w), 3))
+    (g,) = paddle.grad(y, [x], create_graph=True)
+    (h,) = paddle.grad(paddle.sum(g), [x])
+    u = xv @ wv
+    g_want = 3 * (u * u) @ wv.T
+    h_want = 6 * (u * wv.sum(0)[None, :]) @ wv.T
+    gv, hv = g._value.detach(), h._value
+    err = max(float((gv - g_want).abs().max() / g_want.abs().max()),
+              float((hv - h_want).abs().max() / h_want.abs().max()))
+    log(f"facade double grad: cuda f64, first and second derivative vs "
+        f"analytic, max rel err {err:.2e} (limit 1e-12) "
+        + ("ok" if err <= 1e-12 else "MISMATCH"))
+    if err > 1e-12 or g.stop_gradient:
+        fail("facade double grad disagrees with the analytic derivative")
+
+
+def facade_host_cost(torch, paddle):
+    """The facade's host cost per op: 10,000 calls each of a small
+    ``paddle.add`` and ``paddle.matmul`` on ``cuda`` against the bare
+    torch call, wall clock, one synchronisation at the end."""
+    paddle.set_device("cuda")
+    a = paddle.ones([16, 16])
+    paddle.set_device(None)
+    av = a._value
+    out = {}
+    for name, fac, bare in (
+            ("add", lambda: paddle.add(a, a), lambda: torch.add(av, av)),
+            ("matmul", lambda: paddle.matmul(a, a),
+             lambda: torch.matmul(av, av))):
+        times = {}
+        for label, fn in (("bare", bare), ("facade", fac), ("bare", bare),
+                          ("facade", fac)):
+            for _ in range(100):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10_000):
+                fn()
+            torch.cuda.synchronize()
+            us = (time.perf_counter() - t0) / 10_000 * 1e6
+            times[label] = min(times.get(label, us), us)
+        out[name] = dict(bare_us=times["bare"], facade_us=times["facade"],
+                         overhead_us=times["facade"] - times["bare"])
+    log("facade host cost (10,000 calls, 16x16 f32 on cuda, best of two "
+        "rounds): " + ", ".join(
+            f"{n} {r['facade_us']:.2f} us vs torch {r['bare_us']:.2f} us "
+            f"(+{r['overhead_us']:.2f})" for n, r in out.items()))
+    return out
+
+
+def facade_train(torch, card, gpt13):
+    """(c) The root bench.py's gpt13 step verbatim through the facade
+    (``bench.facade_step``: GPT-3 1.3B, B 8, S 1024, O2 bf16 without
+    master weights, fused CE, AdamW 1e-4, ``paddle.seed(0)``,
+    ``paddle.to_tensor`` ids from numpy seed 0, ``loss.backward()``,
+    ``opt.step()``, ``opt.clear_grad()``, ``loss.numpy()``), 8 steps (1
+    + 2 warm + 5 timed). K1-K3 must launch 24 times a step each and the
+    plain versions never; every loss finite, compared with phase ``train
+    gpt13``'s (the same weights and ids through torch tensors)."""
+    import numpy as np
+
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg, B, S, _ = bench.gpt13_setup(False)
+    step, args, model, opt = bench.facade_step(cfg, B, S)
+    kept = []
+
+    def run(*a):
+        kept[:] = [step(*a)]
+        return kept[0]
+
+    fa.reset_counters()
+    dt, first_s, losses = bench.time_steps(run, args, 5, 1,
+                                           torch.device("cuda"))
+    launches, plain = dict(fa.kernel_launches), dict(fa.plain_calls)
+    # the bench's own read of the loss (bench.py:413)
+    last = float(np.asarray(kept[0].numpy(), dtype="float32"))
+    steps = len(losses)
+    ref = gpt13["losses"]
+    same = losses == ref[:steps]
+    err = max(abs(a - b) for a, b in zip(losses, ref))
+    rec = {"step_ms": 1000 * dt, "first_step_s": first_s, "losses": losses,
+           "loss_numpy": last, "train_gpt13_step_ms": gpt13["step_ms"],
+           "train_gpt13_losses": ref[:steps], "bit_for_bit": same,
+           "max_loss_diff": err, "kernel_launches": launches,
+           "plain_calls": plain, "card": card}
+    log("facade train gpt13: " + json.dumps(rec))
+    log(f"facade train: step {1000 * dt:.1f} ms vs train gpt13 "
+        f"{gpt13['step_ms']} ms; losses "
+        + ("equal bit for bit" if same else f"differ, max {err:.3e}"))
+    if not all(math.isfinite(x) for x in losses) or last != losses[-1]:
+        fail(f"facade train: a loss is not finite, or loss.numpy() "
+             f"{last} is not the last loss: {losses}")
+    want = {n: cfg.num_layers * steps for n in fa.KERNELS}
+    if launches != want or any(plain.values()):
+        fail(f"facade train: flash launches {launches} != {want}, or plain "
+             f"calls {plain} != 0")
+    del step, args, model, opt, kept
+    torch.cuda.empty_cache()
+    rec["alternate_ms"] = facade_train_turns(torch, cfg, B, S)
+    return launches, rec
+
+
+def facade_train_turns(torch, cfg, B, S):
+    """The step ms of the bench's torch step and of the facade step once
+    more each, in turns after (c) (facade, torch, facade, with phase
+    ``train gpt13`` before them all): 1 + 2 warm + 5 timed steps each,
+    one synchronisation a block, so the order's effect can be read."""
+    import numpy as np
+
+    from paddle_tpu_torch import bench
+
+    out = []
+    for kind in ("torch", "facade"):
+        if kind == "torch":
+            model, opt = bench.build(cfg, torch.device("cuda"), False)
+            step = bench.make_train_fn(model, opt)
+            rng = np.random.default_rng(0)
+            ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                (B, S))).to("cuda")
+            args = (ids, ids.roll(-1, 1))
+        else:
+            step, args, model, opt = bench.facade_step(cfg, B, S)
+        dt, _, _ = bench.time_steps(step, args, 5, 1, torch.device("cuda"))
+        out.append((kind, 1000 * dt))
+        del step, args, model, opt
+        torch.cuda.empty_cache()
+    log("facade train turns: " + ", ".join(f"{k} {ms:.1f} ms"
+                                             for k, ms in out))
+    return out
+
+
+def phase_facade(torch, card, gpt13):
+    """The eager core on the card: (a) the op library against the CPU,
+    (b) full-width attention in facade ops, the double grad, the host
+    cost per op, (c) the bench step through the facade."""
+    import paddle_tpu_torch as paddle
+
+    t0 = time.perf_counter()
+    ops = facade_ops(torch, paddle)
+    attention = facade_attention(torch, paddle)
+    torch.cuda.empty_cache()
+    facade_double_grad(torch, paddle)
+    cost = facade_host_cost(torch, paddle)
+    train, rec = facade_train(torch, card, gpt13)
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"facade phase: {secs:.1f} s")
+    return {"ops": ops, "attention": attention, "train": train,
+            "train_rec": rec, "host_cost": cost, "seconds": secs}
+
+
 def main():
     try:
         import torch
@@ -1961,11 +2285,13 @@ def main():
     torch.cuda.empty_cache()
     phase_reference(torch)
     torch.cuda.empty_cache()
-    flash_launches = phase_train(torch, card, "gpt13")
+    flash_launches, gpt13 = phase_train(torch, card, "gpt13")
     phase_train_reference(torch, "gpt")
     adamw_launches = phase_adamw_path(torch)
-    phase_train(torch, card, "llama")
+    llama_launches, _ = phase_train(torch, card, "llama")
     phase_train_reference(torch, "llama")
+    torch.cuda.empty_cache()
+    facade = phase_facade(torch, card, gpt13)
     head = paged["a_decode_f32q_bf16kv"]
     chunk = paged["b_chunk_bf16"]
     kernels = [{
@@ -1997,16 +2323,22 @@ def main():
         "library_ms": None,
         "chunk_case": {"name": "b_chunk_bf16", **chunk},
     }]
-    gpt13 = flash["gpt13_bf16"]
+    flash13 = flash["gpt13_bf16"]
     for kname, line in (("flash_fwd", 128), ("flash_dq", 290),
                         ("flash_dkv", 351)):
-        r = gpt13[kname]
+        r = flash13[kname]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": flash_launches[kname],
-            "max_abs_err": gpt13["max_abs_err"][kname],
+            # each training path's run, counted the same way
+            "launches_by_path": {
+                "train_gpt13": flash_launches[kname],
+                "train_llama": llama_launches[kname],
+                "facade_attention": facade["attention"][kname],
+                "facade_train": facade["train"][kname]},
+            "max_abs_err": flash13["max_abs_err"][kname],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

@@ -1,35 +1,68 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu for NVIDIA Hopper.
 
+``import paddle_tpu_torch as paddle`` is the Paddle namespace of the
+port: ``Tensor``, ``Parameter`` and ``to_tensor`` (:mod:`.tensor`, a
+thin cell over one ``torch.Tensor`` whose tape is torch autograd), every
+op of ``paddle_tpu/ops`` (:mod:`.ops`), the dtypes, ``seed`` and the RNG
+state, grad mode and ``paddle.grad``, ``set_device``/``get_device``, and
+the modules ``autograd``, ``nn``, ``optimizer``, ``amp`` and ``models``.
+
 The JAX package ``paddle_tpu`` is the reference; this package grows
 beside it slice by slice, keeping its module layout and names so each
 module has an obvious counterpart. It imports torch and numpy, never
 jax or paddle_tpu.
 
-Slice 1 is the serving data plane: ``serving.ServingEngine`` serves
-``models.LlamaForCausalLM`` through the paged KV pool, the chunked-prefill
-scheduler and one ragged step per engine iteration, whose attention is
-the hand-written CUDA kernel ``csrc/paged_attention.cu``.
+Its slices so far: the serving data plane (``serving.ServingEngine``
+over the paged KV pool, whose attention is the CUDA kernel
+``csrc/paged_attention.cu``), with the captured serving step, the prefix
+cache, int8 pages, speculative decoding, LoRA adapters, constrained
+decoding, the host page tier, metrics, faults and the control plane; the
+training steps of the root ``bench.py``'s ``bench_gpt13`` and
+``bench_llama`` (``python -m paddle_tpu_torch.bench``, attention through
+the CUDA flash kernels of ``csrc/flash_attention.cu``), and the fused
+AdamW kernel ``csrc/fused_adamw.cu``; and the eager core above.
 
-Slice 2 is the GPT training step of the root ``bench.py``'s
-``bench_gpt13``: ``models.GPTForCausalLM`` under ``amp`` O2 bf16 (the
-JAX package's per-op cast rule), the fused chunked cross entropy and
-``optimizer.AdamW``, run by ``python -m paddle_tpu_torch.bench``, whose
-attention is the hand-written CUDA flash kernels of
-``csrc/flash_attention.cu`` (forward, dQ, dK/dV) behind one
-``torch.autograd.Function``.
-
-Slice 3 trains Llama as the root ``bench.py``'s ``bench_llama`` does
-(``models.LlamaForCausalLM.forward`` with every layer under
-``distributed.fleet.recompute``, O2 bf16 with master weights, through
-the same flash kernels; ``python -m paddle_tpu_torch.bench --model
-llama``), and ports the last Pallas kernel, the fused AdamW step, as
-``csrc/fused_adamw.cu`` behind ``ops.fused_adamw`` and its A/B tool
-``python -m paddle_tpu_torch.tools.bench_adamw``.
-
-Every entry point runs on ``cuda`` unless given ``device="cpu"``
-(:mod:`.device`); kernels are built from ``csrc/`` with ``nvcc`` at first
-use (:mod:`.ops._build`).
+Every entry point runs on ``cuda`` unless given ``device="cpu"`` or told
+``set_device("cpu")`` (:mod:`.device`); kernels are built from ``csrc/``
+with ``nvcc`` at first use (:mod:`.ops._build`). Not ported yet, of the
+JAX package's namespace: ``io``, ``jit``, ``static``, ``distributed``
+(beyond ``fleet.recompute``), ``metric``, ``hapi``/``Model``,
+``vision``, ``incubate``, ``distribution``, ``fft``, ``signal``,
+``sparse``, ``linalg`` (the facade module; the ops are here),
+``save``/``load``, ``set_flags``/``get_flags`` and the ``*Place``
+classes.
 """
-from .device import default_device, resolve_device
+from .device import default_device, get_device, resolve_device, set_device
+from . import dtypes  # noqa: E402
+from .tensor import Parameter, Tensor, to_tensor  # noqa: E402
+from . import autograd  # noqa: E402
+from .autograd import (enable_grad, grad, is_grad_enabled,  # noqa: E402
+                       no_grad, set_grad_enabled)
+from . import ops  # noqa: E402
+from .ops import *  # noqa: E402,F401,F403
+from .dtypes import (bfloat16, bool_, complex64, complex128,  # noqa: E402
+                     float16, float32, float64, int8, int16, int32, int64,
+                     uint8)
+from .dtypes import bool_ as bool  # noqa: E402,A001 - Paddle's name
+from . import framework  # noqa: E402
+from .framework.core_api import (create_parameter, dtype,  # noqa: E402
+                                 finfo, get_default_dtype, iinfo,
+                                 in_dynamic_mode, is_tensor,
+                                 set_default_dtype)
+from .generator import (default_generator, get_rng_state,  # noqa: E402
+                        seed, set_rng_state)
+from . import amp, models, nn, optimizer  # noqa: E402
 
-__all__ = ["default_device", "resolve_device"]
+__version__ = "0.1.0"
+
+__all__ = (["default_device", "resolve_device", "set_device", "get_device",
+            "Tensor", "Parameter", "to_tensor", "autograd", "no_grad",
+            "enable_grad", "grad", "set_grad_enabled", "is_grad_enabled",
+            "ops", "dtypes", "bfloat16", "bool_", "bool", "complex64",
+            "complex128", "float16", "float32", "float64", "int8", "int16",
+            "int32", "int64", "uint8", "framework", "create_parameter",
+            "dtype", "finfo", "get_default_dtype", "iinfo",
+            "in_dynamic_mode", "is_tensor", "set_default_dtype",
+            "default_generator", "get_rng_state", "seed", "set_rng_state",
+            "amp", "models", "nn", "optimizer"]
+           + [n for n in ops.__all__ if n not in ("to_tensor",)])

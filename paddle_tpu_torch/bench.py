@@ -45,14 +45,14 @@ import numpy as np
 import torch
 
 from . import amp, generator
-from .device import resolve_device
+from .device import default_device, resolve_device
 from .models import GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM
 from .models import llama_tiny
 from .optimizer import AdamW
 
 __all__ = ["gpt13_setup", "llama_setup", "SETUPS", "MASTER_WEIGHT", "build",
            "make_train_fn", "time_steps", "config_name", "bench_model",
-           "bench_gpt13", "bench_llama", "card_label",
+           "bench_gpt13", "bench_llama", "card_label", "facade_step",
            "H100_BF16_PEAK_TFLOPS"]
 
 H100_BF16_PEAK_TFLOPS = 989.0  # dense, SXM, 700 W (NVIDIA data sheet)
@@ -119,6 +119,20 @@ def make_train_fn(model, opt) -> Callable:
         opt.clear_grad()
         return loss
     return train_fn
+
+
+def facade_step(cfg, B: int, S: int):
+    """The bench's step as the root ``bench.py`` writes it, against this
+    package's Paddle namespace: ``paddle.to_tensor`` ids and labels in, a
+    facade loss out, on the default device. Returns ``(train_fn, (ids,
+    labels), model, opt)``: :func:`build`'s model and optimizer (gpt13's
+    decorate) and :func:`bench_model`'s ids."""
+    import paddle_tpu_torch as paddle
+
+    model, opt = build(cfg, default_device(), False)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
+    args = (paddle.to_tensor(ids), paddle.to_tensor(np.roll(ids, -1, 1)))
+    return make_train_fn(model, opt), args, model, opt
 
 
 def _sync(device: torch.device) -> None:

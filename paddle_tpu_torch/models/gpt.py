@@ -56,6 +56,7 @@ from ..nn import functional as F
 from ..ops.fused_loss import fused_linear_cross_entropy
 from ..ops.paged_attention import ragged_paged_attention
 from ..quantization.observers import quantize_kv
+from ..tensor import facade_io
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
            "gpt3_1_3b"]
@@ -319,9 +320,11 @@ class GPTForCausalLM(nn.Module):
         h, w = amp.cast_inputs("matmul", hidden, self.gpt.embeddings.weight)
         return h @ w.T
 
+    @facade_io
     def forward(self, input_ids, position_ids=None, labels=None):
         """Logits ``[B, S, V]`` without ``labels``; with them ``(logits,
-        mean loss)``, or ``(None, loss)`` when ``config.fused_loss``."""
+        mean loss)``, or ``(None, loss)`` when ``config.fused_loss``. Given
+        facade Tensors, it returns facade Tensors (``tensor.facade_io``)."""
         hidden = self.gpt(input_ids, position_ids)
         if labels is not None and self.config.fused_loss:
             H = self.config.hidden_size

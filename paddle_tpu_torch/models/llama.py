@@ -66,6 +66,7 @@ from ..nn import functional as F
 from ..ops.fused_loss import fused_linear_cross_entropy
 from ..ops.paged_attention import ragged_paged_attention
 from ..quantization.observers import quantize_kv
+from ..tensor import facade_io
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny"]
 
@@ -381,9 +382,11 @@ class LlamaForCausalLM(nn.Module):
         dt = torch.promote_types(h.dtype, w.dtype)
         return h.to(dt) @ w.to(dt).T
 
+    @facade_io
     def forward(self, input_ids, labels=None):
         """Logits ``[B, S, V]`` without ``labels``; with them ``(logits,
-        mean loss)``, or ``(None, loss)`` when ``config.fused_loss``."""
+        mean loss)``, or ``(None, loss)`` when ``config.fused_loss``. Given
+        facade Tensors, it returns facade Tensors (``tensor.facade_io``)."""
         hidden = self.llama(input_ids)
         if labels is not None and self.config.fused_loss:
             w = (self.lm_head.weight if self.lm_head is not None

@@ -8,6 +8,9 @@ tensors. The JAX package sends only TPU arrays at ``S >= 512`` to its
 Pallas kernel; the length at which the H100 should switch is for a later
 measurement to set. Any other mask takes :func:`_sdpa_ref`, the dense
 version, as in the JAX package.
+
+Both functionals take facade tensors (``paddle.Tensor``) as well as
+torch tensors, and return what they were given (``tensor.facade_io``).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 from ...amp import cast_inputs
 from ...generator import device_generator, next_seed
 from ...ops.flash_attention import NEG_INF, flash_attention_bshd
+from ...tensor import facade_io
 
 __all__ = ["scaled_dot_product_attention", "flash_attention"]
 
@@ -60,6 +64,7 @@ def _as_key_padding(mask, batch: int, klen: int):
     return None
 
 
+@facade_io
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
@@ -80,6 +85,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     return _sdpa_ref(q, k, v, m, drop, is_causal, None, gen)
 
 
+@facade_io
 def flash_attention(query, key, value, dropout: float = 0.0,
                     causal: bool = False, training: bool = True):
     """``paddle.nn.functional.flash_attention``: ``(out, None)``."""

@@ -13,6 +13,10 @@ under ``"@master"``; the update runs on it with the f32 grad, and the
 parameter holds its down-cast. Without them a low-precision parameter's
 whole update runs in its own dtype.
 
+Parameters may be torch parameters or facade ``Parameter``s
+(``tensor.py``), whose torch value the step writes in place (the cell
+keeps its storage, as a module's parameter does).
+
 Not ported yet: grad clipping, the ``_found_inf`` skip of GradScaler, LR
 schedulers and param groups.
 """
@@ -27,12 +31,21 @@ __all__ = ["Optimizer"]
 _LOW = (torch.bfloat16, torch.float16)
 
 
+def _value(p) -> torch.Tensor:
+    """The torch tensor of a parameter: a facade Parameter's value."""
+    return getattr(p, "_value", p)
+
+
 def _named(parameters) -> List[Tuple[str, torch.nn.Parameter]]:
     """``(name, param)`` pairs from params or ``named_parameters()``
-    pairs; an unnamed parameter is named by its position."""
+    pairs; a facade Parameter by its name, a torch parameter by its
+    position."""
     out = []
     for i, p in enumerate(parameters):
-        out.append(p if isinstance(p, tuple) else (f"param_{i}", p))
+        if isinstance(p, tuple):
+            out.append(p)
+        else:
+            out.append((p.name if hasattr(p, "_value") else f"param_{i}", p))
     return out
 
 
@@ -89,7 +102,8 @@ class Optimizer:
     def step(self) -> None:
         """One update of every parameter that has a grad."""
         base_lr: Dict[torch.device, torch.Tensor] = {}
-        for idx, p in enumerate(self._parameter_list):
+        for idx, param in enumerate(self._parameter_list):
+            p = _value(param)
             if p.grad is None or not p.requires_grad:
                 continue
             if p.device not in base_lr:  # a fill kernel: no host sync
@@ -122,7 +136,7 @@ class Optimizer:
     def clear_grad(self) -> None:
         """Every parameter's grad to None."""
         for p in self._parameter_list:
-            p.grad = None
+            _value(p).grad = None
 
     # ------------------------------------------------------ state dict
     def state_dict(self) -> dict:
@@ -147,7 +161,7 @@ class Optimizer:
                 raise KeyError(
                     f"optimizer state refers to parameter index {idx} but "
                     f"this optimizer has {len(self._parameter_list)}")
-            dev = self._parameter_list[idx].device
+            dev = _value(self._parameter_list[idx]).device
             self._accumulators.setdefault(idx, {})[name] = torch.as_tensor(
                 val).to(dev)
 

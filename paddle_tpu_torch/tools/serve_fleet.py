@@ -276,10 +276,15 @@ def drill_least_loaded(fleet: Fleet) -> dict:
         old = tracing.set_tracer(tracing.RequestTracer(capacity=1 << 14))
         try:
             r = fleet.adopt(fleet.router(replicas=2, max_batch_slots=1))
-            for eid in ("m/0", "m/1"):  # warm: the buckets are captured
-                r.engine(eid).add_request(P3, max_new_tokens=2)
-                r.engine(eid).add_request(P4, max_new_tokens=2)
-                r.engine(eid).run()
+            # warm: every bucket the measured run steps is captured first,
+            # so its waits are scheduling alone. The second pass is the
+            # measured prompts' prefix hit (only the tail prefilled), a
+            # bucket of its own.
+            for eid in ("m/0", "m/1"):
+                for _ in range(2):
+                    r.engine(eid).add_request(P3, max_new_tokens=2)
+                    r.engine(eid).add_request(P4, max_new_tokens=2)
+                    r.engine(eid).run()
             e0 = r.engine("m/0")
             for _ in range(2):  # the skew: two 28-token hogs on m/0
                 e0.add_request(P3, max_new_tokens=28)

@@ -59,7 +59,11 @@ def test_importing_every_module_loads_no_jax():
         "tools.serve_chaos", "serving.router", "serving.wal",
         "serving.api", "loadgen", "loadgen.trace", "loadgen.driver",
         "loadgen.autoscaler", "loadgen.chaos", "loadgen.restart",
-        "tools.serve_fleet")} <= walked
+        "tools.serve_fleet", "tensor", "dtypes", "autograd",
+        "autograd.engine", "autograd.py_layer", "framework",
+        "framework.core_api", "ops._apply", "ops.creation", "ops.math",
+        "ops.manipulation", "ops.logic", "ops.stat", "ops.linalg",
+        "ops.random", "ops.extras", "tools.op_cases")} <= walked
     # the training sentinel of the JAX package is not ported
     assert "paddle_tpu_torch.faults.sentinel" not in walked
 
@@ -235,3 +239,31 @@ def test_restart_child_and_fleet_tool_need_a_card(no_cuda, tmp_path):
     assert restart.build_model("cpu").device.type == "cpu"
     with pytest.raises(RuntimeError):
         serve_fleet.main([])
+
+
+def test_facade_entry_points_need_a_card_unless_told_cpu(no_cuda):
+    """The Paddle namespace's creation and random ops, ``to_tensor`` and
+    ``get_device`` resolve to the card when no device is set; after
+    ``set_device("cpu")`` they run on the CPU, and ``set_device(None)``
+    goes back to the card."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device
+
+    saved = device._current
+    device._current = None
+    try:
+        for make in (lambda: paddle.zeros([2]), lambda: paddle.ones([2]),
+                     lambda: paddle.to_tensor([1.0]),
+                     lambda: paddle.arange(3), lambda: paddle.randn([2]),
+                     lambda: paddle.rand([2]), lambda: paddle.eye(2),
+                     paddle.get_device, lambda: paddle.set_device("gpu")):
+            with pytest.raises(RuntimeError):
+                make()
+        paddle.set_device("cpu")
+        assert paddle.zeros([2]).place == "cpu"
+        assert paddle.get_device() == "cpu"
+        paddle.set_device(None)
+        with pytest.raises(RuntimeError):
+            paddle.zeros([2])
+    finally:
+        device._current = saved
