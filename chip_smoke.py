@@ -32,9 +32,14 @@ Phases, in order; any failure exits non-zero before the result line:
       64; each output held elementwise and by its norm (``FLASH_TOL``),
       and at gpt13 bf16 the same check must reject the plain versions run
       at a scale 1% off; a bf16 input whose sequence stride is off 16
-      bytes must be refused with ValueError before any launch; SDPA's
-      forward and backward time the library, and each timed kernel's
-      factor against it is printed beside its share of the bound;
+      bytes must be refused with ValueError before any launch; the
+      dropout seed is data the kernels read from device memory: K1-K3
+      with dropout captured in one CUDA graph, two seeds written into
+      their seed tensor after the capture, must replay to the eager
+      calls' outputs with those seeds bit for bit (``flash_seed_replay``);
+      SDPA's forward and backward time the library, and each timed
+      kernel's factor against it is printed beside its share of the
+      bound;
    c. fused AdamW (K5) at N = 10,000 (step 5), 2,000,000 (step 10), an
       odd N off 16-byte alignment (step 1, zero moments) and 354,942,976
       (step 10, timed): w', m', v' held elementwise (``ADAMW_TOL``) and
@@ -138,11 +143,14 @@ Phases, in order; any failure exits non-zero before the result line:
    token streams, one request on a LoRA adapter and one under a grammar
    among them.
 6. Train: GPT-3 1.3B (vocab 50304, hidden 2048, 24 layers, 16 heads)
-   through ``paddle_tpu_torch.bench`` (B 8, S 1024, O2 bf16 without
-   master weights, fused cross entropy, AdamW), 8 steps (1 + 2 warm + 5
-   timed), every loss finite. The flash counts are zeroed just before
-   and read just after: each of K1, K2 and K3 launched 24 times a step,
-   the plain versions never.
+   through ``paddle_tpu_torch.bench`` as it runs by default (the step
+   through ``jit.StaticFunction``: B 8, S 1024, O2 bf16 without master
+   weights, fused cross entropy, AdamW), 8 steps (1 + 2 warm + 5 timed),
+   every loss finite. The flash counts are zeroed just before and read
+   just after: each of K1, K2 and K3 24 launches in the eager first
+   step, 24 calls recorded by the capture and 24 replayed launches in
+   each of the 7 replayed steps (captured + replayed = 24 x 8), the
+   plain versions never.
 7. Train check: a small f32 GPT (2 layers, hidden 256, 2 heads of 128,
    S 512) takes three AdamW steps on the card (kernels) and on the CPU
    (plain versions): the losses and the parameters agree.
@@ -152,9 +160,10 @@ Phases, in order; any failure exits non-zero before the result line:
    it launched, its plain version never.
 9. Train Llama-0.76B (vocab 32000, hidden 2048, 12 layers, 16 heads)
    through ``paddle_tpu_torch.bench --model llama`` (B 8, S 1024, full
-   recompute, O2 bf16 with master weights, fused cross entropy, AdamW), 8
-   steps, every loss finite. K1 launched 24 times a step (forward and
-   recomputation), K2 and K3 12 times each, the plain versions never.
+   recompute, O2 bf16 with master weights, fused cross entropy, AdamW),
+   graphed as in 6, 8 steps, every loss finite. K1 24 a step (forward
+   and recomputation), K2 and K3 12 each, counted as in 6; the plain
+   versions never.
 10. Train check: a small f32 Llama with GQA (2 layers, hidden 256, 4
    heads of 64 over 2 KV heads, S 512, recompute on) takes three AdamW
    steps on the card and on the CPU: the losses and parameters agree.
@@ -177,9 +186,32 @@ Phases, in order; any failure exits non-zero before the result line:
    kernel, plain versions never, every loss finite and compared with
    phase 6's, then one more torch step and facade step in turns.
 
+12. Train graphed (``phase_train_graphed``): GPT-3 1.3B, then
+   Llama-0.76B, at full width and depth, 8 steps eagerly (``--eager``)
+   and then, rebuilt from the same seed, 8 steps through
+   ``StaticFunction``: losses and final parameters equal bit for bit, one
+   signature and one capture (``paddle_tpu_jit_compiles_total`` + 1), the
+   graphed run's flash counts as in 6; one more graphed and eager run in
+   turns; prints step ms graphed against eager, ``capture_s`` and both
+   peak memories.
+13. Train graphed state (``phase_train_graphed_state``): a small GPT
+   (hidden 256, 4 layers, 2 heads of 128, S 256) with attention and
+   hidden dropout 0.1, O2 bf16 with master weights, a ``GradScaler``
+   (2^15, grows every 2 good steps, halves on each bad one),
+   ``ClipGradByGlobalNorm(1.0)`` and a ``LinearWarmup`` scheduler
+   stepped each call, the loss multiplied by inf on step 3: six steps
+   eagerly and six through ``StaticFunction`` equal bit for bit (losses,
+   a dropout mask returned by the step, every parameter after every
+   step, the scale and both counters); step 3 skipped inside the graph
+   and the scale halved; masks differing from step to step; one
+   capture.
+
 The last two lines are the kernels' JSON record (K1-K3 with their
-launches by path: ``train_gpt13``, ``train_llama``, ``facade_attention``,
-``facade_train``) and {"ok": true, "device": {...}}.
+launches by path: ``train_gpt13``, ``train_llama``,
+``train_graphed_gpt13``, ``train_graphed_llama``,
+``train_graphed_state``, ``facade_attention``, ``facade_train``; on a
+graphed path the eager first step's launches plus the replayed ones) and
+{"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -714,7 +746,54 @@ def phase_flash_kernels(torch):
         del dv_r
         torch.cuda.empty_cache()
     flash_refuses_misaligned(torch, fa)
+    results["seed_replay"] = flash_seed_replay(torch, fa)
     return results
+
+
+def flash_seed_replay(torch, fa):
+    """The dropout seed is data: K1, K2 and K3 with dropout 0.1 (bf16, B
+    2, S 512, 4 heads of 128, causal) captured in one CUDA graph that
+    reads a seed tensor; two seeds written into it after the capture, one
+    before each replay, must give the eager calls' outputs with those
+    seeds bit for bit, and the two must differ."""
+    B, S, H, D = 2, 512, 4, 128
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v, do, _ = flash_case(torch, gen, B, S, S, H, D, torch.bfloat16)
+    seed = torch.zeros((), dtype=torch.int32, device="cuda")
+    kw = dict(causal=True, dropout_p=0.1, dropout_seed=seed)
+
+    def run():
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        delta = fa.flash_delta(o, do)
+        dq = fa.flash_dq(q, k, v, do, lse, delta, **kw)
+        return (o, lse, dq, *fa.flash_dkv(q, k, v, do, lse, delta, **kw))
+
+    seeds = (1234, 98765)
+    eager, got = {}, {}
+    for val in seeds:
+        seed.fill_(val)
+        eager[val] = [t.clone() for t in run()]
+    seed.fill_(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    for val in seeds:
+        seed.fill_(val)
+        graph.replay()
+        got[val] = [t.clone() for t in out]
+    torch.cuda.synchronize()
+    equal = {val: all(torch.equal(a, b) for a, b in zip(got[val],
+                                                        eager[val]))
+             for val in seeds}
+    differ = not torch.equal(got[seeds[0]][0], got[seeds[1]][0])
+    log(f"flash seed after capture: replays with seeds {seeds} equal the "
+        f"eager calls bit for bit {equal}; the two outputs differ {differ}")
+    if not all(equal.values()) or not differ:
+        fail("flash seed: a seed written after the capture did not reach "
+             "the replay")
+    del graph
+    return {"equal": equal, "differ": differ}
 
 
 def flash_refuses_misaligned(torch, fa):
@@ -1832,10 +1911,14 @@ def reference_streams(torch, name, model_cls, cfg):
 
 
 def phase_train(torch, card, model):
-    """``model``'s bench through its entry point, full width and depth,
-    8 steps. The flash counts are zeroed just before and read just after:
-    each kernel launched as often a step as the model's layers run it
-    (``per_layer``: K1 twice under recompute), the plain versions never."""
+    """``model``'s bench through its entry point as it runs by default
+    (the step through ``jit.StaticFunction``: an eager first call, then a
+    CUDA graph captured and replayed), full width and depth, 8 steps. The
+    flash counts are zeroed just before and read just after: each kernel
+    launched as often a step as the model's layers run it (``per_layer``:
+    K1 twice under recompute), eagerly in the first step, recorded once
+    by the capture and replayed in the 7 others (captured + replayed =
+    ``per_layer`` x layers x steps), the plain versions never."""
     from paddle_tpu_torch import bench
     from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -1847,20 +1930,250 @@ def phase_train(torch, card, model):
     rec = bench.bench_model(model, small=False, device="cuda", steps=5,
                             reps=1)
     wall = time.perf_counter() - t0
-    launches, plain = dict(fa.kernel_launches), dict(fa.plain_calls)
+    counts = flash_counts(fa)
     losses = rec.pop("losses")
     steps = rec.pop("steps_run")
     summary = dict(rec, steps_run=steps, wall_s=wall, losses=losses,
-                   kernel_launches=launches, plain_calls=plain, card=card)
+                   **counts, card=card)
     log(f"train {model}: " + json.dumps(summary))
     if not all(math.isfinite(x) for x in losses):
         fail(f"train {model}: a loss is not finite: {losses}")
-    want = {n: k * cfg.num_layers * steps for n, k in per_layer.items()}
-    if launches != want or any(plain.values()):
-        fail(f"train {model}: flash launches {launches} != {want} "
-             f"({cfg.num_layers} layers x {steps} steps), or plain calls "
-             f"{plain} != 0")
-    return launches, summary
+    check_graphed_counts(f"train {model}", counts, per_layer,
+                         cfg.num_layers, steps)
+    return ran(counts), summary
+
+
+def flash_counts(fa):
+    return {"kernel_launches": dict(fa.kernel_launches),
+            "captured_launches": dict(fa.captured_launches),
+            "replayed_launches": dict(fa.replayed_launches),
+            "plain_calls": dict(fa.plain_calls)}
+
+
+def ran(counts):
+    """Launches each flash kernel made on the card: eager ones and those
+    of graph replays."""
+    return {n: counts["kernel_launches"][n] + counts["replayed_launches"][n]
+            for n in counts["kernel_launches"]}
+
+
+def check_graphed_counts(label, counts, per_layer, layers, steps):
+    """A ``StaticFunction`` step run ``steps`` times on one signature: one
+    eager step, one capture, ``steps - 1`` replays; the plain versions
+    never."""
+    one = {n: k * layers for n, k in per_layer.items()}
+    want = {"kernel_launches": one, "captured_launches": one,
+            "replayed_launches": {n: k * (steps - 1) for n, k in one.items()},
+            "plain_calls": dict.fromkeys(one, 0)}
+    total = {n: counts["captured_launches"][n]
+             + counts["replayed_launches"][n] for n in one}
+    if counts != want or total != {n: k * steps for n, k in one.items()}:
+        fail(f"{label}: flash counts {counts} != {want} ({layers} layers x "
+             f"{steps} steps: captured + replayed = per_layer x layers x "
+             f"steps)")
+
+
+def jit_compiles(fn):
+    from paddle_tpu_torch.metrics import get_registry
+
+    return get_registry().counter(
+        "paddle_tpu_jit_compiles_total", labels=("fn", "source")).labels(
+            fn=fn, source="fresh").value
+
+
+def phase_train_graphed(torch, card, model):
+    """``model``'s bench at full width and depth, 8 steps eagerly
+    (``--eager``) and then, rebuilt from the same seed, 8 steps through
+    ``StaticFunction``: the losses and the final parameters must be equal
+    bit for bit, the step must have one signature and one capture
+    (``paddle_tpu_jit_compiles_total`` up by 1), and the flash counts of
+    the graphed run as in ``phase_train``. Then one more graphed and one
+    more eager run in turns, for the step ms. Prints step ms graphed
+    against eager, ``capture_s`` and the peak memory of both."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = bench.SETUPS[model](False)[0]
+    rc = bool(getattr(cfg, "recompute", False))
+    per_layer = {"flash_fwd": 2 if rc else 1, "flash_dq": 1, "flash_dkv": 1}
+    runs = {}
+    for kind in ("eager", "graphed"):
+        fa.reset_counters()
+        before = jit_compiles("train_fn")
+        rec, net, opt = bench.train_run(model, device="cuda", steps=5,
+                                        reps=1, eager=kind == "eager")
+        counts = flash_counts(fa)
+        rec["jit_compiles"] = jit_compiles("train_fn") - before
+        runs[kind] = (rec, [p.detach().clone() for p in net.parameters()],
+                      counts)
+        del net, opt
+        torch.cuda.empty_cache()
+    (r_e, p_e, c_e), (r_g, p_g, c_g) = runs["eager"], runs["graphed"]
+    differ = [i for i, (a, b) in enumerate(zip(p_e, p_g))
+              if not torch.equal(a, b)]
+    same_losses = r_e["losses"] == r_g["losses"]
+    del p_e, p_g, runs
+    torch.cuda.empty_cache()
+    turns = []
+    for kind in ("graphed", "eager"):
+        r = bench.bench_model(model, device="cuda", steps=5, reps=1,
+                              eager=kind == "eager")
+        turns.append((kind, r["step_ms"], r["peak_memory_gib"]))
+        torch.cuda.empty_cache()
+    steps = r_g["steps_run"]
+    summary = {
+        "model": model, "steps": steps, "losses_equal": same_losses,
+        "params_differ": len(differ), "losses": r_g["losses"],
+        "step_ms": {"eager": r_e["step_ms"], "graphed": r_g["step_ms"]},
+        "turns_step_ms": turns, "capture_s": r_g["capture_s"],
+        "first_step_s": {"eager": r_e["compile_s"],
+                         "graphed": r_g["compile_s"]},
+        "peak_memory_gib": {"eager": r_e["peak_memory_gib"],
+                            "graphed": r_g["peak_memory_gib"]},
+        "compile_counts": r_g["compile_counts"],
+        "jit_compiles": r_g["jit_compiles"], "graphed_counts": c_g,
+        "eager_counts": c_e, "card": card}
+    log(f"train graphed {model}: " + json.dumps(summary))
+    log(f"train graphed {model}: step {r_g['step_ms']} ms graphed vs "
+        f"{r_e['step_ms']} ms eager (turns: " + ", ".join(
+            f"{k} {ms} ms" for k, ms, _m in turns)
+        + f"); capture {r_g['capture_s']} s; peak "
+        f"{r_g['peak_memory_gib']} vs {r_e['peak_memory_gib']} GiB; "
+        + ("losses and parameters equal bit for bit" if same_losses
+           and not differ else "DIFFER"))
+    if not same_losses or differ:
+        fail(f"train graphed {model}: graphed and eager differ (losses "
+             f"{r_g['losses']} vs {r_e['losses']}; {len(differ)} "
+             f"parameters differ, first {differ[:5]})")
+    if r_g["compile_counts"] != {"signatures": 1, "captured": 1,
+                                 "calls": steps} \
+            or r_g["jit_compiles"] != 1:
+        fail(f"train graphed {model}: not one capture of one signature: "
+             f"{r_g['compile_counts']}, jit_compiles_total "
+             f"+{r_g['jit_compiles']}")
+    check_graphed_counts(f"train graphed {model}", c_g, per_layer,
+                         cfg.num_layers, steps)
+    eager_want = {n: k * cfg.num_layers * steps for n, k in per_layer.items()}
+    if c_e["kernel_launches"] != eager_want or any(
+            sum(c_e[k].values()) for k in ("captured_launches",
+                                           "replayed_launches",
+                                           "plain_calls")):
+        fail(f"train graphed {model}: the eager run's flash counts "
+             f"{c_e} != {eager_want} launches")
+    return ran(c_g), summary
+
+
+def state_step(torch, graphed):
+    """The small GPT's step of ``phase_train_graphed_state``, built from
+    ``generator.seed(0)``: ``(step, (ids, labels), model, scaler)``. The
+    step scales ``loss * mult`` by the ``GradScaler``, steps the
+    optimizer through it and returns the loss and a dropout mask of a
+    fixed ones tensor."""
+    import numpy as np
+
+    from paddle_tpu_torch import amp, generator, jit
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import LinearWarmup
+
+    generator.seed(0)
+    cfg = gpt_tiny(vocab_size=2048, hidden_size=256, num_layers=4,
+                   num_heads=2, max_position_embeddings=512,
+                   hidden_dropout_prob=0.1, attention_dropout_prob=0.1,
+                   fused_loss=True)
+    model = GPTForCausalLM(cfg, device="cuda")
+    sched = LinearWarmup(learning_rate=1e-3, warmup_steps=4, start_lr=0.0,
+                         end_lr=1e-3)
+    opt = AdamW(learning_rate=sched, parameters=model.named_parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15,
+                            incr_every_n_steps=2, decr_every_n_nan_or_inf=1,
+                            device="cuda")
+    ones = torch.ones((64, 256), device="cuda")
+
+    def train_fn(ids, labels, mult):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            _, loss = model(ids, labels=labels)
+        scaler.scale(loss * mult).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        return loss, F.dropout(ones, 0.1)
+
+    step = (jit.StaticFunction(train_fn, observe=[model, opt, scaler])
+            if graphed else train_fn)
+    ids_np = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 256))
+    args = (torch.from_numpy(ids_np).to("cuda"),
+            torch.from_numpy(np.roll(ids_np, -1, axis=1)).to("cuda"))
+    return step, args, model, scaler, sched
+
+
+def phase_train_graphed_state(torch, card):
+    """A small GPT (hidden 256, 4 layers, 2 heads of 128, S 256) with
+    attention and hidden dropout 0.1, O2 bf16 with master weights,
+    ``GradScaler(init_loss_scaling=2**15, incr_every_n_steps=2,
+    decr_every_n_nan_or_inf=1)``, ``ClipGradByGlobalNorm(1.0)`` and a
+    ``LinearWarmup`` scheduler stepped after each call; the loss is
+    multiplied by an input that is inf on step 3. Six steps eagerly, then
+    six through ``StaticFunction`` from the same seed: equal bit for bit
+    (losses, dropout masks, every parameter after every step, the scale
+    and both counters); step 3 skipped inside the graph (parameters as
+    after step 2) and the scale halved; masks that differ from step to
+    step; one signature, one capture."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    runs = {}
+    for graphed in (False, True):
+        step, args, model, scaler, sched = state_step(torch, graphed)
+        fa.reset_counters()
+        hist = []
+        for i in range(6):
+            mult = torch.full((), math.inf if i == 2 else 1.0,
+                              device="cuda")
+            loss, mask = step(*args, mult)
+            hist.append({
+                "loss": loss.detach().clone(), "mask": mask.clone(),
+                "params": [p.detach().clone() for p in model.parameters()],
+                "cells": [c.clone() for c in scaler.__jit_state__()]})
+            sched.step()
+        torch.cuda.synchronize()
+        runs[graphed] = (hist, flash_counts(fa),
+                         step.compile_counts() if graphed else None)
+    (h_e, c_e, _), (h_g, c_g, cc) = runs[False], runs[True]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    equal = [h_e[i]["loss"].equal(h_g[i]["loss"])
+             and h_e[i]["mask"].equal(h_g[i]["mask"])
+             and same(h_e[i]["params"], h_g[i]["params"])
+             and same(h_e[i]["cells"], h_g[i]["cells"]) for i in range(6)]
+    skipped = same(h_g[2]["params"], h_g[1]["params"])
+    scales = [float(h["cells"][0]) for h in h_g]
+    counters = [(int(h["cells"][1]), int(h["cells"][2])) for h in h_g]
+    masks_differ = all(not h_g[i]["mask"].equal(h_g[i + 1]["mask"])
+                       for i in range(5))
+    updated = not same(h_g[3]["params"], h_g[2]["params"])
+    rec = {"steps_equal": equal, "step3_skipped": skipped,
+           "step4_updated": updated, "scales": scales,
+           "good_bad": counters, "masks_differ": masks_differ,
+           "losses": [float(h["loss"]) for h in h_g],
+           "compile_counts": cc, "graphed_counts": c_g, "eager_counts": c_e,
+           "card": card}
+    log("train graphed state: " + json.dumps(rec))
+    if not all(equal) or not skipped or not updated or not masks_differ:
+        fail(f"train graphed state: graphed vs eager equal per step "
+             f"{equal}, step 3 skipped {skipped}, step 4 updated "
+             f"{updated}, masks differ {masks_differ}")
+    if scales[2] != scales[1] / 2 or cc != {"signatures": 1, "captured": 1,
+                                            "calls": 6}:
+        fail(f"train graphed state: the scale did not halve on the inf "
+             f"step ({scales}), or not one capture: {cc}")
+    check_graphed_counts("train graphed state", c_g, dict.fromkeys(
+        fa.KERNELS, 1), 4, 6)
+    return ran(c_g), rec
 
 
 def phase_train_reference(torch, model):
@@ -2292,6 +2605,10 @@ def main():
     phase_train_reference(torch, "llama")
     torch.cuda.empty_cache()
     facade = phase_facade(torch, card, gpt13)
+    torch.cuda.empty_cache()
+    graphed_gpt13, _ = phase_train_graphed(torch, card, "gpt13")
+    graphed_llama, _ = phase_train_graphed(torch, card, "llama")
+    graphed_state, _ = phase_train_graphed_state(torch, card)
     head = paged["a_decode_f32q_bf16kv"]
     chunk = paged["b_chunk_bf16"]
     kernels = [{
@@ -2336,6 +2653,9 @@ def main():
             "launches_by_path": {
                 "train_gpt13": flash_launches[kname],
                 "train_llama": llama_launches[kname],
+                "train_graphed_gpt13": graphed_gpt13[kname],
+                "train_graphed_llama": graphed_llama[kname],
+                "train_graphed_state": graphed_state[kname],
                 "facade_attention": facade["attention"][kname],
                 "facade_train": facade["train"][kname]},
             "max_abs_err": flash13["max_abs_err"][kname],

@@ -5,7 +5,8 @@ port: ``Tensor``, ``Parameter`` and ``to_tensor`` (:mod:`.tensor`, a
 thin cell over one ``torch.Tensor`` whose tape is torch autograd), every
 op of ``paddle_tpu/ops`` (:mod:`.ops`), the dtypes, ``seed`` and the RNG
 state, grad mode and ``paddle.grad``, ``set_device``/``get_device``, and
-the modules ``autograd``, ``nn``, ``optimizer``, ``amp`` and ``models``.
+the modules ``autograd``, ``nn``, ``optimizer`` (with ``optimizer.lr``),
+``amp``, ``jit`` and ``models``.
 
 The JAX package ``paddle_tpu`` is the reference; this package grows
 beside it slice by slice, keeping its module layout and names so each
@@ -19,14 +20,17 @@ cache, int8 pages, speculative decoding, LoRA adapters, constrained
 decoding, the host page tier, metrics, faults and the control plane; the
 training steps of the root ``bench.py``'s ``bench_gpt13`` and
 ``bench_llama`` (``python -m paddle_tpu_torch.bench``, attention through
-the CUDA flash kernels of ``csrc/flash_attention.cu``), and the fused
-AdamW kernel ``csrc/fused_adamw.cu``; and the eager core above.
+the CUDA flash kernels of ``csrc/flash_attention.cu``), captured as a
+CUDA graph per input signature by ``jit.StaticFunction`` with the LR
+schedulers, ``GradScaler``, grad clipping and dropout seeds carried as
+data, and the fused AdamW kernel ``csrc/fused_adamw.cu``; and the eager
+core above.
 
 Every entry point runs on ``cuda`` unless given ``device="cpu"`` or told
 ``set_device("cpu")`` (:mod:`.device`); kernels are built from ``csrc/``
 with ``nvcc`` at first use (:mod:`.ops._build`). Not ported yet, of the
-JAX package's namespace: ``io``, ``jit``, ``static``, ``distributed``
-(beyond ``fleet.recompute``), ``metric``, ``hapi``/``Model``,
+JAX package's namespace: ``io``, ``jit.save``/``jit.load``, ``static``,
+``distributed`` (beyond ``fleet.recompute``), ``metric``, ``hapi``/``Model``,
 ``vision``, ``incubate``, ``distribution``, ``fft``, ``signal``,
 ``sparse``, ``linalg`` (the facade module; the ops are here),
 ``save``/``load``, ``set_flags``/``get_flags`` and the ``*Place``
@@ -51,7 +55,7 @@ from .framework.core_api import (create_parameter, dtype,  # noqa: E402
                                  set_default_dtype)
 from .generator import (default_generator, get_rng_state,  # noqa: E402
                         seed, set_rng_state)
-from . import amp, models, nn, optimizer  # noqa: E402
+from . import amp, jit, models, nn, optimizer  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -64,5 +68,5 @@ __all__ = (["default_device", "resolve_device", "set_device", "get_device",
             "dtype", "finfo", "get_default_dtype", "iinfo",
             "in_dynamic_mode", "is_tensor", "set_default_dtype",
             "default_generator", "get_rng_state", "seed", "set_rng_state",
-            "amp", "models", "nn", "optimizer"]
+            "amp", "jit", "models", "nn", "optimizer"]
            + [n for n in ops.__all__ if n not in ("to_tensor",)])

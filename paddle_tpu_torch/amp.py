@@ -13,6 +13,9 @@ same op boundaries. Each op of the port that the JAX package runs through
   the amp dtype;
 - other ops keep their inputs' dtypes.
 
+``GradScaler`` (``paddle_tpu/amp/__init__.py:136``) is the dynamic loss
+scaler, its state on the device (below).
+
 Only floating tensors are cast. Along GPT's path under O2 that makes
 ``layer_norm`` f32 (on the f32 norm parameters ``decorate`` keeps), every
 ``linear``, residual ``add``, ``gelu`` and ``flash_attention`` bf16, the
@@ -29,8 +32,10 @@ from typing import FrozenSet, Optional, Sequence
 import torch
 from torch import nn
 
+from .device import resolve_device
+
 __all__ = ["auto_cast", "decorate", "cast_inputs", "current_state",
-           "restored_state", "WHITE_LIST", "BLACK_LIST"]
+           "restored_state", "GradScaler", "WHITE_LIST", "BLACK_LIST"]
 
 # the JAX package's amp lists (paddle_tpu/amp/__init__.py:31, :40)
 WHITE_LIST = frozenset({
@@ -170,3 +175,158 @@ def _recast(p: nn.Parameter, dtype: torch.dtype) -> None:
     p.data = p.data.to(dtype)
     if p.grad is not None:
         p.grad = p.grad.to(dtype)
+
+
+class GradScaler:
+    """Dynamic loss scaling (``paddle_tpu/amp/__init__.py:136``). The
+    scale and the good and bad step counters are 0-d device cells (f32,
+    int32, int32) written in place, so a captured step updates them
+    inside its graph; ``__jit_state__`` lists them, as there. A step with
+    a non-finite grad is skipped by the optimizer's ``_found_inf`` path (a
+    ``torch.where``, no host branch); ``update`` shrinks the scale after
+    ``decr_every_n_nan_or_inf`` bad steps in a row and grows it after
+    ``incr_every_n_steps`` good ones. Grads are unscaled at most once a
+    step, so ``unscale_`` then a clip then ``step`` divides once.
+    ``device`` is where the cells live (the default device, as every
+    entry point of the port)."""
+
+    def __init__(self, enable: bool = True,
+                 init_loss_scaling: float = 2.0 ** 15,
+                 incr_ratio: float = 2.0, decr_ratio: float = 0.5,
+                 incr_every_n_steps: int = 1000,
+                 decr_every_n_nan_or_inf: int = 2,
+                 use_dynamic_loss_scaling: bool = True, device=None):
+        dev = resolve_device(device)
+        self._enable = bool(enable)
+        self._use_dynamic = bool(use_dynamic_loss_scaling) and self._enable
+        self._scale = torch.full((), float(init_loss_scaling),
+                                 dtype=torch.float32, device=dev)
+        self._good_steps = torch.zeros((), dtype=torch.int32, device=dev)
+        self._bad_steps = torch.zeros((), dtype=torch.int32, device=dev)
+        self._incr_ratio = float(incr_ratio)
+        self._decr_ratio = float(decr_ratio)
+        self._incr_every = int(incr_every_n_steps)
+        self._decr_every = int(decr_every_n_nan_or_inf)
+        self._unscaled: set = set()  # optimizers unscaled this step
+
+    def __jit_state__(self):
+        return [self._scale, self._good_steps, self._bad_steps]
+
+    def is_enable(self) -> bool:
+        return self._enable
+
+    def is_use_dynamic_loss_scaling(self) -> bool:
+        return self._use_dynamic
+
+    def get_loss_scaling(self):
+        """The scale, as a facade ``Tensor`` holding a copy."""
+        from .tensor import Tensor
+
+        return Tensor._wrap(self._scale.clone())
+
+    @torch.no_grad()
+    def set_init_loss_scaling(self, value: float) -> None:
+        self._scale.fill_(float(value))
+
+    def scale(self, loss):
+        """``loss`` times the scale (a facade loss gives a facade
+        tensor)."""
+        if not self._enable:
+            return loss
+        value = getattr(loss, "_value", None)
+        if value is None:
+            return loss * self._scale
+        from .tensor import Tensor
+
+        return Tensor._wrap(value * self._scale)
+
+    @torch.no_grad()
+    def _unscale_and_check(self, optimizer) -> torch.Tensor:
+        """Divide every grad of ``optimizer`` by the scale in place;
+        returns a 0-d bool: some grad is not finite."""
+        inv = 1.0 / self._scale
+        found = torch.zeros((), dtype=torch.bool, device=self._scale.device)
+        for param in optimizer._parameter_list:
+            g = getattr(param, "_value", param).grad
+            if g is None:
+                continue
+            g.mul_(inv.to(g.dtype))
+            found = found | ~torch.isfinite(g.float()).all()
+        return found
+
+    def step(self, optimizer) -> None:
+        """Unscale (unless ``unscale_`` did this step), step with the
+        skip flag set, then :meth:`update`."""
+        if not self._enable:
+            optimizer.step()
+            return
+        if id(optimizer) in self._unscaled:
+            found = optimizer._found_inf
+        else:
+            found = self._unscale_and_check(optimizer)
+            optimizer._found_inf = found
+        optimizer._found_inf_origin = "amp"
+        try:
+            optimizer.step()
+        finally:
+            optimizer._found_inf = None
+            self._unscaled.discard(id(optimizer))
+        self.update(found)
+
+    def minimize(self, optimizer, scaled_loss) -> None:
+        """Apply the grads ``scaled_loss.backward()`` made (it does not
+        run the backward itself)."""
+        if not any(getattr(p, "_value", p).grad is not None
+                   for p in optimizer._parameter_list):
+            raise RuntimeError(
+                "GradScaler.minimize found no gradients: call "
+                "scaled_loss.backward() before minimize()")
+        self.step(optimizer)
+
+    def unscale_(self, optimizer) -> torch.Tensor:
+        if id(optimizer) in self._unscaled:
+            return optimizer._found_inf
+        found = self._unscale_and_check(optimizer)
+        optimizer._found_inf = found
+        optimizer._found_inf_origin = "amp"
+        self._unscaled.add(id(optimizer))
+        return found
+
+    @torch.no_grad()
+    def update(self, found_inf=None) -> None:
+        """The update_loss_scaling rule on the device cells, in place."""
+        if not self._use_dynamic or found_inf is None:
+            return
+        found = getattr(found_inf, "_value", found_inf)
+        scale, good, bad = self._scale, self._good_steps, self._bad_steps
+        new_bad = torch.where(found, bad + 1, 0)
+        new_good = torch.where(found, 0, good + 1)
+        shrink = new_bad >= self._decr_every
+        grow = new_good >= self._incr_every
+        new_scale = torch.where(
+            shrink, torch.clamp_min(scale * self._decr_ratio, 1e-6),
+            torch.where(grow, scale * self._incr_ratio, scale))
+        scale.copy_(new_scale)
+        good.copy_(torch.where(grow, 0, new_good))
+        bad.copy_(torch.where(shrink, 0, new_bad))
+
+    def state_dict(self) -> dict:
+        return {
+            "scale": self._scale.clone(),
+            "incr_ratio": self._incr_ratio, "decr_ratio": self._decr_ratio,
+            "incr_every_n_steps": self._incr_every,
+            "decr_every_n_nan_or_inf": self._decr_every,
+            "incr_count": self._good_steps.clone(),
+            "decr_count": self._bad_steps.clone(),
+            "use_dynamic_loss_scaling": self._use_dynamic,
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Into the cells, in place."""
+        for key, cell in (("scale", self._scale),
+                          ("incr_count", self._good_steps),
+                          ("decr_count", self._bad_steps)):
+            if key in state:
+                val = getattr(state[key], "_value", state[key])
+                cell.copy_(torch.as_tensor(val, dtype=cell.dtype))

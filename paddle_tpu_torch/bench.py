@@ -2,11 +2,17 @@
 
     python -m paddle_tpu_torch.bench                  # gpt13 on cuda
     python -m paddle_tpu_torch.bench --model llama
+    python -m paddle_tpu_torch.bench --eager          # the eager step
     python -m paddle_tpu_torch.bench --small --device cpu [--model llama]
 
 Counterpart of the root ``bench.py``'s ``bench_gpt13``, ``bench_llama``
-and ``_time_steps``, run eagerly (CUDA graphs, the counterpart of its
-``jit.StaticFunction``, are later work). Each model takes its bench's
+and ``_time_steps``. By default the step runs as the root bench runs it
+(``bench.py:300``, ``:791``): ``jit.StaticFunction(train_fn,
+observe=[model, opt], warmup=False)`` over ids and labels from
+``paddle.to_tensor``, which on the card captures it as one CUDA graph
+and replays it (the first call runs eagerly, the second captures; on
+the CPU every call runs eagerly). ``--eager`` runs ``train_fn`` itself
+on torch tensors, for the A/B. Each model takes its bench's
 configuration at the bench's defaults:
 
 - ``gpt13``: GPT-3 XL (vocab 50304, hidden 2048, 24 layers, 16 heads of
@@ -26,12 +32,13 @@ Both train with ``AdamW(learning_rate=1e-4)`` and the step
 from numpy seed 0.
 
 Timing as there: one first step (``compile_s``: here the kernels' build
-and the libraries' warm-up), two warm steps, then 3 blocks of 10 steps
-(3 small), each block ending in one device synchronisation; the best
-block sets ``step_ms``. Prints one JSON line: tokens/s, step ms,
-achieved TFLOP/s (6 x params x tokens/s), MFU against the H100's dense
-bf16 peak of 989 TFLOP/s, the last loss, and the card's name and power
-limit.
+and the libraries' warm-up), two warm steps (the first of them captures
+the graph: ``capture_s``), then 3 blocks of 10 steps (3 small), each
+block ending in one device synchronisation; the best block sets
+``step_ms``. Prints one JSON line: tokens/s, step ms, achieved TFLOP/s
+(6 x params x tokens/s), MFU against the H100's dense bf16 peak of 989
+TFLOP/s, the last loss, peak memory, ``graphed``, ``capture_s`` and the
+step's ``compile_counts``, and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -44,16 +51,16 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from . import amp, generator
+from . import amp, generator, jit
 from .device import default_device, resolve_device
 from .models import GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM
 from .models import llama_tiny
 from .optimizer import AdamW
 
 __all__ = ["gpt13_setup", "llama_setup", "SETUPS", "MASTER_WEIGHT", "build",
-           "make_train_fn", "time_steps", "config_name", "bench_model",
-           "bench_gpt13", "bench_llama", "card_label", "facade_step",
-           "H100_BF16_PEAK_TFLOPS"]
+           "make_train_fn", "time_steps", "config_name", "train_run",
+           "bench_model", "bench_gpt13", "bench_llama", "card_label",
+           "facade_step", "H100_BF16_PEAK_TFLOPS"]
 
 H100_BF16_PEAK_TFLOPS = 989.0  # dense, SXM, 700 W (NVIDIA data sheet)
 
@@ -192,25 +199,40 @@ def config_name(model: str, cfg, B: int, S: int) -> str:
     return "llama" + head + rc + ("-fce" if cfg.fused_loss else "")
 
 
-def bench_model(model: str = "gpt13", small: bool = False, device=None,
-                steps: Optional[int] = None, reps: int = 3) -> dict:
-    """Run the bench of ``model`` (``gpt13`` or ``llama``); returns its
-    record plus ``losses`` (every step's, in order) and ``steps_run``."""
+def train_run(model: str = "gpt13", small: bool = False, device=None,
+              steps: Optional[int] = None, reps: int = 3,
+              eager: bool = False):
+    """Run the bench of ``model`` (``gpt13`` or ``llama``): ``(record,
+    model, optimizer)``, the record with ``losses`` (every step's, in
+    order) and ``steps_run``. ``eager`` runs ``train_fn`` on torch
+    tensors; else the root bench's ``StaticFunction`` step on
+    ``paddle.to_tensor`` ids."""
+    import paddle_tpu_torch as paddle
+
     device = resolve_device(device)
     cfg, B, S, default_steps = SETUPS[model](small)
     steps = default_steps if steps is None else int(steps)
     model_, opt = build(cfg, device, MASTER_WEIGHT[model])
     rng = np.random.default_rng(0)
     ids_np = rng.integers(0, cfg.vocab_size, (B, S))
-    ids = torch.from_numpy(ids_np).to(device)
-    labels = torch.from_numpy(np.roll(ids_np, -1, axis=1)).to(device)
+    labels_np = np.roll(ids_np, -1, axis=1)
+    train_fn = make_train_fn(model_, opt)
+    if eager:
+        step = train_fn
+        args = (torch.from_numpy(ids_np).to(device),
+                torch.from_numpy(labels_np).to(device))
+    else:
+        step = jit.StaticFunction(train_fn, observe=[model_, opt],
+                                  warmup=False)
+        args = (paddle.to_tensor(ids_np, place=device),
+                paddle.to_tensor(labels_np, place=device))
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    dt, first_s, losses = time_steps(make_train_fn(model_, opt),
-                                     (ids, labels), steps, reps, device)
+    dt, first_s, losses = time_steps(step, args, steps, reps, device)
     tokens_per_s = B * S / dt
     n_params = sum(p.numel() for p in model_.parameters())
     achieved = 6 * n_params * tokens_per_s / 1e12
+    capture = None if eager else step.capture_seconds()
     record = {
         "metric": f"{model}_tokens_per_sec_per_chip",
         "value": round(tokens_per_s, 1),
@@ -227,19 +249,32 @@ def bench_model(model: str = "gpt13", small: bool = False, device=None,
         "peak_memory_gib": (round(torch.cuda.max_memory_allocated(device)
                                   / 2**30, 2)
                             if device.type == "cuda" else None),
+        "graphed": not eager and device.type == "cuda",
+        "capture_s": (round(sum(capture.values()), 3) if capture
+                      else None),
+        "compile_counts": None if eager else step.compile_counts(),
         "device": card_label(device),
     }
-    return dict(record, losses=losses, steps_run=len(losses))
+    return dict(record, losses=losses, steps_run=len(losses)), model_, opt
+
+
+def bench_model(model: str = "gpt13", small: bool = False, device=None,
+                steps: Optional[int] = None, reps: int = 3,
+                eager: bool = False) -> dict:
+    """:func:`train_run`'s record."""
+    return train_run(model, small, device, steps, reps, eager)[0]
 
 
 def bench_gpt13(small: bool = False, device=None,
-                steps: Optional[int] = None, reps: int = 3) -> dict:
-    return bench_model("gpt13", small, device, steps, reps)
+                steps: Optional[int] = None, reps: int = 3,
+                eager: bool = False) -> dict:
+    return bench_model("gpt13", small, device, steps, reps, eager)
 
 
 def bench_llama(small: bool = False, device=None,
-                steps: Optional[int] = None, reps: int = 3) -> dict:
-    return bench_model("llama", small, device, steps, reps)
+                steps: Optional[int] = None, reps: int = 3,
+                eager: bool = False) -> dict:
+    return bench_model("llama", small, device, steps, reps, eager)
 
 
 def main(argv=None):
@@ -249,10 +284,12 @@ def main(argv=None):
                     help="the bench's small configuration")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--eager", action="store_true",
+                    help="run train_fn eagerly, not through StaticFunction")
     args = ap.parse_args(argv)
     if torch.cuda.is_available():
         torch.backends.cuda.matmul.allow_tf32 = False
-    rec = bench_model(args.model, args.small, args.device)
+    rec = bench_model(args.model, args.small, args.device, eager=args.eager)
     rec.pop("losses")
     rec.pop("steps_run")
     print(json.dumps(rec), flush=True)

@@ -21,7 +21,10 @@
 //   from the caller. Dropout: keep bits from keep_bit(), a hash of the
 //   global (seed, bh, row, col), identical in all the kernels and in the
 //   plain version; kept p is divided by (1 - p_drop); the softmax
-//   denominator l uses the undropped p.
+//   denominator l uses the undropped p. The seed is read from device
+//   memory (an int32 the caller owns, as the Pallas kernels' seed_ref), so
+//   a CUDA graph that captured a launch reads the seed written there
+//   before each replay; without dropout the pointer may be null.
 //
 // Rounding (bf16 inputs), as the Pallas kernels do: q.k, dO.v and every
 // accumulator are f32; K1 rounds p (dropped, rescaled) to bf16 before
@@ -219,7 +222,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ kpad,
                  T* __restrict__ o, float* __restrict__ lse, Layout lay,
                  int H, int Sq, int Sk, float scale, int causal, float drop_p,
-                 float inv_keep, int seed) {
+                 float inv_keep, const int* __restrict__ seed_p) {
+  const int seed = drop_p > 0.f ? *seed_p : 0;
   constexpr int LD = D + 1;
   constexpr int NJ = D / 16;
   extern __shared__ float smem[];
@@ -346,7 +350,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 const float* __restrict__ kpad, T* __restrict__ dq,
                 Layout lay, int H, int Sq, int Sk, float scale, int causal,
-                float drop_p, float inv_keep, int seed) {
+                float drop_p, float inv_keep,
+                const int* __restrict__ seed_p) {
+  const int seed = drop_p > 0.f ? *seed_p : 0;
   constexpr int LD = D + 1;
   constexpr int NJ = D / 16;
   extern __shared__ float smem[];
@@ -470,7 +476,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const float* __restrict__ kpad, T* __restrict__ dk,
                  T* __restrict__ dv, Layout lay, int H, int Sq, int Sk,
                  float scale, int causal, float drop_p, float inv_keep,
-                 int seed) {
+                 const int* __restrict__ seed_p) {
+  const int seed = drop_p > 0.f ? *seed_p : 0;
   constexpr int LD = D + 1;
   constexpr int NJ = D / 16;
   extern __shared__ float smem[];
@@ -758,7 +765,7 @@ __device__ __forceinline__ void fwd_tile(
     const uint32_t (&qf)[D / 16][4], float (&acc)[D / 8][4], float (&m)[2],
     float (&l)[2], const bf16* ks, const bf16* vs, const float* kpad_b,
     int Sk, int k0, int row0, int offset, int causal, float sl2,
-    float drop_p, float inv_keep, int seed, int bh) {
+    float drop_p, float inv_keep, const int& seed, int bh) {
   constexpr int LD = D + 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
 
@@ -873,7 +880,13 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const float* __restrict__ kpad, bf16* __restrict__ o,
                       float* __restrict__ lse, Layout lay, int H, int Sq,
                       int Sk, float scale, int causal, float drop_p,
-                      float inv_keep, int seed) {
+                      float inv_keep, const int* __restrict__ seed_p) {
+  // the dropout seed, read once into shared memory: each keep bit
+  // reads it there, so no register holds it through the kernel; the
+  // barrier after the first tile loads makes it visible before any use
+  __shared__ int seed_s;
+  if (threadIdx.x == 0) seed_s = drop_p > 0.f ? *seed_p : 0;
+  const int& seed = seed_s;
   constexpr int LD = D + 8;
   constexpr int kTileElems = kTile * LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -982,7 +995,7 @@ __device__ __forceinline__ void dq_tile(
     const float (&lse2)[2], const float (&dl)[2], const bf16* dos,
     const bf16* ks, const bf16* vs, const float* kpad_b, int Sk, int k0,
     int row0, int offset, int causal, float sl2, float drop_p,
-    float inv_keep, int seed, int bh) {
+    float inv_keep, const int& seed, int bh) {
   constexpr int LD = D + 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
 
@@ -1086,7 +1099,14 @@ flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ delta,
                      const float* __restrict__ kpad, bf16* __restrict__ dq,
                      Layout lay, int H, int Sq, int Sk, float scale,
-                     int causal, float drop_p, float inv_keep, int seed) {
+                     int causal, float drop_p, float inv_keep,
+                     const int* __restrict__ seed_p) {
+  // the dropout seed, read once into shared memory: each keep bit
+  // reads it there, so no register holds it through the kernel; the
+  // barrier after the first tile loads makes it visible before any use
+  __shared__ int seed_s;
+  if (threadIdx.x == 0) seed_s = drop_p > 0.f ? *seed_p : 0;
+  const int& seed = seed_s;
   constexpr int LD = D + 8;
   constexpr int kTileElems = kTile * LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1200,7 +1220,7 @@ __device__ __forceinline__ void dkv_half(
     const bf16* vs, const bf16* qs, const bf16* dos, const float* ls,
     const float* dls, int c0, int q0, int kw0, int Sq, int offset,
     int causal, const bool (&kok)[2], float sl2, float drop_p,
-    float inv_keep, int seed, int bh) {
+    float inv_keep, const int& seed, int bh) {
   constexpr int LD = D + 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
 
@@ -1292,7 +1312,13 @@ flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const float* __restrict__ kpad, bf16* __restrict__ dk,
                       bf16* __restrict__ dv, Layout lay, int H, int Sq,
                       int Sk, float scale, int causal, float drop_p,
-                      float inv_keep, int seed) {
+                      float inv_keep, const int* __restrict__ seed_p) {
+  // the dropout seed, read once into shared memory: each keep bit
+  // reads it there, so no register holds it through the kernel; the
+  // barrier after the first tile loads makes it visible before any use
+  __shared__ int seed_s;
+  if (threadIdx.x == 0) seed_s = drop_p > 0.f ? *seed_p : 0;
+  const int& seed = seed_s;
   constexpr int LD = D + 8;
   constexpr int kTileElems = kTile * LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1412,7 +1438,7 @@ struct Args {
   float scale;
   int causal;
   float drop_p, inv_keep;
-  int seed;
+  const int* seed;  // device int32, read only with drop_p > 0
 };
 
 Layout make_layout(const long long* st) {
@@ -1548,7 +1574,7 @@ bool bad_args(const Args& a, int D, int dtype) {
          (D != 32 && D != 64 && D != 128) || (dtype != kF32 && dtype != kBF16) ||
          (a.Sq + kTile - 1) / kTile > 65535 ||
          (a.Sk + kTile - 1) / kTile > 65535 || !(a.drop_p >= 0.f) ||
-         a.drop_p >= 1.f;
+         a.drop_p >= 1.f || (a.drop_p > 0.f && a.seed == nullptr);
 }
 
 // Returns FN<T, D>(...) for the runtime (dtype, D).
@@ -1589,14 +1615,17 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
 // K1. q, k, v [B, S, H, D] (strides[0..8]: batch, seq, head strides of q,
 // k, v in elements), o [B, Sq, H, D] (strides[9..11]); kpad f32 [B, Sk]
 // or null; lse f32 [B*H, Sq] contiguous. dtype 0 = f32, 1 = bf16; D in
-// {32, 64, 128}. Returns the launch's cudaError_t.
+// {32, 64, 128}. seed: one int32 in device memory, read by the kernel
+// when drop_p > 0 (may be null otherwise). Returns the launch's
+// cudaError_t.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 const void* kpad, void* o, void* lse,
                                 const void* strides, int B, int H, int Sq,
                                 int Sk, int D, float scale, int causal,
-                                float drop_p, float inv_keep, int seed,
+                                float drop_p, float inv_keep, const void* seed,
                                 int dtype, void* stream) {
-  const Args a{B, H, Sq, Sk, scale, causal, drop_p, inv_keep, seed};
+  const Args a{B, H, Sq, Sk, scale, causal, drop_p, inv_keep,
+               static_cast<const int*>(seed)};
   if (bad_args(a, D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   const Layout lay = make_layout(static_cast<const long long*>(strides));
   return static_cast<int>(run_fwd(q, k, v, kpad, o, lse, lay, a, D, dtype,
@@ -1611,9 +1640,10 @@ extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
                                const void* delta, const void* kpad, void* dqp,
                                const void* strides, int B, int H, int Sq,
                                int Sk, int D, float scale, int causal,
-                               float drop_p, float inv_keep, int seed,
+                               float drop_p, float inv_keep, const void* seed,
                                int dtype, void* stream) {
-  const Args a{B, H, Sq, Sk, scale, causal, drop_p, inv_keep, seed};
+  const Args a{B, H, Sq, Sk, scale, causal, drop_p, inv_keep,
+               static_cast<const int*>(seed)};
   if (bad_args(a, D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   const Layout lay = make_layout(static_cast<const long long*>(strides));
   return static_cast<int>(run_dq(q, k, v, dout, lse, delta, kpad, dqp, lay,
@@ -1628,9 +1658,10 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
                                 void* dkp, void* dvp, const void* strides,
                                 int B, int H, int Sq, int Sk, int D,
                                 float scale, int causal, float drop_p,
-                                float inv_keep, int seed, int dtype,
+                                float inv_keep, const void* seed, int dtype,
                                 void* stream) {
-  const Args a{B, H, Sq, Sk, scale, causal, drop_p, inv_keep, seed};
+  const Args a{B, H, Sq, Sk, scale, causal, drop_p, inv_keep,
+               static_cast<const int*>(seed)};
   if (bad_args(a, D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   const Layout lay = make_layout(static_cast<const long long*>(strides));
   return static_cast<int>(run_dkv(q, k, v, dout, lse, delta, kpad, dkp, dvp,

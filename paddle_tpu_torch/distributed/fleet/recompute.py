@@ -16,7 +16,14 @@ three things of the JAX package's kept:
 - The random state: with ``preserve_rng_state`` (the default) the
   recomputation draws the same seeds from the port's global generator
   (``generator.default_generator``, which dropout draws from) as the
-  forward did, and torch's own RNG states as ``checkpoint`` keeps them.
+  forward did: it sets the generator back to its state at the call
+  through ``generator.get_rng_state``/``set_rng_state``, which a
+  captured step's seed tape logs, so inside a CUDA graph the
+  regenerated region reads seed slots that each replay fills with the
+  forward's draws. Every dropout of the port is keyed by such a seed
+  and draws nothing from torch's RNGs, so ``checkpoint`` is not asked
+  to stash them (``preserve_rng_state=False``): its stash reads the
+  CUDA generator on the host, which a capture refuses.
 
 Policies: ``None`` and ``"full"`` (recompute everything). The JAX
 package's named policies (``dots``, ``dots_no_batch`` and their aliases,
@@ -58,13 +65,12 @@ def _check_policy(policy) -> None:
 def _generator_at(state):
     """Run the block with the global generator at ``state``, then put it
     back where it was."""
-    gen = _generator.default_generator
-    now = gen.get_state()
-    gen.set_state(state)
+    now = _generator.get_rng_state()
+    _generator.set_rng_state(state)
     try:
         yield
     finally:
-        gen.set_state(now)
+        _generator.set_rng_state(now)
 
 
 def recompute(function: Callable, *args, preserve_rng_state: bool = True,
@@ -75,8 +81,7 @@ def recompute(function: Callable, *args, preserve_rng_state: bool = True,
     del use_reentrant
     _check_policy(policy)
     state = amp.current_state()
-    rng = (_generator.default_generator.get_state() if preserve_rng_state
-           else None)
+    rng = _generator.get_rng_state() if preserve_rng_state else None
     calls = [0]
 
     def run(*xs):
@@ -96,4 +101,4 @@ def recompute(function: Callable, *args, preserve_rng_state: bool = True,
             return function(*xs, **kwargs)
 
     return checkpoint(run, *args, use_reentrant=False,
-                      preserve_rng_state=preserve_rng_state)
+                      preserve_rng_state=False)

@@ -20,18 +20,20 @@ from typing import Optional
 import torch
 
 from ...amp import cast_inputs
-from ...generator import device_generator, next_seed
-from ...ops.flash_attention import NEG_INF, flash_attention_bshd
+from ...generator import next_seed
+from ...ops.flash_attention import NEG_INF, flash_attention_bshd, keep_mask
 from ...tensor import facade_io
 
 __all__ = ["scaled_dot_product_attention", "flash_attention"]
 
 
 def _sdpa_ref(q, k, v, mask, dropout_p: float, causal: bool,
-              scale: Optional[float], generator=None):
+              scale: Optional[float], seed=None):
     """Dense attention in q's dtype, softmax in f32 (the JAX package's
     ``_sdpa_ref``). ``mask``: bool (True = attend) or additive, broadcast
-    to ``[B, H, Sq, Sk]``. Dropout needs ``generator``."""
+    to ``[B, H, Sq, Sk]``. Dropout needs ``seed`` (a 0-d int32 tensor):
+    its keep bits are the flash kernels' hash, so it drops what flash
+    attention would drop with that seed."""
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * s
@@ -45,9 +47,14 @@ def _sdpa_ref(q, k, v, mask, dropout_p: float, causal: bool,
         logits = (torch.where(mask, logits, neg) if mask.dtype == torch.bool
                   else logits + mask)
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-    if dropout_p > 0.0 and generator is not None:
-        keep = torch.rand(probs.shape, generator=generator,
-                          device=probs.device) < 1.0 - dropout_p
+    if dropout_p > 0.0 and seed is not None:
+        B, H, sq, sk = probs.shape
+        dev = probs.device
+        keep = keep_mask(
+            seed, torch.arange(B * H, dtype=torch.int32, device=dev).view(
+                B, H, 1, 1),
+            torch.arange(sq, dtype=torch.int32, device=dev).view(sq, 1),
+            torch.arange(sk, dtype=torch.int32, device=dev), dropout_p)
         probs = torch.where(keep, probs / (1.0 - dropout_p),
                             0.0).to(probs.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, vh).transpose(1, 2)
@@ -70,19 +77,21 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  is_causal: bool = False,
                                  training: bool = True):
     """Attention over ``[B, S, H, D]`` inputs (module docstring).
-    Dropout's seed is drawn from the global generator."""
+    Dropout's seed is drawn from the global generator as a 0-d int32
+    tensor on q's device (``generator.next_seed``): data that the kernels
+    read, and that a captured step carries in its seed buffer."""
     drop = dropout_p if training else 0.0
     kpad = _as_key_padding(attn_mask, query.shape[0], key.shape[1])
     if attn_mask is None or kpad is not None:
         q, k, v = cast_inputs("flash_attention", query, key, value)
         return flash_attention_bshd(
             q, k, v, causal=is_causal, dropout_p=drop,
-            dropout_seed=next_seed() if drop > 0.0 else 0,
+            dropout_seed=next_seed(q.device) if drop > 0.0 else 0,
             key_padding_mask=kpad)
     q, k, v, m = cast_inputs("scaled_dot_product_attention", query, key,
                              value, attn_mask)
-    gen = device_generator(q.device) if drop > 0.0 else None
-    return _sdpa_ref(q, k, v, m, drop, is_causal, None, gen)
+    seed = next_seed(q.device) if drop > 0.0 else None
+    return _sdpa_ref(q, k, v, m, drop, is_causal, None, seed)
 
 
 @facade_io

@@ -19,7 +19,10 @@ with no key gives 0 and LSE about -1e30. After-softmax dropout draws its
 keep bits from :func:`keep_mask`, a hash of the global ``(seed, b*H + h,
 row, col)``, so the forward and both backward kernels (and the plain
 versions) drop the same elements whatever their tiling; the softmax
-denominator uses the undropped p.
+denominator uses the undropped p. The seed is data: a 0-d int32 tensor on
+q's device that the kernels read through a pointer (the Pallas kernels'
+``seed_ref``), so a CUDA graph that captured a call reads whatever seed
+is written there before its replay; an int is put into such a tensor.
 
 bf16 rounding, as the Pallas kernels: scores and every sum are f32; the
 forward rounds p (dropped and rescaled) to v's dtype before P.V, the
@@ -30,7 +33,10 @@ Dispatch is on the tensors' device, never on what is installed: CPU
 tensors take the plain versions (``ref_flash_fwd``, ``ref_flash_dq``,
 ``ref_flash_dkv``); CUDA tensors launch the kernels or raise. The
 counters ``kernel_launches`` and ``plain_calls`` (by kernel name) count
-the two paths.
+the two paths. A call made while its stream is being captured into a
+CUDA graph launches nothing then: it counts in ``captured_launches``, and
+the graph's owner adds the launches each replay makes with
+:func:`count_replays` (``replayed_launches``), as for K4.
 
 The kernels read q/k/v/dO through their strides (the last dimension
 must be contiguous), so GPT's q/k/v -- ``[B, S, H, D]`` views of one
@@ -54,24 +60,36 @@ from . import _build
 __all__ = ["flash_attention_bshd", "flash_fwd", "flash_dq", "flash_dkv",
            "flash_delta", "flash_bwd", "keep_mask",
            "ref_flash_fwd", "ref_flash_dq", "ref_flash_dkv",
-           "FlashAttentionFunction", "reset_counters", "KERNELS", "NEG_INF"]
+           "FlashAttentionFunction", "reset_counters", "count_replays",
+           "KERNELS", "NEG_INF"]
 
 NEG_INF = -1e30
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 HEAD_DIMS = (32, 64, 128)
 
-# plain-integer counts of the two paths, by kernel (read and zeroed by
-# chip_smoke.py)
+# plain-integer counts by kernel (read and zeroed by chip_smoke.py):
+# eager launches, calls recorded into a CUDA graph, launches made by
+# replaying such graphs, and plain-version calls
 kernel_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+captured_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+replayed_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 plain_calls: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_counters() -> None:
-    for name in KERNELS:
-        kernel_launches[name] = 0
-        plain_calls[name] = 0
+    for counts in (kernel_launches, captured_launches, replayed_launches,
+                   plain_calls):
+        for name in KERNELS:
+            counts[name] = 0
+
+
+def count_replays(calls: Dict[str, int]) -> None:
+    """Record the kernel launches one CUDA-graph replay makes: ``calls``,
+    by kernel, are the calls its capture recorded."""
+    for name, n in calls.items():
+        replayed_launches[name] += int(n)
 
 
 # ───────────────────────── dropout keep mask ─────────────────────────
@@ -87,9 +105,12 @@ def keep_mask(seed: int, bh, rows, cols, drop_p: float) -> torch.Tensor:
     the JAX package's ``_keep_mask``, xorshift-multiply rounds in int32
     with wrap-around multiplies and arithmetic right shifts (torch's
     ``>>`` on int32 is arithmetic). ``bh``, ``rows`` and ``cols`` are
-    int32 tensors that broadcast together; ``seed`` an int < 2^24."""
+    int32 tensors that broadcast together; ``seed`` an int < 2^24 or a
+    0-d int32 tensor holding one."""
+    if not isinstance(seed, torch.Tensor):
+        seed = int(seed)
     x = ((rows * _i32(0x9E3779B9)) ^ (cols * _i32(0x85EBCA6B))
-         ^ (bh * _i32(0x27D4EB2F) + int(seed)))
+         ^ (bh * _i32(0x27D4EB2F) + seed))
     x = x ^ (x >> 15)
     x = x * _i32(0x86143593)
     x = x ^ (x >> 13)
@@ -135,7 +156,7 @@ def _inv_keep(drop_p: float) -> torch.Tensor:
 
 
 def ref_flash_fwd(q, k, v, causal: bool, scale: float, dropout_p: float = 0.0,
-                  dropout_seed: int = 0, key_padding_mask=None):
+                  dropout_seed=0, key_padding_mask=None):
     """Plain version of K1: ``(O [B, Sq, H, D] in q's dtype, LSE [B*H, Sq]
     f32)``. Materialises the ``[B, H, Sq, Sk]`` scores in f32."""
     B, sq, H, _ = q.shape
@@ -176,7 +197,7 @@ def _bwd_probs(q, k, v, do, lse, delta, causal, scale, dropout_p,
 
 
 def ref_flash_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
-                 dropout_p: float = 0.0, dropout_seed: int = 0,
+                 dropout_p: float = 0.0, dropout_seed=0,
                  key_padding_mask=None):
     """Plain version of K2: dQ ``[B, Sq, H, D]`` in q's dtype."""
     _, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale, dropout_p,
@@ -186,7 +207,7 @@ def ref_flash_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
 
 
 def ref_flash_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
-                  dropout_p: float = 0.0, dropout_seed: int = 0,
+                  dropout_p: float = 0.0, dropout_seed=0,
                   key_padding_mask=None):
     """Plain version of K3: ``(dK, dV)``, each ``[B, Sk, H, D]`` in k's
     and v's dtype."""
@@ -206,8 +227,8 @@ def _fn(name: str, n_ptrs: int):
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # pointers, strides (int64[12]), B, H, Sq, Sk, D, scale, causal,
-        # drop_p, inv_keep, seed, dtype, stream
-        fn.argtypes = ([p] * n_ptrs + [p] + [i] * 5 + [f, i, f, f, i, i]
+        # drop_p, inv_keep, seed (int32 on the device), dtype, stream
+        fn.argtypes = ([p] * n_ptrs + [p] + [i] * 5 + [f, i, f, f, p, i]
                        + [p])
         fn.restype = ctypes.c_int
     return fn
@@ -257,17 +278,32 @@ def _strides(*ts) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def _seed_ptr(seed, q, dropout_p):
+    """The device address of the dropout seed (None without dropout):
+    ``seed`` a 0-d int32 tensor on q's device."""
+    if dropout_p <= 0.0:
+        return None
+    _check(isinstance(seed, torch.Tensor) and seed.dtype == torch.int32
+           and seed.numel() == 1 and seed.device == q.device,
+           "the dropout seed must be one int32 element on q's device")
+    return seed.data_ptr()
+
+
 def _launch(name, fn, ptrs, strides, q, sk, causal, scale, dropout_p, seed):
     B, sq, H, D = q.shape
+    seed_ptr = _seed_ptr(seed, q, dropout_p)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(*ptrs, ctypes.cast(strides, ctypes.c_void_p), B, H, sq, sk,
                 D, float(scale), int(causal), float(dropout_p),
-                float(_inv_keep(dropout_p)), int(seed),
+                float(_inv_keep(dropout_p)), seed_ptr,
                 _DTYPE_CODES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
-    kernel_launches[name] += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured_launches[name] += 1
+    else:
+        kernel_launches[name] += 1
 
 
 def _fwd_cuda(q, k, v, causal, scale, dropout_p, seed, kpad):
@@ -326,7 +362,7 @@ def _on(t: torch.Tensor, what: str) -> str:
 
 
 def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
-              dropout_p: float = 0.0, dropout_seed: int = 0,
+              dropout_p: float = 0.0, dropout_seed=0,
               key_padding_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(O, LSE)`` of attention over ``[B, S, H, D]`` inputs (module
     docstring). CPU tensors take the plain version, CUDA tensors K1."""
@@ -336,12 +372,13 @@ def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
         plain_calls["flash_fwd"] += 1
         return ref_flash_fwd(q, k, v, causal, scale, dropout_p, dropout_seed,
                              kpad)
-    return _fwd_cuda(q, k, v, causal, scale, dropout_p, dropout_seed, kpad)
+    return _fwd_cuda(q, k, v, causal, scale, dropout_p,
+                     _seed_tensor(dropout_seed, q, dropout_p), kpad)
 
 
 def flash_dq(q, k, v, do, lse, delta, causal: bool = False,
              scale: Optional[float] = None, dropout_p: float = 0.0,
-             dropout_seed: int = 0, key_padding_mask=None) -> torch.Tensor:
+             dropout_seed=0, key_padding_mask=None) -> torch.Tensor:
     """dQ from the forward's inputs, its LSE, dO and Delta = rowsum(dO *
     O) (f32 ``[B*H, Sq]``). CPU tensors take the plain version, CUDA
     tensors K2."""
@@ -351,12 +388,13 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool = False,
     if _on(q, "flash_dq") == "cpu":
         plain_calls["flash_dq"] += 1
         return ref_flash_dq(*args)
-    return _dq_cuda(*args)
+    return _dq_cuda(*args[:9], _seed_tensor(dropout_seed, q, dropout_p),
+                    args[10])
 
 
 def flash_dkv(q, k, v, do, lse, delta, causal: bool = False,
               scale: Optional[float] = None, dropout_p: float = 0.0,
-              dropout_seed: int = 0, key_padding_mask=None):
+              dropout_seed=0, key_padding_mask=None):
     """``(dK, dV)``, as :func:`flash_dq`; CUDA tensors launch K3."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     args = (q, k, v, do, lse, delta, causal, scale, dropout_p, dropout_seed,
@@ -364,7 +402,8 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool = False,
     if _on(q, "flash_dkv") == "cpu":
         plain_calls["flash_dkv"] += 1
         return ref_flash_dkv(*args)
-    return _dkv_cuda(*args)
+    return _dkv_cuda(*args[:9], _seed_tensor(dropout_seed, q, dropout_p),
+                     args[10])
 
 
 def flash_delta(o, do) -> torch.Tensor:
@@ -376,7 +415,7 @@ def flash_delta(o, do) -> torch.Tensor:
 
 def flash_bwd(q, k, v, o, lse, do, causal: bool = False,
               scale: Optional[float] = None, dropout_p: float = 0.0,
-              dropout_seed: int = 0, key_padding_mask=None):
+              dropout_seed=0, key_padding_mask=None):
     """``(dQ, dK, dV)`` from the forward's inputs, O, LSE and dO: Delta
     in torch, then K2 and K3 (their plain versions for CPU tensors)."""
     delta = flash_delta(o, do)
@@ -384,6 +423,15 @@ def flash_bwd(q, k, v, o, lse, do, causal: bool = False,
               dropout_seed=dropout_seed, key_padding_mask=key_padding_mask)
     dq = flash_dq(q, k, v, do, lse, delta, **kw)
     return (dq, *flash_dkv(q, k, v, do, lse, delta, **kw))
+
+
+def _seed_tensor(seed, q, dropout_p):
+    """The dropout seed as the kernels take it: a tensor as given, an
+    int put into a 0-d int32 tensor on q's device; None without
+    dropout."""
+    if dropout_p <= 0.0 or isinstance(seed, torch.Tensor):
+        return seed
+    return torch.full((), int(seed), dtype=torch.int32, device=q.device)
 
 
 def _kpad(mask):
@@ -397,7 +445,8 @@ class FlashAttentionFunction(torch.autograd.Function):
     """O = flash attention of (q, k, v); the backward runs K2 and K3 from
     the saved (q, k, v, O, LSE). Replaces the JAX package's two
     ``custom_vjp``s (with and without key padding): the seed and the mask
-    get no gradient."""
+    get no gradient. The seed tensor is kept for the backward, which
+    reads the same device cell as the forward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, dropout_p, dropout_seed,
@@ -423,14 +472,17 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 def flash_attention_bshd(q, k, v, causal: bool = False,
                          scale: Optional[float] = None,
-                         dropout_p: float = 0.0, dropout_seed: int = 0,
+                         dropout_p: float = 0.0, dropout_seed=0,
                          key_padding_mask=None) -> torch.Tensor:
     """Flash attention, layout ``[B, S, H, D]``, differentiable in q, k,
     v. ``dropout_p``: after-softmax dropout inside the kernels, its keep
-    bits a hash of ``(dropout_seed, b*H + h, row, col)`` (an int <
-    2^24). ``key_padding_mask``: ``[B, Sk]`` bool or 0/1, True = attend.
-    For O and LSE without autograd, :func:`flash_fwd`."""
+    bits a hash of ``(dropout_seed, b*H + h, row, col)`` (a 0-d int32
+    tensor on q's device, or an int, < 2^24). ``key_padding_mask``: ``[B,
+    Sk]`` bool or 0/1, True = attend. For O and LSE without autograd,
+    :func:`flash_fwd`."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    seed = (dropout_seed if isinstance(dropout_seed, torch.Tensor)
+            else int(dropout_seed))
     return FlashAttentionFunction.apply(q, k, v, bool(causal), scale,
-                                        float(dropout_p), int(dropout_seed),
+                                        float(dropout_p), seed,
                                         key_padding_mask)

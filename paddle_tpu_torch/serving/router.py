@@ -965,7 +965,11 @@ class Router:
         across the death, measured on the WALL clock from the original
         admission), or ``failed`` (no engine could adopt it) —
         ``paddle_tpu_wal_recovered_requests_total{outcome}`` counts
-        each. Returns ``{old_wal_id: outcome dict}``."""
+        each. A stream the log already retired is not re-admitted, but
+        its journal becomes its replay history, so
+        :meth:`attach_stream` gives a client the chunks the dead process
+        committed and never emitted. Returns ``{old_wal_id: outcome
+        dict}``."""
         if self._wal is None:
             if wal_dir is None:
                 raise ValueError(
@@ -987,6 +991,18 @@ class Router:
             if wr.wal_id in live_now:
                 continue    # admitted by THIS process: nothing to do
             results[wr.wal_id] = self._recover_one(wr, grammar_resolver)
+        # a stream retired in the log may not have reached its client:
+        # the dead process committed its last tokens and retire record
+        # before it emitted them (commit-then-emit). Its journal is its
+        # replay history, so a client re-attaching after its cursor gets
+        # the rest (the JAX router keeps no history for such a stream,
+        # and the client never sees its tail)
+        for wr in state.requests.values():
+            if (wr.outcome is not None and wr.superseded_by is None
+                    and wr.wal_id not in self._stream_hist):
+                self._stream_hist[wr.wal_id] = (
+                    [(i, t, None) for i, t in enumerate(wr.tokens)]
+                    + [(len(wr.tokens), None, wr.outcome)])
         self._wal.commit()
         return results
 

@@ -1,6 +1,7 @@
 """Where a training step's device time goes, on the card.
 
     python -m paddle_tpu_torch.tools.profile_train [--model llama] [--steps 3]
+        [--graphed]
 
 Builds the bench's model and optimizer (``bench.build``; ``--model
 gpt13``, the default: GPT-3 1.3B, B 8, S 1024, O2 bf16 without master
@@ -27,11 +28,22 @@ launched, launches per step, and device time per step by group:
 Under recompute the forward's kernels run again in the backward; they
 count in their groups like any other launch.
 
+``--graphed`` profiles the replayed step: the bench's default step,
+``jit.StaticFunction(train_fn, observe=[model, opt], warmup=False)``
+over ``paddle.to_tensor`` ids, warmed by its eager first call and its
+capture. A replay's kernels carry no host range, so each is given the
+group of the same kernel in one eager call of ``train_fn`` profiled
+just before (the two launch sequences aligned by kernel name, in order,
+by their longest common subsequence: the eager call's lr fill and the
+copies around a replay are launches only one of them makes); kernels
+left unaligned are grouped by name.
+
 It also lists the kernels that took the most device time.
 """
 from __future__ import annotations
 
 import argparse
+import difflib
 import json
 import time
 from collections import defaultdict
@@ -39,7 +51,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from .. import bench
+from .. import bench, jit
 from . import device_busy
 
 _RANGES = ("fused_linear_cross_entropy", "optimizer.step")
@@ -61,6 +73,40 @@ def _group(kernel: str, ranges) -> str:
     return "other"
 
 
+def _eager_sequence(events):
+    """``(kernel name, group)`` of an eager step, in launch order (one
+    stream: the order in which they ran)."""
+    ops = sorted((e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.kernels), key=lambda e: e.time_range.start)
+    return [(k.name, _group(k.name, _ranges(e))) for e in ops
+            for k in e.kernels]
+
+
+def _device_kernels(events):
+    """``(name, ms)`` of every device interval, by start time."""
+    return [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+            for e in sorted(
+                (e for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 and e.name not in _RANGES),
+                key=lambda e: e.time_range.start)]
+
+
+def _align(ref, names):
+    """For each of ``names``, the index of the same kernel in ``ref`` or
+    None: the matching blocks of the two sequences' longest common
+    subsequence (``difflib``, no junk heuristic), so runs present in one
+    sequence only are skipped over wherever they fall."""
+    out = [None] * len(names)
+    sm = difflib.SequenceMatcher(None, ref, names, autojunk=False)
+    for a, b, size in sm.get_matching_blocks():
+        for k in range(size):
+            out[b + k] = a + k
+    return out
+
+
 def _ranges(evt):
     out = set()
     while evt is not None:
@@ -70,20 +116,52 @@ def _ranges(evt):
     return out
 
 
+def _graphed_groups(prof_events, eager_seq, steps):
+    """Device ms and launches per step by group of the replayed steps in
+    ``prof_events`` (``steps`` replays), each kernel grouped as its
+    aligned eager kernel (module docstring)."""
+    kernels = _device_kernels(prof_events)
+    per = len(kernels) // steps
+    ref = [n for n, _g in eager_seq]
+    groups, launches = defaultdict(float), defaultdict(float)
+    unaligned = 0
+    for s in range(steps):
+        chunk = kernels[s * per:(s + 1) * per]
+        for (name, ms), at in zip(chunk, _align(ref, [n for n, _ in chunk])):
+            if at is None:
+                unaligned += 1
+                g = _group(name, set())
+            else:
+                g = eager_seq[at][1]
+            groups[g] += ms / steps
+            launches[g] += 1 / steps
+    return groups, launches, per, unaligned / steps
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=sorted(bench.SETUPS), default="gpt13")
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--graphed", action="store_true",
+                    help="profile the StaticFunction step's replays")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
     cfg, B, S, _ = bench.SETUPS[args.model](False)
     model, opt = bench.build(cfg, dev, bench.MASTER_WEIGHT[args.model])
-    step = bench.make_train_fn(model, opt)
+    train_fn = step = bench.make_train_fn(model, opt)
     rng = np.random.default_rng(0)
     ids_np = rng.integers(0, cfg.vocab_size, (B, S))
     ids = torch.from_numpy(ids_np).to(dev)
     labels = torch.from_numpy(np.roll(ids_np, -1, axis=1)).to(dev)
+    if args.graphed:
+        import paddle_tpu_torch as paddle
+
+        step = jit.StaticFunction(train_fn, observe=[model, opt],
+                                  warmup=False)
+        ids, labels = (paddle.to_tensor(ids_np, place=dev),
+                       paddle.to_tensor(np.roll(ids_np, -1, axis=1),
+                                        place=dev))
     torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(2):
         step(ids, labels)
@@ -95,6 +173,12 @@ def main(argv=None):
     step_ms = 1e3 * (time.perf_counter() - t0) / args.steps
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    eager_seq = None
+    if args.graphed:
+        with torch.profiler.profile(activities=acts) as ref:
+            train_fn(ids, labels)
+            torch.cuda.synchronize()
+        eager_seq = _eager_sequence(ref.events())
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
@@ -113,7 +197,16 @@ def main(argv=None):
     busy_ms, idle = device_busy(prof.events(), profiled_ms, _RANGES)
     groups = defaultdict(float)
     group_launches = defaultdict(float)
-    for evt in prof.events():
+    extra = {}
+    if args.graphed:
+        groups, group_launches, per, unaligned = _graphed_groups(
+            prof.events(), eager_seq, args.steps)
+        extra = {"graph_kernels_per_step": per,
+                 "eager_kernels_per_step": len(eager_seq),
+                 "unaligned_per_step": unaligned,
+                 "compile_counts": step.compile_counts(),
+                 "capture_s": sum(step.capture_seconds().values())}
+    for evt in prof.events() if not args.graphed else ():
         if evt.device_type != torch.autograd.DeviceType.CPU or not evt.kernels:
             continue
         ranges = _ranges(evt)
@@ -124,6 +217,7 @@ def main(argv=None):
     print(json.dumps({
         "device": bench.card_label(dev),
         "config": bench.config_name(args.model, cfg, B, S),
+        "step": "cuda_graph" if args.graphed else "eager", **extra,
         "steps": args.steps, "loss": loss.item(),
         "step_ms": step_ms, "profiled_step_ms": profiled_ms / args.steps,
         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,

@@ -267,3 +267,49 @@ def test_facade_entry_points_need_a_card_unless_told_cpu(no_cuda):
             paddle.zeros([2])
     finally:
         device._current = saved
+
+
+def test_captured_step_modules_import_no_jax():
+    """The modules of the captured training step (``jit/``, the copied
+    ``optimizer/lr.py``, ``nn/clip.py``, the optimizers and ``amp``) name
+    no jax or paddle_tpu import, and importing them in a fresh interpreter
+    loads neither."""
+    mods = ["paddle_tpu_torch.jit", "paddle_tpu_torch.jit.static_function",
+            "paddle_tpu_torch.optimizer.lr", "paddle_tpu_torch.nn.clip",
+            "paddle_tpu_torch.optimizer.optimizers", "paddle_tpu_torch.amp",
+            "paddle_tpu_torch.generator"]
+    files = [PKG / "jit" / "__init__.py", PKG / "jit" / "static_function.py",
+             PKG / "optimizer" / "lr.py", PKG / "nn" / "clip.py"]
+    bad = [f"{f.name}:{line} {name}" for f in files
+           for line, name in _imports(f) if _forbidden(name)]
+    assert all(f.exists() for f in files) and not bad, bad
+    probe = ("import importlib, sys\n"
+             f"for n in {mods!r}:\n"
+             "    importlib.import_module(n)\n"
+             "bad = [m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'paddle_tpu')]\n"
+             "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, cwd=str(REPO), env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_graphed_bench_and_scaler_need_a_card(no_cuda):
+    """``bench.bench_model`` (the ``StaticFunction`` step by default, and
+    ``eager=True``), ``bench.main`` and ``amp.GradScaler`` resolve to the
+    card and raise without one; given the CPU they run there."""
+    from paddle_tpu_torch import amp, bench
+
+    for eager in (False, True):
+        with pytest.raises(RuntimeError):
+            bench.bench_model("gpt13", small=True, eager=eager)
+    with pytest.raises(RuntimeError):
+        bench.main(["--small"])
+    with pytest.raises(RuntimeError):
+        bench.main(["--small", "--eager"])
+    with pytest.raises(RuntimeError):
+        amp.GradScaler()
+    assert amp.GradScaler(device="cpu")._scale.device.type == "cpu"

@@ -310,3 +310,45 @@ def test_engine_free_recover_outcomes_match(tmp_path, models, case):
                         got.get("x"), outcome)
     assert results["paddle_tpu_torch"] == results["paddle_tpu"]
     assert results["paddle_tpu"][0] == case
+
+
+@pytest.mark.parametrize("crashed_pkg", ["paddle_tpu", "paddle_tpu_torch"])
+def test_recover_replays_a_retired_streams_unseen_tail(tmp_path, models,
+                                                       reference,
+                                                       crashed_pkg):
+    """The restart drill's lost chunks (ROADMAP Queue 3 item 1): a router
+    commits a stream's last tokens and its retire record to the WAL
+    before it emits them (commit-then-emit), and its process dies in
+    between, so the client saw seqs 0-1 only. A port router recovering
+    that log (either package's) finds nothing pending, and a client
+    re-attaching after seq 1 must get the rest from the journal: seqs
+    2..n with one terminal chunk, the tokens of the uninterrupted run."""
+    crashed = _router(crashed_pkg, models, 2, wal_dir=str(tmp_path))
+    seen = {}
+
+    def emitted(key):
+        cb = _collect(seen, key)
+        return lambda rid, tok, fin, seq: (cb(rid, tok, fin, seq)
+                                           if seq <= 1 else None)
+
+    wids = {}
+    for key, p, temp, seed in SPECS:
+        rid = crashed.submit(p, "m", max_new_tokens=8, temperature=temp,
+                             seed=seed, stream_cb=emitted(key))
+        wids[key] = crashed.wal_id_of(rid)
+    _drain(crashed)
+    crashed._wal.close()           # dies before the emits reach the client
+    del crashed
+
+    survivor = _router("paddle_tpu_torch", models, 1, wal_dir=str(tmp_path))
+    assert survivor.recover() == {}
+    post = {}
+    for key, *_rest in SPECS:
+        survivor.attach_stream(wids[key], _collect(post, key), after_seq=1)
+    assert not survivor.has_work
+    survivor.shutdown()
+    for key, *_rest in SPECS:
+        merged = seen[key] + post.get(key, [])
+        assert [s for s, _t, _f in merged] == list(range(len(merged)))
+        assert [f for _s, _t, f in merged if f] == [merged[-1][2]]
+        assert _tokens(merged) == _tokens(reference[key])
