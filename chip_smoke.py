@@ -29,7 +29,10 @@ Phases, in order; any failure exits non-zero before the result line:
       strided views of one QKV projection) in bf16 (all three on tensor
       cores) and f32, and at Sq != Sk, S = 1000, key padding with an
       empty batch row (f32 and bf16), dropout, D 32 (f32 and bf16) and D
-      64; each output held elementwise and by its norm (``FLASH_TOL``),
+      64, and at BERT-base's shape (B 32, S 128, 12 heads of 64, bf16,
+      non-causal, dropout 0.1; timed, and again with random key lengths
+      and an empty batch row); each output held elementwise and by its
+      norm (``FLASH_TOL``),
       and at gpt13 bf16 the same check must reject the plain versions run
       at a scale 1% off; a bf16 input whose sequence stride is off 16
       bytes must be refused with ValueError before any launch; the
@@ -205,13 +208,25 @@ Phases, in order; any failure exits non-zero before the result line:
    step, the scale and both counters); step 3 skipped inside the graph
    and the scale halved; masks differing from step to step; one
    capture.
+14. Train BERT (``phase_train_bert``): BERT-base pretraining (vocab
+   30522, hidden 768, 12 layers, 12 heads of 64, intermediate 3072, a
+   Paddle ``Layer`` model) through ``bench --model bert`` (B 32, S 128,
+   MLM on 15% of the positions plus NSP, dropout 0.1, O2 bf16 with master
+   weights, AdamW): the bench's graphed step as in 6 (K1, K2, K3 12 a
+   step each); 8 steps graphed against 8 eager as in 12; then three
+   calls of one step with an ``attention_mask`` padding 8 of the 32 rows
+   (K1-K3 through key padding; finite losses, one capture, 12 launches
+   each a step). Prints tokens/s, step ms graphed and eager, MFU, peak
+   memory and ``capture_s``.
 
 The last two lines are the kernels' JSON record (K1-K3 with their
 launches by path: ``train_gpt13``, ``train_llama``,
 ``train_graphed_gpt13``, ``train_graphed_llama``,
-``train_graphed_state``, ``facade_attention``, ``facade_train``; on a
-graphed path the eager first step's launches plus the replayed ones) and
-{"ok": true, "device": {...}}.
+``train_graphed_state``, ``facade_attention``, ``facade_train``,
+``train_bert``, ``train_graphed_bert``, ``train_bert_masked``; on a
+graphed path the eager first step's launches plus the replayed ones; and
+``bert_case``, their times at BERT's shape) and {"ok": true, "device":
+{...}}.
 """
 import json
 import math
@@ -593,7 +608,10 @@ def flash_bounds(torch, q, k, causal, kpad):
 
 def flash_case(torch, gen, B, sq, sk, H, D, dtype, kpad_rows=False):
     """q as a strided [B, Sq, H, D] view of a [B, Sq, 3, H, D] QKV
-    tensor (GPT's layout), k and v the same at Sk, dO contiguous."""
+    tensor (GPT's layout), k and v the same at Sk, dO contiguous. Key
+    padding (``kpad_rows``): True keeps half of row 0's keys; "random"
+    keeps a random length of each row's (from 1); both keep no key of
+    the last row."""
     dev = "cuda"
     qkv = torch.randn((B, sq, 3, H, D), generator=gen, device=dev).to(dtype)
     kvx = torch.randn((B, sk, 3, H, D), generator=gen, device=dev).to(dtype)
@@ -602,7 +620,12 @@ def flash_case(torch, gen, B, sq, sk, H, D, dtype, kpad_rows=False):
     kpad = None
     if kpad_rows:
         kpad = torch.ones((B, sk), device=dev)
-        kpad[0, sk // 2:] = 0.0
+        if kpad_rows == "random":
+            lens = torch.randint(1, sk + 1, (B, 1), generator=gen,
+                                 device=dev)
+            kpad = (torch.arange(sk, device=dev)[None] < lens).float()
+        else:
+            kpad[0, sk // 2:] = 0.0
         kpad[-1] = 0.0  # the last batch row keeps no key
     return q, k, v, do, kpad
 
@@ -688,6 +711,11 @@ def phase_flash_kernels(torch):
         ("d32_bf16", 2, 300, 300, 8, 32, bf16, True, False, 0.0, False),
         ("d64_bf16", 2, 512, 512, 8, 64, bf16, True, False, 0.0, False),
         ("kpad_bf16", 3, 512, 512, 4, 128, bf16, False, True, 0.0, False),
+        # BERT-base's attention on the train_bert path: non-causal, 12
+        # heads of 64, dropout 0.1; then with random key lengths
+        ("bert_bf16", 32, 128, 128, 12, 64, bf16, False, False, 0.1, True),
+        ("bert_kpad_bf16", 32, 128, 128, 12, 64, bf16, False, "random",
+         0.1, False),
     ]
     results = {}
     for (name, B, sq, sk, H, D, dt, causal, kp, drop, timed) in cases:
@@ -834,7 +862,8 @@ def flash_refuses_misaligned(torch, fa):
 def time_flash(torch, fa, q, k, v, do, o, lse, delta, kw, pargs):
     """Device ms of each kernel, its plain version, and SDPA's forward
     and backward (one call each: the library's flash attention on the
-    same q, k, v, dO; its backward computes dQ, dK and dV together)."""
+    same q, k, v, dO, with the same dropout rate; its backward computes
+    dQ, dK and dV together)."""
     F = torch.nn.functional
     bargs = (q, k, v, do, lse, delta) + pargs
     out = {
@@ -857,9 +886,11 @@ def time_flash(torch, fa, q, k, v, do, o, lse, delta, kw, pargs):
                   for t in (q, k, v))
     doh = do.transpose(1, 2)
     causal = kw["causal"]
+    drop = kw["dropout_p"]
     fwd_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=causal))
-    oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+        qh, kh, vh, dropout_p=drop, is_causal=causal))
+    oh = F.scaled_dot_product_attention(qh, kh, vh, dropout_p=drop,
+                                        is_causal=causal)
     bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
         oh, (qh, kh, vh), doh, retain_graph=True))
     out["flash_fwd"].update(library_ms=fwd_ms, library_of="forward")
@@ -2004,8 +2035,8 @@ def phase_train_graphed(torch, card, model):
                                         reps=1, eager=kind == "eager")
         counts = flash_counts(fa)
         rec["jit_compiles"] = jit_compiles("train_fn") - before
-        runs[kind] = (rec, [p.detach().clone() for p in net.parameters()],
-                      counts)
+        runs[kind] = (rec, [getattr(p, "_value", p).detach().clone()
+                            for p in net.parameters()], counts)
         del net, opt
         torch.cuda.empty_cache()
     (r_e, p_e, c_e), (r_g, p_g, c_g) = runs["eager"], runs["graphed"]
@@ -2023,6 +2054,8 @@ def phase_train_graphed(torch, card, model):
     steps = r_g["steps_run"]
     summary = {
         "model": model, "steps": steps, "losses_equal": same_losses,
+        "tokens_per_s": {"eager": r_e["value"], "graphed": r_g["value"]},
+        "mfu": {"eager": r_e["mfu"], "graphed": r_g["mfu"]},
         "params_differ": len(differ), "losses": r_g["losses"],
         "step_ms": {"eager": r_e["step_ms"], "graphed": r_g["step_ms"]},
         "turns_step_ms": turns, "capture_s": r_g["capture_s"],
@@ -2061,6 +2094,88 @@ def phase_train_graphed(torch, card, model):
         fail(f"train graphed {model}: the eager run's flash counts "
              f"{c_e} != {eager_want} launches")
     return ran(c_g), summary
+
+
+def phase_train_bert(torch, card):
+    """BERT-base's pretraining step (``bench --model bert``: B 32, S 128,
+    O2 bf16 with master weights, dropout 0.1 on the hidden states and in
+    attention) on its three paths: the bench's graphed step
+    (``phase_train``: 8 steps, 12 launches of each flash kernel a step);
+    8 steps graphed against 8 eager from the same weights and seeds
+    (``phase_train_graphed``: bit-equal losses and parameters, one
+    capture); and ``bert_masked_step``. Returns the launches of each
+    path and the graphed phase's summary."""
+    bench_launches, _ = phase_train(torch, card, "bert")
+    torch.cuda.empty_cache()
+    graphed, summary = phase_train_graphed(torch, card, "bert")
+    torch.cuda.empty_cache()
+    masked = bert_masked_step(torch, card)
+    torch.cuda.empty_cache()
+    log(f"train bert: {summary['tokens_per_s']['graphed']} tokens/s "
+        f"graphed, {summary['tokens_per_s']['eager']} eager; step "
+        f"{summary['step_ms']['graphed']} ms graphed, "
+        f"{summary['step_ms']['eager']} ms eager; MFU "
+        f"{summary['mfu']['graphed']}; peak {summary['peak_memory_gib']} "
+        f"GiB; capture {summary['capture_s']} s ({card})")
+    return {"train_bert": bench_launches, "train_graphed_bert": graphed,
+            "train_bert_masked": masked}, summary
+
+
+def bert_masked_step(torch, card):
+    """The bench's BERT step with an ``attention_mask`` in which 8 of the
+    32 rows keep a random length of their 128 tokens: its bool [B, 1, 1,
+    S] form sends K1-K3 through key padding. Three calls of one
+    ``StaticFunction`` signature (eager, capture and replay, replay), each
+    loss finite, the counts those of 12 layers a step; then, in eval, the
+    encoder's output with the mask against without: the padded rows
+    move, the others agree at the bf16 flash check's norm tolerance."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import amp, bench, jit
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg, B, S, _ = bench.SETUPS["bert"](False)
+    model, opt = bench.build(cfg, torch.device("cuda"), None)
+    step = jit.StaticFunction(bench.make_bert_train_fn(model, opt),
+                              observe=[model, opt], warmup=False)
+    ids, mlm, nsp = bench.bert_data(cfg, B, S, "cuda")
+    rng = np.random.default_rng(1)
+    mask = np.ones((B, S), np.int64)
+    for row in rng.choice(B, B // 4, replace=False):
+        mask[row, rng.integers(1, S):] = 0
+    am = paddle.to_tensor(mask, place="cuda")
+    fa.reset_counters()
+    losses = [float(step(ids, mlm, nsp, am)) for _ in range(3)]
+    counts = flash_counts(fa)
+    log(f"train bert masked: losses {losses}, padded rows "
+        f"{int((mask.sum(1) < S).sum())}, {step.compile_counts()}, "
+        f"counts {counts} ({card})")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train bert masked: a loss is not finite: {losses}")
+    if step.compile_counts() != {"signatures": 1, "captured": 1,
+                                 "calls": 3}:
+        fail(f"train bert masked: not one capture: {step.compile_counts()}")
+    check_graphed_counts("train bert masked", counts,
+                         dict.fromkeys(fa.KERNELS, 1), cfg.num_layers, 3)
+    # the mask reaches attention: in eval (no dropout) the padded rows'
+    # sequence outputs move and the others stay within the bf16 check
+    model.eval()
+    with torch.no_grad(), amp.auto_cast(level="O2", dtype="bfloat16"):
+        masked = model.bert(ids, attention_mask=am)[0]._value.float()
+        plain = model.bert(ids)[0]._value.float()
+    padded = torch.from_numpy(mask.sum(1) < S).to("cuda")
+    moved = float((masked[padded] - plain[padded]).abs().max())
+    _ok, _m, rel_kept = held(torch, masked[~padded], plain[~padded],
+                             FLASH_TOL["bf16"])
+    log(f"train bert masked: eval forward, padded rows moved by up to "
+        f"{moved:.3e}, unpadded rows' norm-relative difference "
+        f"{rel_kept:.2e}")
+    if not moved > 1e-3 or rel_kept > FLASH_TOL["bf16"][2]:
+        fail("train bert masked: the attention mask did not reach the "
+             f"encoder (padded rows moved {moved}, the others {rel_kept})")
+    del model, opt, step
+    return ran(counts)
 
 
 def state_step(torch, graphed):
@@ -2609,6 +2724,8 @@ def main():
     graphed_gpt13, _ = phase_train_graphed(torch, card, "gpt13")
     graphed_llama, _ = phase_train_graphed(torch, card, "llama")
     graphed_state, _ = phase_train_graphed_state(torch, card)
+    torch.cuda.empty_cache()
+    bert, _ = phase_train_bert(torch, card)
     head = paged["a_decode_f32q_bf16kv"]
     chunk = paged["b_chunk_bf16"]
     kernels = [{
@@ -2657,11 +2774,21 @@ def main():
                 "train_graphed_llama": graphed_llama[kname],
                 "train_graphed_state": graphed_state[kname],
                 "facade_attention": facade["attention"][kname],
-                "facade_train": facade["train"][kname]},
+                "facade_train": facade["train"][kname]}
+            | {path: bert[path][kname] for path in bert},
             "max_abs_err": flash13["max_abs_err"][kname],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            # BERT-base's shape (B 32, S 128, 12 heads of 64, bf16,
+            # non-causal, dropout 0.1), timed the same way
+            "bert_case": {
+                "max_abs_err": flash["bert_bf16"]["max_abs_err"][kname],
+                "kpad_max_abs_err":
+                    flash["bert_kpad_bf16"]["max_abs_err"][kname],
+                **{key: flash["bert_bf16"][kname][key] for key in
+                   ("ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}},
         })
     k5 = adamw["n355m_step10"]
     kernels.append({

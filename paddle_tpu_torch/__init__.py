@@ -23,8 +23,11 @@ training steps of the root ``bench.py``'s ``bench_gpt13`` and
 the CUDA flash kernels of ``csrc/flash_attention.cu``), captured as a
 CUDA graph per input signature by ``jit.StaticFunction`` with the LR
 schedulers, ``GradScaler``, grad clipping and dropout seeds carried as
-data, and the fused AdamW kernel ``csrc/fused_adamw.cu``; and the eager
-core above.
+data, and the fused AdamW kernel ``csrc/fused_adamw.cu``; the eager
+core above; and Paddle's ``nn`` (``nn.Layer`` over facade Parameters,
+``ParamAttr``, the initializers, the common, activation, container,
+norm, loss and Transformer layers, ``nn.utils``) with BERT's pretraining
+step (``models.BertForPretraining``, ``bench --model bert``).
 
 Every entry point runs on ``cuda`` unless given ``device="cpu"`` or told
 ``set_device("cpu")`` (:mod:`.device`); kernels are built from ``csrc/``
@@ -32,7 +35,8 @@ with ``nvcc`` at first use (:mod:`.ops._build`). Not ported yet, of the
 JAX package's namespace: ``io``, ``jit.save``/``jit.load``, ``static``,
 ``distributed`` (beyond ``fleet.recompute``), ``metric``, ``hapi``/``Model``,
 ``vision``, ``incubate``, ``distribution``, ``fft``, ``signal``,
-``sparse``, ``linalg`` (the facade module; the ops are here),
+``sparse``, ``linalg`` (the facade module; the ops are here), the
+conv, pooling, RNN and extended layers of ``nn``,
 ``save``/``load``, ``set_flags``/``get_flags`` and the ``*Place``
 classes.
 """

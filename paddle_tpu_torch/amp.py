@@ -140,7 +140,9 @@ def cast_inputs(name: str, *tensors: torch.Tensor):
 def decorate(models, optimizers=None, level: str = "O2", dtype="bfloat16",
              master_weight: Optional[bool] = None):
     """The JAX package's ``amp.decorate``: O2 casts every floating
-    parameter to ``dtype`` in place, except those of norm layers, and
+    parameter to ``dtype`` in place, except those of norm layers (a
+    Paddle ``Layer``'s sublayers and a torch module's modules by class
+    name; a facade Parameter keeps its cell and torch tensor), and
     turns on the optimizers' master weights unless ``master_weight`` is
     False. O1 changes nothing. Returns what it was given, as there."""
     if level not in ("O1", "O2"):
@@ -153,10 +155,10 @@ def decorate(models, optimizers=None, level: str = "O2", dtype="bfloat16",
     if level == "O2":
         target = _to_dtype(dtype)
         for m in model_list:
-            for layer in m.modules():
+            for layer in _layers_of(m):
                 if type(layer).__name__.startswith(_NORM_PREFIXES):
                     continue
-                for p in layer.parameters(recurse=False):
+                for p in _own_parameters(layer):
                     if p.is_floating_point():
                         _recast(p, target)
         for opt in opt_list:
@@ -166,6 +168,23 @@ def decorate(models, optimizers=None, level: str = "O2", dtype="bfloat16",
         return models if single_model else model_list
     return (model_list[0] if single_model else model_list,
             opt_list[0] if single_opt else opt_list)
+
+
+def _layers_of(model):
+    """Every layer of ``model`` with itself: a Paddle ``Layer``'s
+    ``sublayers(include_self=True)``, a torch module's ``modules()``."""
+    if hasattr(model, "sublayers"):
+        return model.sublayers(include_self=True)
+    return model.modules()
+
+
+def _own_parameters(layer):
+    """The torch tensors of ``layer``'s own parameters (a Layer's facade
+    Parameters by their values)."""
+    if hasattr(layer, "sublayers"):
+        return [p._value for p in layer._parameters.values()
+                if p is not None]
+    return layer.parameters(recurse=False)
 
 
 @torch.no_grad()

@@ -1,12 +1,13 @@
-"""Training throughput on the card: GPT-3 1.3B and Llama-0.76B.
+"""Training throughput on the card: GPT-3 1.3B, Llama-0.76B and BERT-base.
 
     python -m paddle_tpu_torch.bench                  # gpt13 on cuda
     python -m paddle_tpu_torch.bench --model llama
+    python -m paddle_tpu_torch.bench --model bert
     python -m paddle_tpu_torch.bench --eager          # the eager step
     python -m paddle_tpu_torch.bench --small --device cpu [--model llama]
 
-Counterpart of the root ``bench.py``'s ``bench_gpt13``, ``bench_llama``
-and ``_time_steps``. By default the step runs as the root bench runs it
+Counterpart of the root ``bench.py``'s ``bench_gpt13``, ``bench_llama``,
+``bench_bert`` and ``_time_steps``. By default the step runs as the root bench runs it
 (``bench.py:300``, ``:791``): ``jit.StaticFunction(train_fn,
 observe=[model, opt], warmup=False)`` over ids and labels from
 ``paddle.to_tensor``, which on the card captures it as one CUDA graph
@@ -25,8 +26,16 @@ configuration at the bench's defaults:
   every layer, the fused cross entropy, ``amp.decorate(level="O2",
   dtype="bfloat16")`` with master weights. ``--small``:
   ``llama_tiny(recompute=False, fused_loss=True)``, B 2, S 128, 3 steps.
+- ``bert``: BERT-base (``bert_base``: vocab 30522, hidden 768, 12 layers,
+  12 heads of 64, intermediate 3072, dropout 0.1 on the hidden states
+  and the attention probabilities), B 32, S 128, the MLM loss on the 15%
+  of positions not labelled -100 plus the NSP loss,
+  ``amp.decorate(level="O2", dtype="bfloat16")`` with master weights. A
+  Paddle ``Layer`` model (``models/bert.py``) whose step takes facade
+  tensors (``--eager`` too). ``--small``: ``bert_tiny``, B 4, S 128, 5
+  steps.
 
-Both train with ``AdamW(learning_rate=1e-4)`` and the step
+All train with ``AdamW(learning_rate=1e-4)`` and the step
 ``loss.backward(); opt.step(); opt.clear_grad()`` under
 ``amp.auto_cast(level="O2")``, from ``generator.seed(0)`` and token ids
 from numpy seed 0.
@@ -53,11 +62,14 @@ import torch
 
 from . import amp, generator, jit
 from .device import default_device, resolve_device
-from .models import GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM
-from .models import llama_tiny
+from .device import using_device
+from .models import (BertConfig, BertForPretraining, GPTConfig,
+                     GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
+                     bert_base, bert_tiny, llama_tiny)
 from .optimizer import AdamW
 
-__all__ = ["gpt13_setup", "llama_setup", "SETUPS", "MASTER_WEIGHT", "build",
+__all__ = ["gpt13_setup", "llama_setup", "bert_setup", "bert_data",
+           "make_bert_train_fn", "SETUPS", "MASTER_WEIGHT", "build",
            "make_train_fn", "time_steps", "config_name", "train_run",
            "bench_model", "bench_gpt13", "bench_llama", "card_label",
            "facade_step", "H100_BF16_PEAK_TFLOPS"]
@@ -96,9 +108,18 @@ def llama_setup(small: bool):
     return cfg, 8, S, 10
 
 
-SETUPS = {"gpt13": gpt13_setup, "llama": llama_setup}
-# each bench's decorate: gpt13 without master weights, llama with them
-MASTER_WEIGHT = {"gpt13": False, "llama": None}
+def bert_setup(small: bool):
+    """``(config, batch, seq, steps)`` of ``bench_bert`` at its
+    defaults."""
+    S = 128
+    if small:
+        return bert_tiny(max_position_embeddings=max(S, 128)), 4, S, 5
+    return bert_base(max_position_embeddings=max(S, 512)), 32, S, 10
+
+
+SETUPS = {"gpt13": gpt13_setup, "llama": llama_setup, "bert": bert_setup}
+# each bench's decorate: gpt13 without master weights, the others with
+MASTER_WEIGHT = {"gpt13": False, "llama": None, "bert": None}
 
 
 def build(cfg, device, master_weight: Optional[bool] = False):
@@ -106,6 +127,12 @@ def build(cfg, device, master_weight: Optional[bool] = False):
     ``generator.seed(0)``. ``master_weight=None`` turns master weights on,
     as ``amp.decorate`` does by default."""
     generator.seed(0)
+    if isinstance(cfg, BertConfig):
+        with using_device(device):
+            model = BertForPretraining(cfg)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        return amp.decorate(model, opt, level="O2", dtype="bfloat16",
+                            master_weight=master_weight)
     if isinstance(cfg, LlamaConfig):
         model = LlamaForCausalLM(cfg, device=device,
                                  seed=generator.next_seed())
@@ -126,6 +153,35 @@ def make_train_fn(model, opt) -> Callable:
         opt.clear_grad()
         return loss
     return train_fn
+
+
+def make_bert_train_fn(model, opt) -> Callable:
+    """``bench_bert``'s ``train_fn`` (``bench.py:450``), with an optional
+    ``attention_mask`` ([B, S] of 1/0)."""
+    def train_fn(ids, mlm_labels, nsp_labels, attention_mask=None):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            _, loss = model(ids, attention_mask=attention_mask,
+                            masked_lm_labels=mlm_labels,
+                            next_sentence_labels=nsp_labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return train_fn
+
+
+def bert_data(cfg, B: int, S: int, device):
+    """``bench_bert``'s inputs from numpy seed 0, as facade tensors on
+    ``device``: ids, MLM labels (-100 but on the 15% of positions drawn
+    masked) and NSP labels."""
+    import paddle_tpu_torch as paddle
+
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (B, S))
+    mlm = ids.copy()
+    mlm[rng.random((B, S)) > 0.15] = -100
+    nsp = rng.integers(0, 2, (B,))
+    return tuple(paddle.to_tensor(a, place=device) for a in (ids, mlm, nsp))
 
 
 def facade_step(cfg, B: int, S: int):
@@ -192,6 +248,8 @@ def config_name(model: str, cfg, B: int, S: int) -> str:
     head = f"-h{cfg.hidden_size}-l{cfg.num_layers}-b{B}-s{S}-bf16"
     if model == "gpt13":
         return "gpt13" + head + "-fce-nomaster"
+    if model == "bert":
+        return "bert" + head
     rc = ""
     if cfg.recompute:
         rc = "-rc" + (f":{cfg.recompute_policy}" if cfg.recompute_policy
@@ -202,11 +260,11 @@ def config_name(model: str, cfg, B: int, S: int) -> str:
 def train_run(model: str = "gpt13", small: bool = False, device=None,
               steps: Optional[int] = None, reps: int = 3,
               eager: bool = False):
-    """Run the bench of ``model`` (``gpt13`` or ``llama``): ``(record,
-    model, optimizer)``, the record with ``losses`` (every step's, in
-    order) and ``steps_run``. ``eager`` runs ``train_fn`` on torch
-    tensors; else the root bench's ``StaticFunction`` step on
-    ``paddle.to_tensor`` ids."""
+    """Run the bench of ``model`` (``gpt13``, ``llama`` or ``bert``):
+    ``(record, model, optimizer)``, the record with ``losses`` (every
+    step's, in order) and ``steps_run``. ``eager`` runs ``train_fn``
+    itself (on torch tensors, BERT's on facade tensors); else the root
+    bench's ``StaticFunction`` step on ``paddle.to_tensor`` inputs."""
     import paddle_tpu_torch as paddle
 
     device = resolve_device(device)
@@ -217,7 +275,12 @@ def train_run(model: str = "gpt13", small: bool = False, device=None,
     ids_np = rng.integers(0, cfg.vocab_size, (B, S))
     labels_np = np.roll(ids_np, -1, axis=1)
     train_fn = make_train_fn(model_, opt)
-    if eager:
+    if model == "bert":
+        train_fn = make_bert_train_fn(model_, opt)
+        args = bert_data(cfg, B, S, device)
+        step = train_fn if eager else jit.StaticFunction(
+            train_fn, observe=[model_, opt], warmup=False)
+    elif eager:
         step = train_fn
         args = (torch.from_numpy(ids_np).to(device),
                 torch.from_numpy(labels_np).to(device))

@@ -9,12 +9,13 @@ every default below then follows until it is set again.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
 
 __all__ = ["default_device", "resolve_device", "set_device", "get_device",
-           "torch_device_name"]
+           "torch_device_name", "using_device"]
 
 # the device set by set_device, or None: the card
 _current: Optional[torch.device] = None
@@ -84,3 +85,16 @@ def resolve_device(device: Optional[Union[str, torch.device]]
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@contextlib.contextmanager
+def using_device(device):
+    """Within the block, :func:`set_device(device) <set_device>` (the
+    card when None); the device set before is put back after."""
+    global _current
+    prev = _current
+    set_device(device)
+    try:
+        yield
+    finally:
+        _current = prev

@@ -68,6 +68,7 @@ import torch
 from .. import dtypes
 from .. import generator as _generator
 from ..metrics import get_registry
+from ..nn.layer_base import Layer
 from ..ops import flash_attention as _fa
 from ..ops import paged_attention as _pa
 from ..optimizer.optimizer import Optimizer, _value
@@ -124,17 +125,23 @@ def _scan_state(objs: Sequence[Any]):
     optimizer's grad clip and any ``__jit_state__()``: the optimizers'
     lr buffers are written before each replay and their state made
     before the capture; the modules' ``training`` flags join the
-    signature."""
+    signature. A module is a ``torch.nn.Module`` or a Paddle ``Layer``
+    with each of its sublayers (whose flags ``train()``/``eval()`` set
+    one by one); a Layer's parameters and buffers are its state cells
+    (:func:`_layer_cells`)."""
     seen: set = set()
     opts: List[Optimizer] = []
-    modules: List[torch.nn.Module] = []
+    modules: List[Any] = []
     stack = list(objs)
     while stack:
         o = stack.pop()
         if o is None or id(o) in seen or isinstance(o, torch.Tensor):
             continue
         seen.add(id(o))
-        if isinstance(o, torch.nn.Module):
+        if isinstance(o, Layer):
+            modules.append(o)
+            stack.extend(o.sublayers())
+        elif isinstance(o, torch.nn.Module):
             modules.append(o)
         elif isinstance(o, Optimizer):
             opts.append(o)
@@ -326,6 +333,21 @@ class _Program:
             done.record()
 
 
+def _layer_cells(modules) -> List[torch.Tensor]:
+    """The torch tensors of every parameter and buffer of the Paddle
+    Layers among ``modules``: cells a step reads and writes in place (an
+    optimizer's update, BatchNorm's running statistics), so a replay
+    sees the last one's writes."""
+    cells: Dict[int, torch.Tensor] = {}
+    for m in modules:
+        if isinstance(m, Layer):
+            for t in (list(m._parameters.values())
+                      + list(m._buffers.values())):
+                if t is not None:
+                    cells[id(t._value)] = t._value
+    return list(cells.values())
+
+
 def _device_of(tensors, opts, modules) -> torch.device:
     for t in tensors:
         if t.device.type == "cuda":
@@ -333,9 +355,12 @@ def _device_of(tensors, opts, modules) -> torch.device:
     for opt in opts:
         for p in opt._parameter_list:
             return _value(p).device
+    for t in _layer_cells(modules):
+        return t.device
     for m in modules:
-        for p in m.parameters():
-            return p.device
+        if isinstance(m, torch.nn.Module):
+            for p in m.parameters():
+                return p.device
     return tensors[0].device if tensors else torch.device("cpu")
 
 
@@ -361,7 +386,7 @@ class StaticFunction:
         self._do_warmup = warmup
         self._scanned = False
         self._opts: List[Optimizer] = []
-        self._modules: List[torch.nn.Module] = []
+        self._modules: List[Any] = []
         self._cache: Dict[tuple, _Program] = {}
         self._pool = None
         self._stream: Optional[torch.cuda.Stream] = None
@@ -482,6 +507,11 @@ class StaticFunction:
     def _capture(self, prog: _Program, tensors, spec, meta,
                  device: torch.device) -> None:
         t0 = time.perf_counter()
+        for cell in _layer_cells(self._modules):
+            if cell.device != device:
+                raise RuntimeError(
+                    f"capture of {self.__name__!r} on {device}: a Layer's "
+                    f"parameter or buffer lies on {cell.device}")
         self._materialize()
         prog.inputs = []
         for t, stop in zip(tensors, meta):

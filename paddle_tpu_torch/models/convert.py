@@ -1,6 +1,9 @@
 """Carry weights across from the JAX package's ``state_dict``.
 
-The JAX package and the port name every parameter alike
+A Paddle ``Layer`` model of the port (BERT) holds the JAX model's
+names, layouts and buffers, and takes its ``state_dict`` as it is. For
+the ``torch.nn`` models (GPT, Llama) the JAX package and the port name
+every parameter alike
 (``llama.layers.0.self_attn.q_proj.weight``,
 ``gpt.layers.0.attn.qkv_proj.weight``, ...). Its ``Linear`` stores
 ``[in, out]`` and ``torch.nn.Linear`` ``[out, in]``, so every Linear
@@ -21,6 +24,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..nn.layer_base import Layer
+
 __all__ = ["load_reference_state_dict"]
 
 
@@ -30,7 +35,15 @@ def load_reference_state_dict(model: nn.Module,
     """Copy ``ref`` (the JAX model's ``state_dict()`` as numpy arrays) into
     ``model`` in place, in the model's dtype and on its device. Raises
     ``KeyError`` on a missing or unexpected key and ``ValueError`` on a
-    shape mismatch."""
+    shape mismatch. A Paddle ``Layer`` model (BERT) has the reference's
+    names, layouts and buffers, so it loads through ``set_state_dict``
+    with no transposes."""
+    if isinstance(model, Layer):
+        missing, unexpected = model.set_state_dict(ref)
+        if missing or unexpected:
+            raise KeyError(f"state dict mismatch: missing {missing}, "
+                           f"unexpected {unexpected}")
+        return
     linear = {f"{name}.weight" for name, m in model.named_modules()
               if isinstance(m, nn.Linear)}
     params = dict(model.named_parameters())

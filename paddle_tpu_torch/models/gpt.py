@@ -8,8 +8,9 @@ runs, with the paged-attention kernel K4. Module and parameter names
 match the JAX package (``gpt.layers.0.attn.qkv_proj.weight``, ...), so
 its ``state_dict`` loads here key for key (``models/convert.py``).
 
-Every op goes through the port's layers and functionals, and so through
-the amp cast rule under the JAX package's op names (``amp.py``); the
+Every op goes through the torch-layout layers and helpers of
+``models/_modules.py`` and the port's functionals, and so through the
+amp cast rule under the JAX package's op names (``amp.py``); the
 residual and embedding adds cast as its ``add``. Attention is
 ``nn.functional.flash_attention`` on q/k/v that are ``[B, S, H, D]``
 strided views of the fused QKV projection (no copy).
@@ -51,12 +52,12 @@ from torch import nn
 from .. import amp
 from ..device import resolve_device
 from ..generator import next_seed
-from ..nn import Embedding, LayerNorm, Linear
 from ..nn import functional as F
 from ..ops.fused_loss import fused_linear_cross_entropy
 from ..ops.paged_attention import ragged_paged_attention
 from ..quantization.observers import quantize_kv
 from ..tensor import facade_io
+from ._modules import Embedding, LayerNorm, Linear
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
            "gpt3_1_3b"]
@@ -203,9 +204,11 @@ class GPTDecoderLayer(nn.Module):
         self.drop_p = config.hidden_dropout_prob
 
     def forward(self, x):
-        h = F.dropout(self.attn(self.ln1(x)), self.drop_p, self.training)
+        h = F.dropout(self.attn(self.ln1(x)), self.drop_p,
+                      training=self.training)
         x = _add(x, h)
-        h = F.dropout(self.mlp(self.ln2(x)), self.drop_p, self.training)
+        h = F.dropout(self.mlp(self.ln2(x)), self.drop_p,
+                      training=self.training)
         return _add(x, h)
 
     def forward_paged(self, x, positions, block_tables, k_pool, v_pool,
@@ -245,7 +248,7 @@ class GPTModel(nn.Module):
                 S, device=input_ids.device).expand(B, S)
         x = _add(self.embeddings(input_ids),
                  self.position_embeddings(position_ids))
-        x = F.dropout(x, self.drop_p, self.training)
+        x = F.dropout(x, self.drop_p, training=self.training)
         for layer in self.layers:
             x = layer(x)
         return self.ln_f(x)

@@ -9,8 +9,9 @@ engine's ragged step runs, with the paged-attention kernel K4. Module
 and parameter names match the JAX package, so its ``state_dict`` loads
 here key for key (``models/convert.py``).
 
-Every op goes through the port's layers and functionals, and so through
-the amp cast rule under the JAX package's op names (``amp.py``):
+Every op goes through the torch-layout layers and helpers of
+``models/_modules.py`` and the port's functionals, and so through the
+amp cast rule under the JAX package's op names (``amp.py``):
 ``rms_norm`` (black list), ``linear``, ``llama_rope_gqa``,
 ``flash_attention``, ``merge_heads``, ``silu``, ``multiply``, ``add``,
 ``fused_linear_cross_entropy``, ``tied_lm_head``, ``recompute``. The
@@ -61,12 +62,12 @@ from torch import nn
 from .. import amp
 from ..device import resolve_device
 from ..distributed.fleet.recompute import recompute
-from ..nn import Embedding, Linear, RMSNorm
 from ..nn import functional as F
 from ..ops.fused_loss import fused_linear_cross_entropy
 from ..ops.paged_attention import ragged_paged_attention
 from ..quantization.observers import quantize_kv
 from ..tensor import facade_io
+from ._modules import Embedding, Linear, RMSNorm
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny"]
 

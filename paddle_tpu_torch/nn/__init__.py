@@ -1,17 +1,32 @@
-"""The layers and functionals of the port that the GPT and Llama models use,
-and gradient clipping.
+"""``paddle.nn`` of the port (``paddle_tpu/nn``).
 
-Counterpart of ``paddle_tpu/nn``: each functional casts its inputs by
-the amp rule under the JAX package's op name (:func:`..amp.cast_inputs`),
-and each layer is the ``torch.nn`` layer of the same name whose forward
-calls that functional. ``clip`` holds the three grad clips an optimizer
-takes as ``grad_clip``.
+``Layer`` (:mod:`.layer_base`) over facade Parameters, ``ParamAttr``,
+the ``initializer`` and ``utils`` modules, the grad clips, the
+functionals (``functional``) and the layer classes of ``layer.common``,
+``layer.activation``, ``layer.container``, ``layer.norm``, ``layer.loss``
+and ``layer.transformer``, exported flat as Paddle does. Not ported yet:
+the conv, pooling, RNN and extended layers, their functionals and
+``quant``.
+
+The port's GPT and Llama are ``torch.nn.Module``s built from the
+torch-layout layers of ``models/_modules.py``, not from these.
 """
-from . import clip, functional
+from . import functional, initializer, utils
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
-from .layer.common import Embedding, Linear
-from .layer.norm import LayerNorm, RMSNorm
+from .layer import activation, common, container, loss, norm, transformer
+from .layer.activation import *  # noqa: F401,F403
+from .layer.common import *  # noqa: F401,F403
+from .layer.container import *  # noqa: F401,F403
+from .layer.loss import *  # noqa: F401,F403
+from .layer.norm import *  # noqa: F401,F403
+from .layer.transformer import *  # noqa: F401,F403
+from .layer_base import Layer
+from .param_attr import ParamAttr
 
-__all__ = ["clip", "functional", "ClipGradByValue", "ClipGradByNorm",
-           "ClipGradByGlobalNorm", "Embedding", "Linear", "LayerNorm",
-           "RMSNorm"]
+__all__ = (["functional", "initializer", "utils", "clip", "Layer",
+            "ParamAttr", "ClipGradByValue", "ClipGradByNorm",
+            "ClipGradByGlobalNorm"]
+           + activation.__all__ + common.__all__ + container.__all__
+           + loss.__all__ + norm.__all__ + transformer.__all__)
+
+from . import clip  # noqa: E402

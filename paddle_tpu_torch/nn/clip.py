@@ -3,7 +3,9 @@
 ``jnp`` code.
 
 The optimizer calls ``clip(params_grads)`` (a list of ``(param, grad)``
-with torch grads) before its update and uses the grads it returns; a
+with torch grads) before its update and uses the grads it returns
+(facade grads, as a Paddle program passes them, come back as facade
+tensors); a
 parameter with ``need_clip`` False keeps its grad. Norms are f32 sums of
 squares and stay on the device: the factor is a ``torch.where`` on a 0-d
 tensor, never a host read, so a captured step clips inside its graph. A
@@ -13,6 +15,8 @@ an f32 factor is computed in JAX.
 from __future__ import annotations
 
 import torch
+
+from ..tensor import Tensor
 
 __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
            "ClipGradByGlobalNorm"]
@@ -34,6 +38,14 @@ def _factor(norm: torch.Tensor, clip_norm: float) -> torch.Tensor:
 
 class ClipGradBase:
     def __call__(self, params_grads):
+        params_grads = list(params_grads)
+        out = self._clip([(p, getattr(g, "_value", g))
+                          for p, g in params_grads])
+        return [(p, Tensor._wrap(c) if isinstance(g, Tensor) else c)
+                for (p, g), (_, c) in zip(params_grads, out)]
+
+    def _clip(self, params_grads):
+        """The clip on torch grads."""
         raise NotImplementedError
 
 
@@ -45,7 +57,7 @@ class ClipGradByValue(ClipGradBase):
         self.max = float(max)
         self.min = float(min) if min is not None else -self.max
 
-    def __call__(self, params_grads):
+    def _clip(self, params_grads):
         return [(p, torch.clamp(g, self.min, self.max) if _clips(p, g)
                  else g) for p, g in params_grads]
 
@@ -56,7 +68,7 @@ class ClipGradByNorm(ClipGradBase):
     def __init__(self, clip_norm: float):
         self.clip_norm = float(clip_norm)
 
-    def __call__(self, params_grads):
+    def _clip(self, params_grads):
         out = []
         for p, g in params_grads:
             if not _clips(p, g):
@@ -76,7 +88,7 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.clip_norm = float(clip_norm)
         self.group_name = group_name
 
-    def __call__(self, params_grads):
+    def _clip(self, params_grads):
         sq_sum = None
         clippable = set()
         for p, g in params_grads:

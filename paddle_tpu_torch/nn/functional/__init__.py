@@ -1,11 +1,13 @@
-"""Functionals of the port (``paddle_tpu/nn/functional``), the subset
-the GPT and Llama training steps use."""
-from .activation import gelu, silu
-from .attention import flash_attention, scaled_dot_product_attention
-from .common import dropout, embedding, linear
-from .loss import cross_entropy
-from .norm import layer_norm, rms_norm
+"""``paddle.nn.functional`` of the port (``paddle_tpu/nn/functional``):
+the functionals of ``activation``, ``attention``, ``common``, ``loss``
+and ``norm``, with the JAX package's signatures and Paddle's layouts.
+``conv``, ``pooling`` and ``extended`` are not ported yet."""
+from . import activation, attention, common, loss, norm
+from .activation import *  # noqa: F401,F403
+from .attention import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
 
-__all__ = ["gelu", "silu", "flash_attention", "scaled_dot_product_attention",
-           "dropout", "embedding", "linear", "cross_entropy", "layer_norm",
-           "rms_norm"]
+__all__ = (activation.__all__ + attention.__all__ + common.__all__
+           + loss.__all__ + norm.__all__)

@@ -75,7 +75,7 @@ def _as_key_padding(mask, batch: int, klen: int):
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
-                                 training: bool = True):
+                                 training: bool = True, name=None):
     """Attention over ``[B, S, H, D]`` inputs (module docstring).
     Dropout's seed is drawn from the global generator as a 0-d int32
     tensor on q's device (``generator.next_seed``): data that the kernels
@@ -96,7 +96,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 @facade_io
 def flash_attention(query, key, value, dropout: float = 0.0,
-                    causal: bool = False, training: bool = True):
-    """``paddle.nn.functional.flash_attention``: ``(out, None)``."""
+                    causal: bool = False, return_softmax: bool = False,
+                    fixed_seed_offset=None, rng_name: str = "",
+                    training: bool = True, name=None):
+    """``paddle.nn.functional.flash_attention``: ``(out, None)``, as the
+    JAX package returns it (no softmax is returned; ``fixed_seed_offset``
+    and ``rng_name`` are taken and ignored: seeds come from the global
+    generator)."""
     return scaled_dot_product_attention(query, key, value, None, dropout,
                                         causal, training), None

@@ -1,1 +1,2 @@
-"""Layers of the port (``paddle_tpu/nn/layer``)."""
+"""Layers of the port (``paddle_tpu/nn/layer``): ``activation``,
+``common``, ``container``, ``loss``, ``norm`` and ``transformer``."""

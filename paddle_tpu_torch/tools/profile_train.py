@@ -1,13 +1,15 @@
 """Where a training step's device time goes, on the card.
 
-    python -m paddle_tpu_torch.tools.profile_train [--model llama] [--steps 3]
-        [--graphed]
+    python -m paddle_tpu_torch.tools.profile_train [--model llama|bert]
+        [--steps 3] [--graphed]
 
 Builds the bench's model and optimizer (``bench.build``; ``--model
 gpt13``, the default: GPT-3 1.3B, B 8, S 1024, O2 bf16 without master
 weights, fused cross entropy, AdamW; ``--model llama``: Llama-0.76B, B 8,
 S 1024, full recompute, O2 bf16 with master weights, fused cross
-entropy, AdamW), warms
+entropy, AdamW; ``--model bert``: BERT-base pretraining, B 32, S 128,
+O2 bf16 with master weights, dropout 0.1, AdamW, its step on facade
+tensors as ``bench.make_bert_train_fn`` writes it), warms
 two steps, times ``--steps`` steps without the profiler (one
 synchronisation at the end), then ``--steps`` more under
 ``torch.profiler``. Prints, as one JSON line: the unprofiled step time,
@@ -19,6 +21,10 @@ launched, launches per step, and device time per step by group:
 - ``flash_fwd``, ``flash_dq``, ``flash_dkv``: the three flash kernels;
 - ``fused_ce``: every kernel launched inside the fused linear-cross-
   entropy (its f32 chunk GEMMs and their elementwise work);
+- ``mlm_ce``: BERT's MLM cross entropy over ``[B * S, vocab]`` logits:
+  the kernels of its forward (inside the model's ``mlm_cross_entropy``
+  range: the f32 cast, the log-softmax, the gather, the mean) and of its
+  ``LogSoftmaxBackward0`` and ``GatherBackward0`` nodes;
 - ``optimizer``: every kernel launched inside ``Optimizer.step``;
 - ``gemm``: the other matrix-product kernels (cuBLAS: the model's bf16
   linears, forward and backward);
@@ -54,7 +60,10 @@ import torch
 from .. import bench, jit
 from . import device_busy
 
-_RANGES = ("fused_linear_cross_entropy", "optimizer.step")
+_RANGES = ("fused_linear_cross_entropy", "optimizer.step",
+           "mlm_cross_entropy")
+# backward nodes of the MLM cross entropy (BERT runs no other)
+_CE_BACKWARD = ("LogSoftmaxBackward0", "GatherBackward0")
 _GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas")
 
 
@@ -65,6 +74,8 @@ def _group(kernel: str, ranges) -> str:
             return name
     if "fused_linear_cross_entropy" in ranges:
         return "fused_ce"
+    if "mlm_cross_entropy" in ranges:
+        return "mlm_ce"
     if "optimizer.step" in ranges:
         return "optimizer"
     low = kernel.lower()
@@ -112,6 +123,8 @@ def _ranges(evt):
     while evt is not None:
         if evt.name in _RANGES:
             out.add(evt.name)
+        elif any(b in evt.name for b in _CE_BACKWARD):
+            out.add("mlm_cross_entropy")
         evt = evt.cpu_parent
     return out
 
@@ -149,26 +162,30 @@ def main(argv=None):
     dev = torch.device("cuda", torch.cuda.current_device())
     cfg, B, S, _ = bench.SETUPS[args.model](False)
     model, opt = bench.build(cfg, dev, bench.MASTER_WEIGHT[args.model])
-    train_fn = step = bench.make_train_fn(model, opt)
-    rng = np.random.default_rng(0)
-    ids_np = rng.integers(0, cfg.vocab_size, (B, S))
-    ids = torch.from_numpy(ids_np).to(dev)
-    labels = torch.from_numpy(np.roll(ids_np, -1, axis=1)).to(dev)
+    if args.model == "bert":
+        train_fn = step = bench.make_bert_train_fn(model, opt)
+        inputs = bench.bert_data(cfg, B, S, dev)
+    else:
+        train_fn = step = bench.make_train_fn(model, opt)
+        rng = np.random.default_rng(0)
+        ids_np = rng.integers(0, cfg.vocab_size, (B, S))
+        inputs = (torch.from_numpy(ids_np).to(dev),
+                  torch.from_numpy(np.roll(ids_np, -1, axis=1)).to(dev))
     if args.graphed:
         import paddle_tpu_torch as paddle
 
         step = jit.StaticFunction(train_fn, observe=[model, opt],
                                   warmup=False)
-        ids, labels = (paddle.to_tensor(ids_np, place=dev),
-                       paddle.to_tensor(np.roll(ids_np, -1, axis=1),
-                                        place=dev))
+        if args.model != "bert":
+            inputs = tuple(paddle.to_tensor(t.cpu().numpy(), place=dev)
+                           for t in inputs)
     torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(2):
-        step(ids, labels)
+        step(*inputs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        loss = step(ids, labels)
+        loss = step(*inputs)
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / args.steps
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -176,13 +193,13 @@ def main(argv=None):
     eager_seq = None
     if args.graphed:
         with torch.profiler.profile(activities=acts) as ref:
-            train_fn(ids, labels)
+            train_fn(*inputs)
             torch.cuda.synchronize()
         eager_seq = _eager_sequence(ref.events())
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            step(ids, labels)
+            step(*inputs)
         torch.cuda.synchronize()
         profiled_ms = 1e3 * (time.perf_counter() - t0)
     # the record_function ranges also show on the device timeline (as

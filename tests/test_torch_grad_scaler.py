@@ -20,7 +20,7 @@ import paddle_tpu as pt
 from paddle_tpu import amp as jamp
 from paddle_tpu import jit as jjit
 from paddle_tpu_torch import amp, jit
-from paddle_tpu_torch import nn as tnn
+from paddle_tpu_torch.models import _modules as tnn
 from paddle_tpu_torch import optimizer as topt
 
 

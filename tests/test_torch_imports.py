@@ -313,3 +313,66 @@ def test_graphed_bench_and_scaler_need_a_card(no_cuda):
     with pytest.raises(RuntimeError):
         amp.GradScaler()
     assert amp.GradScaler(device="cpu")._scale.device.type == "cpu"
+
+
+def test_layer_modules_import_no_jax():
+    """The modules of the Layer slice (``nn.layer_base``,
+    ``nn.param_attr``, ``nn.initializer``, ``nn.utils``, the layer and
+    functional modules, ``models.bert``, ``models._modules``) name no jax
+    or paddle_tpu import, and importing them in a fresh interpreter loads
+    neither."""
+    mods = ["paddle_tpu_torch.nn.layer_base", "paddle_tpu_torch.nn.param_attr",
+            "paddle_tpu_torch.nn.initializer", "paddle_tpu_torch.nn.utils",
+            "paddle_tpu_torch.nn.layer.common",
+            "paddle_tpu_torch.nn.layer.activation",
+            "paddle_tpu_torch.nn.layer.container",
+            "paddle_tpu_torch.nn.layer.norm", "paddle_tpu_torch.nn.layer.loss",
+            "paddle_tpu_torch.nn.layer.transformer",
+            "paddle_tpu_torch.nn.functional.common",
+            "paddle_tpu_torch.nn.functional.loss",
+            "paddle_tpu_torch.nn.functional.norm",
+            "paddle_tpu_torch.models.bert", "paddle_tpu_torch.models._modules"]
+    files = [PKG / (m[len("paddle_tpu_torch."):].replace(".", "/") + ".py")
+             for m in mods]
+    files = [f if f.exists() else f.with_suffix("") / "__init__.py"
+             for f in files]
+    bad = [f"{f.name}:{line} {name}" for f in files
+           for line, name in _imports(f) if _forbidden(name)]
+    assert all(f.exists() for f in files) and not bad, bad
+    probe = ("import importlib, sys\n"
+             f"for n in {mods!r}:\n"
+             "    importlib.import_module(n)\n"
+             "bad = [m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'paddle_tpu')]\n"
+             "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, cwd=str(REPO), env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_layers_and_bert_need_a_card_unless_told_cpu(no_cuda):
+    """A Layer's parameters and buffers, BERT and its bench resolve to the
+    card and raise without one; after ``set_device("cpu")`` they are made
+    on the CPU. Nothing falls back."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import bench, device
+    from paddle_tpu_torch.models import BertForPretraining, bert_tiny
+
+    saved = device._current
+    device._current = None
+    try:
+        for make in (lambda: paddle.nn.Linear(4, 3),
+                     lambda: paddle.nn.BatchNorm1D(4),
+                     lambda: paddle.nn.LayerNorm(4),
+                     lambda: BertForPretraining(bert_tiny()),
+                     lambda: bench.bench_model("bert", small=True)):
+            with pytest.raises(RuntimeError):
+                make()
+        paddle.set_device("cpu")
+        assert paddle.nn.Linear(4, 3).weight.place == "cpu"
+        assert paddle.nn.BatchNorm1D(4)._mean.place == "cpu"
+    finally:
+        device._current = saved

@@ -44,6 +44,7 @@ import paddle_tpu_torch as paddle
 from paddle_tpu import jit as jjit
 from paddle_tpu_torch import amp, generator, jit
 from paddle_tpu_torch import nn as tnn
+from paddle_tpu_torch.models import _modules
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 from paddle_tpu_torch.nn import functional as F
@@ -56,8 +57,8 @@ def _models(seed=7):
     weights (transposed into ``[out, in]``)."""
     pt.seed(seed)
     jm = jnn.Sequential(jnn.Linear(8, 16), jnn.ReLU(), jnn.Linear(16, 4))
-    tm = torch.nn.Sequential(tnn.Linear(8, 16), torch.nn.ReLU(),
-                             tnn.Linear(16, 4))
+    tm = torch.nn.Sequential(_modules.Linear(8, 16), torch.nn.ReLU(),
+                             _modules.Linear(16, 4))
     with torch.no_grad():
         for i in (0, 2):
             tm[i].weight.copy_(torch.from_numpy(

@@ -1,0 +1,93 @@
+"""Twin runner of the ``nn`` layer tests: a case builds a layer from a
+Paddle namespace ``P`` (``paddle_tpu`` or ``paddle_tpu_torch``);
+:func:`twin` builds it in both packages, carries the JAX layer's
+``state_dict`` into the port's with ``set_state_dict``, runs both on the
+same numpy inputs and holds the outputs, the inputs' grads and every
+parameter's grad equal at ``tol`` (f32)."""
+from __future__ import annotations
+
+import numpy as np
+
+import paddle_tpu as pt
+import paddle_tpu_torch as paddle
+
+TOL = 1e-5
+
+
+def fresh_uids(layer):
+    """Give each of the JAX layer's parameters a tape id of its own. Its
+    ``TransformerEncoder``/``Decoder`` deep-copy their first layer, and a
+    deep copy of a JAX ``Tensor`` keeps its ``_uid``, the key its tape
+    accumulates grads under: the copies' grads then land on the first
+    layer's parameters and theirs stay None. The twins hold the port to
+    what the JAX code means, each layer with its own grads."""
+    from paddle_tpu.tensor import _uid_counter
+
+    for p in layer.parameters():
+        p._uid = next(_uid_counter)
+    return layer
+
+
+def state_of(layer):
+    """A layer's ``state_dict`` as numpy arrays."""
+    return {k: np.asarray(v.numpy()) for k, v in layer.state_dict().items()}
+
+
+def _outputs(out):
+    if isinstance(out, (list, tuple)):
+        return [o for x in out for o in _outputs(x)]
+    return [out] if hasattr(out, "numpy") else []
+
+
+def _run(P, layer, inputs, grad_inputs, seed):
+    ts = [P.to_tensor(a, stop_gradient=not (g and a.dtype.kind == "f"))
+          for a, g in zip(inputs, grad_inputs)]
+    outs = _outputs(layer(*ts))
+    rng = np.random.default_rng(seed)
+    loss = None
+    for o in outs:
+        if o.stop_gradient:
+            continue
+        cot = rng.standard_normal(o.shape).astype("float32")
+        term = (o * P.to_tensor(cot)).sum()
+        loss = term if loss is None else loss + term
+    if loss is not None:
+        loss.backward()
+    grads = {f"input{i}": np.asarray(t.grad.numpy())
+             for i, t in enumerate(ts) if t.grad is not None}
+    grads.update({n: np.asarray(p.grad.numpy())
+                  for n, p in layer.named_parameters() if p.grad is not None})
+    return [np.asarray(o.numpy()) for o in outs], grads
+
+
+def twin(make, inputs, tol=TOL, train=True, grad_inputs=None, seed=0,
+         param_grads=True):
+    """Build ``make(P)`` in both packages (the port's from the JAX one's
+    weights), run it on ``inputs`` (numpy arrays; float ones take grads
+    unless ``grad_inputs`` says otherwise) and compare. ``param_grads``
+    False compares the outputs and the inputs' grads only. Returns the
+    port's layer."""
+    grad_inputs = grad_inputs or [True] * len(inputs)
+    pt.seed(seed)
+    jl = make(pt)
+    fresh_uids(jl)
+    tl = make(paddle)
+    missing, unexpected = tl.set_state_dict(state_of(jl))
+    assert not missing and not unexpected, (missing, unexpected)
+    for m in (jl, tl):
+        m.train() if train else m.eval()
+    jo, jg = _run(pt, jl, inputs, grad_inputs, seed)
+    to, tg = _run(paddle, tl, inputs, grad_inputs, seed)
+    if not param_grads:
+        jg, tg = ({k: v for k, v in g.items() if k.startswith("input")}
+                  for g in (jg, tg))
+    assert len(jo) == len(to) and jg.keys() == tg.keys(), (jg.keys(),
+                                                           tg.keys())
+    for i, (a, b) in enumerate(zip(jo, to)):
+        assert a.shape == b.shape, (i, a.shape, b.shape)
+        np.testing.assert_allclose(b, a, rtol=tol, atol=tol,
+                                   err_msg=f"output {i}")
+    for k in jg:
+        np.testing.assert_allclose(tg[k], jg[k], rtol=tol, atol=tol,
+                                   err_msg=f"grad {k}")
+    return tl
