@@ -218,6 +218,27 @@ Phases, in order; any failure exits non-zero before the result line:
    (K1-K3 through key padding; finite losses, one capture, 12 launches
    each a step). Prints tokens/s, step ms graphed and eager, MFU, peak
    memory and ``capture_s``.
+15. nn vision ops (``phase_nn_vision_ops``): every conv and pooling case
+   of the CPU twins (``paddle_tpu_torch/tools/vision_cases.py``: every
+   padding form, ``"SAME"`` at stride 2, transposes with
+   ``output_padding``/``output_size``, ``ceil_mode`` windows starting in
+   the padding, ties under a max pool, ``return_mask`` and
+   ``max_unpool``, adaptive sizes that do not divide) on ``cuda`` in f32
+   without TF32 against the CPU, outputs and input grads at
+   ``VISION_TOL``; a 2-layer bidirectional LSTM and GRU (B 16, T 32,
+   hidden 128) forward and backward through ``StaticFunction`` equal to
+   eager bit for bit and to the CPU at ``VISION_TOL``. Prints one JSON
+   line.
+16. Train ResNet-50 (``phase_train_resnet50``): ``bench --model
+   resnet50`` (B 64, 224 x 224, 1000 classes, ``Momentum(0.1, 0.9)``,
+   O2 bf16 with master weights) at full width and depth, 8 steps eagerly,
+   eagerly again and graphed (one capture): losses, every parameter and
+   every BatchNorm's running statistics equal bit for bit (under
+   ``cudnn.deterministic`` if cuDNN's default algorithms make two eager
+   runs differ; the JSON line says which, with both settings' step ms);
+   no K1-K5 launch on the path. Prints one JSON line: step ms graphed and
+   eager, images/s, MFU over FlopCounterMode's FLOPs, peak memory,
+   ``capture_s``.
 
 The last two lines are the kernels' JSON record (K1-K3 with their
 launches by path: ``train_gpt13``, ``train_llama``,
@@ -2683,6 +2704,268 @@ def phase_facade(torch, card, gpt13):
             "train_rec": rec, "host_cost": cost, "seconds": secs}
 
 
+VISION_TOL = 1e-4   # f32, TF32 off: cuDNN's and the CPU's summation orders
+
+
+def vision_run(paddle, fn, arrays, device):
+    """One ``tools/vision_cases`` case on ``device``: its outputs, then
+    the grads of its float inputs under a seeded cotangent on every float
+    output (the CPU twins' rule), as numpy arrays."""
+    import numpy as np
+
+    paddle.set_device(device)
+    ts = [paddle.to_tensor(a, stop_gradient=a.dtype.kind != "f")
+          for a in arrays]
+    out = fn(paddle, *ts)
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    rng = np.random.default_rng(7)
+    loss = None
+    for o in outs:
+        if o.stop_gradient:
+            continue
+        term = (o * paddle.to_tensor(
+            rng.standard_normal(o.shape).astype("f4"))).sum()
+        loss = term if loss is None else loss + term
+    loss.backward()
+    return ([np.asarray(o.numpy()) for o in outs]
+            + [np.asarray(t.grad.numpy()) for t in ts if t.grad is not None])
+
+
+def rnn_graphed(torch, paddle, name):
+    """A 2-layer bidirectional ``name`` (``LSTM`` or ``GRU``; input 64,
+    hidden 128, B 16, T 32) on the card: one step (forward, the loss
+    against a fixed cotangent, backward; returns the output and every
+    parameter's grad) eagerly, and through ``StaticFunction`` three times
+    (eager, capture and replay, replay): the third call equal to the
+    eager one bit for bit, one capture; the eager step against the same
+    step on the CPU at ``VISION_TOL``."""
+    import numpy as np
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.nn.functional.common import as_torch
+
+    rng = np.random.default_rng(3)
+    x_np = rng.standard_normal((16, 32, 64)).astype("f4")
+    cot_np = rng.standard_normal((16, 32, 256)).astype("f4")
+
+    def make_step(device, weights=None):
+        """A net on ``device`` (from ``weights`` when given) and its
+        step."""
+        paddle.set_device(device)
+        paddle.seed(0)
+        net = getattr(paddle.nn, name)(64, 128, num_layers=2,
+                                       direction="bidirect")
+        if weights is not None:
+            net.set_state_dict(weights)
+        params = net.parameters()
+        cot = as_torch(paddle.to_tensor(cot_np))
+
+        def step(x):
+            out, _ = net(x)
+            (out * cot).sum().backward()
+            grads = [p.grad._value.clone() for p in params]
+            net.clear_gradients()
+            return out, grads
+        return net, step
+
+    net, step = make_step("cpu")
+    weights = {k: v.numpy() for k, v in net.state_dict().items()}
+    out, grads = step(paddle.to_tensor(x_np))
+    results = {"cpu": [out._value.detach()] + grads}
+    _net, step = make_step("cuda", weights)
+    x = paddle.to_tensor(x_np)
+    out, grads = step(x)
+    results["cuda"] = [out._value.detach()] + grads
+    del out, _net, step
+    _net, step = make_step("cuda", weights)
+    static = jit.StaticFunction(step, observe=[_net])
+    for _ in range(3):
+        g_out, g_grads = static(x)
+    torch.cuda.synchronize()
+    graphed = [g_out._value] + g_grads
+    graphed_equal = all(a.equal(b) for a, b in zip(graphed,
+                                                   results["cuda"]))
+    counts = static.compile_counts()
+    results["cuda"] = [t.cpu() for t in results["cuda"]]
+    err = max(float((a - b).abs().max())
+              for a, b in zip(results["cuda"], results["cpu"]))
+    scale = max(float(b.abs().max()) for b in results["cpu"])
+    return {"graphed_equal_eager": graphed_equal, "compile_counts": counts,
+            "max_abs_err_vs_cpu": err, "max_abs": scale,
+            "ok": graphed_equal and err <= VISION_TOL * max(scale, 1.0)
+            and counts == {"signatures": 1, "captured": 1, "calls": 3}}
+
+
+def phase_nn_vision_ops(torch, card):
+    """Every conv and pooling case of the CPU twins
+    (``paddle_tpu_torch/tools/vision_cases.py``: every padding form,
+    ``"SAME"`` at stride 2, transposes with ``output_padding`` and
+    ``output_size``, ``ceil_mode`` windows starting in the padding, the
+    max pool's gradient over ties, ``return_mask`` and ``max_unpool``,
+    adaptive sizes that do not divide) on ``cuda`` in f32 with TF32 off
+    against the same call on the CPU: outputs and input grads at
+    ``VISION_TOL``, masks exactly. Then a 2-layer bidirectional LSTM and
+    GRU graphed against eager (``rnn_graphed``). Prints one JSON line."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools.vision_cases import CASES
+
+    t0 = time.perf_counter()
+    bad, worst = [], (0.0, None)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, (fn, arrays) in sorted(CASES.items()):
+            got = vision_run(paddle, fn, arrays, "cuda")
+            want = vision_run(paddle, fn, arrays, "cpu")
+            if len(got) != len(want):
+                bad.append(f"{name}: {len(got)} arrays vs {len(want)}")
+                continue
+            for i, (g, w) in enumerate(zip(got, want)):
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    bad.append(f"{name}[{i}]: {g.dtype}{g.shape} vs "
+                               f"{w.dtype}{w.shape}")
+                elif w.dtype.kind != "f":
+                    if not np.array_equal(g, w):
+                        bad.append(f"{name}[{i}]: masks differ")
+                else:
+                    fin = np.isfinite(w)
+                    err = (float(np.abs(g[fin] - w[fin]).max())
+                           if fin.any() else 0.0)
+                    if err > worst[0]:
+                        worst = (err, f"{name}[{i}]")
+                    if not np.allclose(g, w, atol=VISION_TOL,
+                                       rtol=VISION_TOL):
+                        bad.append(f"{name}[{i}]: max abs err {err:.3e}")
+        rnn = {n: rnn_graphed(torch, paddle, n) for n in ("LSTM", "GRU")}
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+        paddle.set_device(None)
+    rec = {"phase": "nn_vision_ops", "cases": len(CASES),
+           "tol": VISION_TOL, "failed": bad, "max_abs_err": worst[0],
+           "worst": worst[1], "rnn": rnn,
+           "seconds": round(time.perf_counter() - t0, 1), "card": card}
+    log(json.dumps(rec))
+    if bad or not all(r["ok"] for r in rnn.values()):
+        fail(f"nn vision ops: {len(bad)} case(s) off on the card "
+             f"({bad[:5]}), rnn {rnn}")
+    return rec
+
+
+def resnet_state(net):
+    """Every parameter and BatchNorm running statistic of ``net``, cloned
+    (torch tensors by name)."""
+    return {k: getattr(v, "_value", v).detach().clone()
+            for k, v in net.state_dict().items()}
+
+
+def resnet_runs(torch, kinds):
+    """One ``bench --model resnet50`` run per entry of ``kinds``
+    (``"eager"`` or ``"graphed"``), 8 steps each from the same seed:
+    ``[(record, state after the 8 steps, kernel launches of K1-K5)]``."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.ops import fused_adamw, paged_attention
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    out = []
+    for kind in kinds:
+        for mod in (fa, paged_attention, fused_adamw):
+            mod.reset_counters()
+        before = jit_compiles("train_fn")
+        rec, net, opt = bench.train_run("resnet50", device="cuda", steps=5,
+                                        reps=1, eager=kind == "eager")
+        rec["jit_compiles"] = jit_compiles("train_fn") - before
+        launches = (sum(ran(flash_counts(fa)).values())
+                    + paged_attention.kernel_launches
+                    + paged_attention.replayed_launches
+                    + fused_adamw.kernel_launches)
+        out.append((rec, resnet_state(net), launches))
+        del net, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def same_run(a, b):
+    """Losses and every state tensor equal bit for bit: ``(equal, names
+    of the tensors that differ)``."""
+    differ = [k for k in a[1] if not a[1][k].equal(b[1][k])]
+    return a[0]["losses"] == b[0]["losses"] and not differ, differ
+
+
+def phase_train_resnet50(torch, card):
+    """ResNet-50's training step (``bench --model resnet50``: B 64, 3 x
+    224 x 224, 1000 classes, ``Momentum(0.1, 0.9)``, O2 bf16 with master
+    weights, ``F.cross_entropy`` under ``auto_cast``) at full width and
+    depth, 8 steps each: eagerly, eagerly again, then through the bench's
+    ``StaticFunction`` (one capture). The losses, every parameter and
+    every BatchNorm's running statistics after the 8 steps must be equal
+    bit for bit between graphed and eager. If the two eager runs already
+    differ (cuDNN's algorithms may not be deterministic), the three runs
+    are made again with ``torch.backends.cudnn.deterministic = True``, the
+    setting the equality is then held under, and its cost in step ms is
+    printed. No K1-K5 launch is on this path (counted, must be 0).
+    Prints one JSON line: losses, step ms graphed and eager, images/s,
+    MFU, FLOPs a step and their source, peak memory, ``capture_s``."""
+    t0 = time.perf_counter()
+    runs = resnet_runs(torch, ("eager", "eager", "graphed"))
+    eager_repeat, eager_differ = same_run(runs[0], runs[1])
+    graphed_equal, graphed_differ = same_run(runs[0], runs[2])
+    setting, det = "cudnn defaults (benchmark off)", None
+    if not (eager_repeat and graphed_equal):
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            det = resnet_runs(torch, ("eager", "eager", "graphed"))
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        setting = "torch.backends.cudnn.deterministic = True"
+    final = det or runs
+    ok_repeat, _ = same_run(final[0], final[1])
+    ok_graphed, differ = same_run(final[0], final[2])
+    (r_e, _, l_e), (r_g, _, l_g) = final[0], final[2]
+    summary = {
+        "phase": "train_resnet50", "config": r_g["config"],
+        "steps": r_g["steps_run"], "setting": setting,
+        "default_eager_repeatable": eager_repeat,
+        "default_graphed_equal_eager": graphed_equal,
+        "default_differ": (eager_differ or graphed_differ)[:8],
+        "graphed_equal_eager": ok_graphed, "eager_repeatable": ok_repeat,
+        "state_tensors": len(final[0][1]), "differ": differ[:8],
+        "losses": r_g["losses"],
+        "images_per_s": {"eager": r_e["value"], "graphed": r_g["value"]},
+        "step_ms": {"eager": r_e["step_ms"], "graphed": r_g["step_ms"]},
+        "default_step_ms": {"eager": runs[0][0]["step_ms"],
+                            "eager_again": runs[1][0]["step_ms"],
+                            "graphed": runs[2][0]["step_ms"]},
+        "deterministic_step_ms": None if det is None else {
+            "eager": det[0][0]["step_ms"], "graphed": det[2][0]["step_ms"]},
+        "mfu": {"eager": r_e["mfu"], "graphed": r_g["mfu"]},
+        "flops_per_step": r_g["flops_per_step"],
+        "flops_source": r_g["flops_source"],
+        "achieved_tflops_per_s": r_g["achieved_tflops_per_s"],
+        "peak_memory_gib": {"eager": r_e["peak_memory_gib"],
+                            "graphed": r_g["peak_memory_gib"]},
+        "capture_s": r_g["capture_s"], "compile_counts": r_g["compile_counts"],
+        "jit_compiles": r_g["jit_compiles"],
+        "kernel_launches_k1_k5": {"eager": l_e, "graphed": l_g},
+        "seconds": round(time.perf_counter() - t0, 1), "card": card}
+    log(json.dumps(summary))
+    if not all(math.isfinite(x) for r in final for x in r[0]["losses"]):
+        fail("train resnet50: a loss is not finite")
+    if not ok_graphed or not ok_repeat:
+        fail(f"train resnet50: graphed and eager differ under {setting} "
+             f"(eager repeatable {ok_repeat}; differ {differ[:8]})")
+    if r_g["compile_counts"] != {"signatures": 1, "captured": 1,
+                                 "calls": r_g["steps_run"]} \
+            or r_g["jit_compiles"] != 1:
+        fail(f"train resnet50: not one capture: {r_g['compile_counts']}")
+    if l_e or l_g:
+        fail(f"train resnet50: a K1-K5 kernel launched on the conv-net "
+             f"path ({l_e}, {l_g})")
+    return summary
+
+
 def main():
     try:
         import torch
@@ -2726,6 +3009,10 @@ def main():
     graphed_state, _ = phase_train_graphed_state(torch, card)
     torch.cuda.empty_cache()
     bert, _ = phase_train_bert(torch, card)
+    torch.cuda.empty_cache()
+    phase_nn_vision_ops(torch, card)
+    torch.cuda.empty_cache()
+    phase_train_resnet50(torch, card)
     head = paged["a_decode_f32q_bf16kv"]
     chunk = paged["b_chunk_bf16"]
     kernels = [{

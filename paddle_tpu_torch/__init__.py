@@ -6,7 +6,7 @@ thin cell over one ``torch.Tensor`` whose tape is torch autograd), every
 op of ``paddle_tpu/ops`` (:mod:`.ops`), the dtypes, ``seed`` and the RNG
 state, grad mode and ``paddle.grad``, ``set_device``/``get_device``, and
 the modules ``autograd``, ``nn``, ``optimizer`` (with ``optimizer.lr``),
-``amp``, ``jit`` and ``models``.
+``amp``, ``jit``, ``models`` and ``vision``.
 
 The JAX package ``paddle_tpu`` is the reference; this package grows
 beside it slice by slice, keeping its module layout and names so each
@@ -27,16 +27,18 @@ data, and the fused AdamW kernel ``csrc/fused_adamw.cu``; the eager
 core above; and Paddle's ``nn`` (``nn.Layer`` over facade Parameters,
 ``ParamAttr``, the initializers, the common, activation, container,
 norm, loss and Transformer layers, ``nn.utils``) with BERT's pretraining
-step (``models.BertForPretraining``, ``bench --model bert``).
+step (``models.BertForPretraining``, ``bench --model bert``); the conv,
+pooling and RNN layers with ``vision.models``' ResNet family and
+ResNet-50's training step (``bench --model resnet50``).
 
 Every entry point runs on ``cuda`` unless given ``device="cpu"`` or told
 ``set_device("cpu")`` (:mod:`.device`); kernels are built from ``csrc/``
 with ``nvcc`` at first use (:mod:`.ops._build`). Not ported yet, of the
 JAX package's namespace: ``io``, ``jit.save``/``jit.load``, ``static``,
 ``distributed`` (beyond ``fleet.recompute``), ``metric``, ``hapi``/``Model``,
-``vision``, ``incubate``, ``distribution``, ``fft``, ``signal``,
-``sparse``, ``linalg`` (the facade module; the ops are here), the
-conv, pooling, RNN and extended layers of ``nn``,
+``vision`` beyond the ResNet models, ``incubate``, ``distribution``,
+``fft``, ``signal``, ``sparse``, ``linalg`` (the facade module; the ops
+are here), the extended layers of ``nn``,
 ``save``/``load``, ``set_flags``/``get_flags`` and the ``*Place``
 classes.
 """
@@ -59,7 +61,7 @@ from .framework.core_api import (create_parameter, dtype,  # noqa: E402
                                  set_default_dtype)
 from .generator import (default_generator, get_rng_state,  # noqa: E402
                         seed, set_rng_state)
-from . import amp, jit, models, nn, optimizer  # noqa: E402
+from . import amp, jit, models, nn, optimizer, vision  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -72,5 +74,5 @@ __all__ = (["default_device", "resolve_device", "set_device", "get_device",
             "dtype", "finfo", "get_default_dtype", "iinfo",
             "in_dynamic_mode", "is_tensor", "set_default_dtype",
             "default_generator", "get_rng_state", "seed", "set_rng_state",
-            "amp", "jit", "models", "nn", "optimizer"]
+            "amp", "jit", "models", "nn", "optimizer", "vision"]
            + [n for n in ops.__all__ if n not in ("to_tensor",)])

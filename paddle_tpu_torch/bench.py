@@ -1,15 +1,18 @@
-"""Training throughput on the card: GPT-3 1.3B, Llama-0.76B and BERT-base.
+"""Training throughput on the card: GPT-3 1.3B, Llama-0.76B, BERT-base and
+ResNet-50.
 
     python -m paddle_tpu_torch.bench                  # gpt13 on cuda
     python -m paddle_tpu_torch.bench --model llama
     python -m paddle_tpu_torch.bench --model bert
+    python -m paddle_tpu_torch.bench --model resnet50
     python -m paddle_tpu_torch.bench --eager          # the eager step
     python -m paddle_tpu_torch.bench --small --device cpu [--model llama]
 
 Counterpart of the root ``bench.py``'s ``bench_gpt13``, ``bench_llama``,
-``bench_bert`` and ``_time_steps``. By default the step runs as the root bench runs it
-(``bench.py:300``, ``:791``): ``jit.StaticFunction(train_fn,
-observe=[model, opt], warmup=False)`` over ids and labels from
+``bench_bert``, ``bench_resnet50`` and ``_time_steps``. By default the
+step runs as the root bench runs it (``bench.py:300``, ``:791``):
+``jit.StaticFunction(train_fn, observe=[model, opt], warmup=False)``
+over ids and labels from
 ``paddle.to_tensor``, which on the card captures it as one CUDA graph
 and replays it (the first call runs eagerly, the second captures; on
 the CPU every call runs eagerly). ``--eager`` runs ``train_fn`` itself
@@ -34,20 +37,35 @@ configuration at the bench's defaults:
   Paddle ``Layer`` model (``models/bert.py``) whose step takes facade
   tensors (``--eager`` too). ``--small``: ``bert_tiny``, B 4, S 128, 5
   steps.
+- ``resnet50``: ``vision.models.resnet50(num_classes=1000)`` (25.6 M
+  parameters), B 64 images of 3 x 224 x 224 and labels in [0, 1000),
+  both from numpy seed 0, ``Momentum(learning_rate=0.1, momentum=0.9)``,
+  ``amp.decorate(level="O2", dtype="bfloat16")`` with master weights,
+  ``F.cross_entropy`` under ``auto_cast`` O2 (``bench.py:496-537``); a
+  Paddle ``Layer`` model whose step takes facade tensors. ``--small``:
+  ``resnet18``, B 2, 64 x 64, 3 steps.
 
-All train with ``AdamW(learning_rate=1e-4)`` and the step
-``loss.backward(); opt.step(); opt.clear_grad()`` under
-``amp.auto_cast(level="O2")``, from ``generator.seed(0)`` and token ids
+The language models train with ``AdamW(learning_rate=1e-4)``; all run
+the step ``loss.backward(); opt.step(); opt.clear_grad()`` under
+``amp.auto_cast(level="O2")``, from ``generator.seed(0)`` and inputs
 from numpy seed 0.
 
 Timing as there: one first step (``compile_s``: here the kernels' build
 and the libraries' warm-up), two warm steps (the first of them captures
 the graph: ``capture_s``), then 3 blocks of 10 steps (3 small), each
 block ending in one device synchronisation; the best block sets
-``step_ms``. Prints one JSON line: tokens/s, step ms, achieved TFLOP/s
-(6 x params x tokens/s), MFU against the H100's dense bf16 peak of 989
+``step_ms``. Prints one JSON line: tokens/s (ResNet: images/s), step
+ms, achieved TFLOP/s, MFU against the H100's dense bf16 peak of 989
 TFLOP/s, the last loss, peak memory, ``graphed``, ``capture_s`` and the
-step's ``compile_counts``, and the card's name and power limit.
+step's ``compile_counts``, and the card's name and power limit. A
+language model's FLOPs are 6 x params x tokens; ResNet's are counted by
+``torch.utils.flop_counter.FlopCounterMode`` over the first (eager)
+step, forward and backward, 2 per multiply-add (``flops_source``; the
+root bench takes XLA's ``cost_analysis``, and its fallback of 12.3e9 an
+image counts ResNet-50's ~4.1 G multiply-adds a forward as FLOPs, x3).
+The counter sees the convolutions and products only, not the
+elementwise work. ``cudnn.benchmark`` stays off: the algorithm search
+would run inside a capture.
 """
 from __future__ import annotations
 
@@ -66,13 +84,14 @@ from .device import using_device
 from .models import (BertConfig, BertForPretraining, GPTConfig,
                      GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
                      bert_base, bert_tiny, llama_tiny)
-from .optimizer import AdamW
+from .optimizer import AdamW, Momentum
 
 __all__ = ["gpt13_setup", "llama_setup", "bert_setup", "bert_data",
            "make_bert_train_fn", "SETUPS", "MASTER_WEIGHT", "build",
            "make_train_fn", "time_steps", "config_name", "train_run",
            "bench_model", "bench_gpt13", "bench_llama", "card_label",
-           "facade_step", "H100_BF16_PEAK_TFLOPS"]
+           "facade_step", "resnet_setup", "make_resnet_train_fn",
+           "resnet_data", "H100_BF16_PEAK_TFLOPS"]
 
 H100_BF16_PEAK_TFLOPS = 989.0  # dense, SXM, 700 W (NVIDIA data sheet)
 
@@ -117,9 +136,19 @@ def bert_setup(small: bool):
     return bert_base(max_position_embeddings=max(S, 512)), 32, S, 10
 
 
-SETUPS = {"gpt13": gpt13_setup, "llama": llama_setup, "bert": bert_setup}
+def resnet_setup(small: bool):
+    """``(model name, batch, image side, steps)`` of ``bench_resnet50``
+    at its defaults."""
+    if small:
+        return "resnet18", 2, 64, 3
+    return "resnet50", 64, 224, 10
+
+
+SETUPS = {"gpt13": gpt13_setup, "llama": llama_setup, "bert": bert_setup,
+          "resnet50": resnet_setup}
 # each bench's decorate: gpt13 without master weights, the others with
-MASTER_WEIGHT = {"gpt13": False, "llama": None, "bert": None}
+MASTER_WEIGHT = {"gpt13": False, "llama": None, "bert": None,
+                 "resnet50": None}
 
 
 def build(cfg, device, master_weight: Optional[bool] = False):
@@ -127,6 +156,15 @@ def build(cfg, device, master_weight: Optional[bool] = False):
     ``generator.seed(0)``. ``master_weight=None`` turns master weights on,
     as ``amp.decorate`` does by default."""
     generator.seed(0)
+    if isinstance(cfg, str):  # a vision model by name
+        from . import vision
+
+        with using_device(device):
+            model = getattr(vision.models, cfg)(num_classes=1000)
+        opt = Momentum(learning_rate=0.1, momentum=0.9,
+                       parameters=model.parameters())
+        return amp.decorate(model, opt, level="O2", dtype="bfloat16",
+                            master_weight=master_weight)
     if isinstance(cfg, BertConfig):
         with using_device(device):
             model = BertForPretraining(cfg)
@@ -170,6 +208,33 @@ def make_bert_train_fn(model, opt) -> Callable:
     return train_fn
 
 
+def make_resnet_train_fn(model, opt) -> Callable:
+    """``bench_resnet50``'s ``train_fn`` (``bench.py:517``)."""
+    from .nn import functional as F
+
+    def train_fn(images, labels):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            logits = model(images)
+            loss = F.cross_entropy(logits, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return train_fn
+
+
+def resnet_data(B: int, H: int, device):
+    """``bench_resnet50``'s images and labels from numpy seed 0, as facade
+    tensors on ``device``."""
+    import paddle_tpu_torch as paddle
+
+    rng = np.random.default_rng(0)
+    images = rng.standard_normal((B, 3, H, H)).astype("float32")
+    labels = rng.integers(0, 1000, (B,))
+    return (paddle.to_tensor(images, place=device),
+            paddle.to_tensor(labels, place=device))
+
+
 def bert_data(cfg, B: int, S: int, device):
     """``bench_bert``'s inputs from numpy seed 0, as facade tensors on
     ``device``: ids, MLM labels (-100 but on the 15% of positions drawn
@@ -204,13 +269,22 @@ def _sync(device: torch.device) -> None:
 
 
 def time_steps(step: Callable, args, steps: int, reps: int,
-               device: torch.device):
+               device: torch.device, flops: Optional[dict] = None):
     """``(best seconds per step, first step's seconds, every step's
     loss)``: one first step, two warm steps, ``reps`` blocks of ``steps``
-    back-to-back steps with one synchronisation at each block's end."""
+    back-to-back steps with one synchronisation at each block's end.
+    Given a ``flops`` dict, the first step runs under ``FlopCounterMode``
+    and ``flops["total"]`` is its count."""
     losses: List[torch.Tensor] = []
     t0 = time.perf_counter()
-    losses.append(step(*args).detach())
+    if flops is None:
+        losses.append(step(*args).detach())
+    else:
+        from torch.utils.flop_counter import FlopCounterMode
+
+        with FlopCounterMode(display=False) as counter:
+            losses.append(step(*args).detach())
+        flops["total"] = counter.get_total_flops()
     _sync(device)
     first_s = time.perf_counter() - t0
     for _ in range(2):
@@ -245,6 +319,8 @@ def card_label(device: torch.device) -> str:
 
 def config_name(model: str, cfg, B: int, S: int) -> str:
     """The record's ``config``, as the root ``bench.py`` spells it."""
+    if model == "resnet50":
+        return f"{cfg}-b{B}-{S}x{S}-bf16"
     head = f"-h{cfg.hidden_size}-l{cfg.num_layers}-b{B}-s{S}-bf16"
     if model == "gpt13":
         return "gpt13" + head + "-fce-nomaster"
@@ -260,46 +336,63 @@ def config_name(model: str, cfg, B: int, S: int) -> str:
 def train_run(model: str = "gpt13", small: bool = False, device=None,
               steps: Optional[int] = None, reps: int = 3,
               eager: bool = False):
-    """Run the bench of ``model`` (``gpt13``, ``llama`` or ``bert``):
-    ``(record, model, optimizer)``, the record with ``losses`` (every
-    step's, in order) and ``steps_run``. ``eager`` runs ``train_fn``
-    itself (on torch tensors, BERT's on facade tensors); else the root
-    bench's ``StaticFunction`` step on ``paddle.to_tensor`` inputs."""
+    """Run the bench of ``model`` (``gpt13``, ``llama``, ``bert`` or
+    ``resnet50``): ``(record, model, optimizer)``, the record with
+    ``losses`` (every step's, in order) and ``steps_run``. ``eager`` runs
+    ``train_fn`` itself (on torch tensors; BERT's and ResNet's on facade
+    tensors); else the root bench's ``StaticFunction`` step on
+    ``paddle.to_tensor`` inputs."""
     import paddle_tpu_torch as paddle
 
     device = resolve_device(device)
     cfg, B, S, default_steps = SETUPS[model](small)
     steps = default_steps if steps is None else int(steps)
     model_, opt = build(cfg, device, MASTER_WEIGHT[model])
-    rng = np.random.default_rng(0)
-    ids_np = rng.integers(0, cfg.vocab_size, (B, S))
-    labels_np = np.roll(ids_np, -1, axis=1)
-    train_fn = make_train_fn(model_, opt)
-    if model == "bert":
-        train_fn = make_bert_train_fn(model_, opt)
-        args = bert_data(cfg, B, S, device)
+    flops = {} if model == "resnet50" else None
+    if model in ("bert", "resnet50"):
+        if model == "bert":
+            train_fn = make_bert_train_fn(model_, opt)
+            args = bert_data(cfg, B, S, device)
+        else:
+            train_fn = make_resnet_train_fn(model_, opt)
+            args = resnet_data(B, S, device)
         step = train_fn if eager else jit.StaticFunction(
             train_fn, observe=[model_, opt], warmup=False)
-    elif eager:
-        step = train_fn
-        args = (torch.from_numpy(ids_np).to(device),
-                torch.from_numpy(labels_np).to(device))
     else:
-        step = jit.StaticFunction(train_fn, observe=[model_, opt],
-                                  warmup=False)
-        args = (paddle.to_tensor(ids_np, place=device),
-                paddle.to_tensor(labels_np, place=device))
+        rng = np.random.default_rng(0)
+        ids_np = rng.integers(0, cfg.vocab_size, (B, S))
+        labels_np = np.roll(ids_np, -1, axis=1)
+        train_fn = step = make_train_fn(model_, opt)
+        if eager:
+            args = (torch.from_numpy(ids_np).to(device),
+                    torch.from_numpy(labels_np).to(device))
+        else:
+            step = jit.StaticFunction(train_fn, observe=[model_, opt],
+                                      warmup=False)
+            args = (paddle.to_tensor(ids_np, place=device),
+                    paddle.to_tensor(labels_np, place=device))
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    dt, first_s, losses = time_steps(step, args, steps, reps, device)
-    tokens_per_s = B * S / dt
+    dt, first_s, losses = time_steps(step, args, steps, reps, device, flops)
     n_params = sum(p.numel() for p in model_.parameters())
-    achieved = 6 * n_params * tokens_per_s / 1e12
+    if flops is None:
+        metric, unit, rate = f"{model}_tokens_per_sec_per_chip", "tokens/s", \
+            B * S / dt
+        achieved = 6 * n_params * rate / 1e12
+        extra = {}
+    else:
+        metric, unit, rate = f"{cfg}_images_per_sec_per_chip", "imgs/s", \
+            B / dt
+        achieved = flops["total"] / dt / 1e12
+        extra = {"flops_per_step": flops["total"],
+                 "flops_source": "torch.utils.flop_counter.FlopCounterMode "
+                                 "over the first (eager) step, 2 per "
+                                 "multiply-add"}
     capture = None if eager else step.capture_seconds()
     record = {
-        "metric": f"{model}_tokens_per_sec_per_chip",
-        "value": round(tokens_per_s, 1),
-        "unit": "tokens/s",
+        "metric": metric,
+        "value": round(rate, 1),
+        "unit": unit,
         "vs_baseline": 1.0,
         "config": config_name(model, cfg, B, S),
         "params_m": round(n_params / 1e6, 1),
@@ -307,6 +400,7 @@ def train_run(model: str = "gpt13", small: bool = False, device=None,
         "step_ms": round(1000 * dt, 1),
         "compile_s": round(first_s, 1),
         "achieved_tflops_per_s": round(achieved, 2),
+        **extra,
         "mfu": (round(achieved / H100_BF16_PEAK_TFLOPS, 4)
                 if device.type == "cuda" else None),
         "peak_memory_gib": (round(torch.cuda.max_memory_allocated(device)
@@ -352,6 +446,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if torch.cuda.is_available():
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.benchmark = False
     rec = bench_model(args.model, args.small, args.device, eager=args.eager)
     rec.pop("losses")
     rec.pop("steps_run")

@@ -1,2 +1,3 @@
 """Layers of the port (``paddle_tpu/nn/layer``): ``activation``,
-``common``, ``container``, ``loss``, ``norm`` and ``transformer``."""
+``common``, ``container``, ``conv``, ``loss``, ``norm``, ``pooling``,
+``rnn`` and ``transformer``."""

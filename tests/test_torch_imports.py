@@ -376,3 +376,80 @@ def test_layers_and_bert_need_a_card_unless_told_cpu(no_cuda):
         assert paddle.nn.BatchNorm1D(4)._mean.place == "cpu"
     finally:
         device._current = saved
+
+
+def test_vision_and_conv_modules_import_no_jax():
+    """``vision`` (its models and ResNet), the conv, pooling and RNN layers
+    and the conv and pooling functionals name no jax or paddle_tpu
+    import, and importing them in a fresh interpreter loads neither."""
+    mods = ["paddle_tpu_torch.vision", "paddle_tpu_torch.vision.models",
+            "paddle_tpu_torch.vision.models.resnet",
+            "paddle_tpu_torch.nn.layer.conv",
+            "paddle_tpu_torch.nn.layer.pooling",
+            "paddle_tpu_torch.nn.layer.rnn",
+            "paddle_tpu_torch.nn.functional.conv",
+            "paddle_tpu_torch.nn.functional.pooling"]
+    files = [PKG / (m[len("paddle_tpu_torch."):].replace(".", "/") + ".py")
+             for m in mods]
+    files = [f if f.exists() else f.with_suffix("") / "__init__.py"
+             for f in files]
+    bad = [f"{f.name}:{line} {name}" for f in files
+           for line, name in _imports(f) if _forbidden(name)]
+    assert all(f.exists() for f in files) and not bad, bad
+    probe = ("import importlib, sys\n"
+             f"for n in {mods!r}:\n"
+             "    importlib.import_module(n)\n"
+             "bad = [m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'paddle_tpu')]\n"
+             "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, cwd=str(REPO), env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_nn_and_vision_export_the_ported_jax_names():
+    """``paddle.nn`` has every class of the JAX package's conv, pooling
+    and RNN modules and ``paddle.nn.functional`` every functional of its
+    conv and pooling modules; ``paddle.vision`` and ``vision.models``
+    export the ResNet family's names (those of ``resnet.py``) and no
+    other model's."""
+    import paddle_tpu as pt
+    import paddle_tpu_torch as paddle
+    from paddle_tpu.nn.functional import conv as jconv, pooling as jpool
+    from paddle_tpu.nn.layer import conv, pooling, rnn
+    from paddle_tpu.vision.models import resnet as jresnet
+
+    for mod in (conv, pooling, rnn):
+        assert all(hasattr(paddle.nn, n) for n in mod.__all__), mod
+    for mod in (jconv, jpool):
+        assert set(mod.__all__) <= set(paddle.nn.functional.__all__)
+    names = set(jresnet.__all__)
+    assert set(paddle.vision.models.__all__) == names
+    assert set(paddle.vision.__all__) == names | {"models"}
+    assert all(getattr(paddle.vision, n) is getattr(paddle.vision.models, n)
+               for n in names)
+    assert hasattr(pt.vision.models, "LeNet") \
+        and not hasattr(paddle.vision.models, "LeNet")
+    assert "vision" in paddle.__all__
+
+
+def test_resnet_and_its_bench_need_a_card_unless_told_cpu(no_cuda):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import bench, device
+
+    saved = device._current
+    device._current = None
+    try:
+        for make in (lambda: paddle.vision.models.resnet18(),
+                     lambda: paddle.nn.Conv2D(3, 4, 3),
+                     lambda: paddle.nn.LSTM(4, 5),
+                     lambda: bench.bench_model("resnet50", small=True)):
+            with pytest.raises(RuntimeError):
+                make()
+        paddle.set_device("cpu")
+        assert paddle.nn.Conv2D(3, 4, 3).weight.place == "cpu"
+    finally:
+        device._current = saved

@@ -6,7 +6,8 @@
   at the stated tolerance) or, where a value is random, on the port with
   the JAX test's assertions.
 - ``test_layer_twin``: every layer class of the ported
-  ``nn/layer/{common,container,norm,transformer}.py`` built in both
+  ``nn/layer/{common,container,conv,norm,pooling,rnn,transformer}.py``
+  built in both
   packages, the port's from the JAX layer's weights (``set_state_dict``),
   forward and grads (of the inputs and of every parameter) at f32 atol =
   rtol = 1e-5 (``torch_nn_common.twin``; the cases are
@@ -475,7 +476,7 @@ def test_layer_twin(name):
 
 def test_every_ported_layer_class_has_a_twin():
     """Each class of the ported layer modules is built by a case (or is
-    the base ``Layer``)."""
+    a base class: ``Layer``, ``RNNCellBase``)."""
     from paddle_tpu_torch.nn import layer as L
 
     built = set()
@@ -483,9 +484,10 @@ def test_every_ported_layer_class_has_a_twin():
         layer = make(paddle)
         built.update(type(l).__name__ for l in layer.sublayers(True))
     names = set()
-    for mod in (L.common, L.activation, L.container, L.norm, L.loss,
-                L.transformer):
+    for mod in (L.common, L.activation, L.container, L.conv, L.norm,
+                L.loss, L.pooling, L.rnn, L.transformer):
         names.update(mod.__all__)
+    names.discard("RNNCellBase")
     assert not names - built, names - built
 
 

@@ -103,23 +103,26 @@ def test_functional_signatures_equal_the_jax_package(name):
 
 def test_nn_exports_the_names_of_the_ported_modules():
     """``paddle.nn`` holds every class of the JAX package's
-    ``nn/layer/{activation,common,container,loss,norm,transformer}.py``
-    and no name of a module not ported yet; ``nn.functional`` every
-    functional of its ``activation``, ``common``, ``loss`` and ``norm``."""
+    ``nn/layer/{activation,common,container,conv,loss,norm,pooling,rnn,
+    transformer}.py`` and no name of a module not ported yet;
+    ``nn.functional`` every functional of its ``activation``, ``common``,
+    ``conv``, ``loss``, ``norm`` and ``pooling``."""
     from paddle_tpu.nn import functional as JF
-    from paddle_tpu.nn.layer import (activation, common, container, loss,
-                                     norm, transformer)
+    from paddle_tpu.nn.layer import (activation, common, container, conv,
+                                     loss, norm, pooling, rnn, transformer)
 
-    mods = (activation, common, container, loss, norm, transformer)
+    mods = (activation, common, container, conv, loss, norm, pooling, rnn,
+            transformer)
     want = set().union(*(m.__all__ for m in mods))
     base = {"functional", "initializer", "utils", "clip", "Layer",
             "ParamAttr", "ClipGradByValue", "ClipGradByNorm",
             "ClipGradByGlobalNorm"}
     assert set(paddle.nn.__all__) == want | base
     assert all(hasattr(paddle.nn, n) for n in want | base)
-    for deferred in ("Conv2D", "MaxPool2D", "LSTM", "Conv1DTranspose"):
+    for deferred in ("Softmax2D", "BeamSearchDecoder", "RNNTLoss"):
         assert hasattr(pt.nn, deferred) and not hasattr(paddle.nn, deferred)
     fwant = set().union(*(getattr(JF, m).__all__ for m in
-                          ("activation", "common", "loss", "norm")))
+                          ("activation", "common", "conv", "loss", "norm",
+                           "pooling")))
     assert fwant <= set(paddle.nn.functional.__all__)
-    assert not hasattr(paddle.nn.functional, "conv2d")
+    assert not hasattr(paddle.nn.functional, "grid_sample")

@@ -1,7 +1,9 @@
 """The layer cases of the ``nn`` twin tests: ``CASES[name] = (make,
 inputs[, train])``, ``make(P)`` building a layer from a Paddle namespace
-``P`` and ``inputs`` the numpy arrays it is called on; ``GROUPS`` splits
-them by the module their class lives in."""
+``P`` and ``inputs`` the numpy arrays it is called on; ``LAYERS``
+(``VISION``: the conv, pooling and RNN layers among them),
+``ACTIVATIONS`` and ``LOSSES`` split them by the module their class
+lives in."""
 import numpy as np
 
 import paddle_tpu_torch as paddle
@@ -114,6 +116,67 @@ CASES = {
         [R(2, 5, 8), R(2, 3, 8, seed=1)]),
 }
 
+_VISION = {
+    # conv
+    "Conv1D": (lambda P: P.nn.Conv1D(3, 4, 3, stride=2, padding=1),
+               [R(2, 3, 9)]),
+    "Conv2D": (lambda P: P.nn.Conv2D(4, 6, 3, padding=1, groups=2),
+               [R(*X4)]),
+    "Conv2D_nhwc_no_bias": (lambda P: P.nn.Conv2D(
+        4, 5, [3, 2], stride=2, padding="SAME", bias_attr=False,
+        data_format="NHWC"), [R(2, 6, 7, 4)]),
+    "Conv2D_padding_mode_reflect": (lambda P: P.nn.Conv2D(
+        4, 3, 3, padding=1, padding_mode="reflect"), [R(*X4)]),
+    "Conv3D": (lambda P: P.nn.Conv3D(2, 3, 2, padding=[1, 0, 1]),
+               [R(1, 2, 4, 4, 4)]),
+    "Conv1DTranspose": (lambda P: P.nn.Conv1DTranspose(
+        3, 4, 3, stride=2, padding=1, output_padding=1), [R(2, 3, 5)]),
+    "Conv2DTranspose": (lambda P: P.nn.Conv2DTranspose(
+        4, 6, 3, stride=2, padding=1, groups=2), [R(*X4)]),
+    "Conv3DTranspose": (lambda P: P.nn.Conv3DTranspose(2, 3, 2, stride=2),
+                        [R(1, 2, 3, 3, 3)]),
+    # pooling
+    "MaxPool1D": (lambda P: P.nn.MaxPool1D(3, 2, 1, ceil_mode=True),
+                  [R(2, 3, 10)]),
+    "MaxPool2D": (lambda P: P.nn.MaxPool2D(3, 2, 1), [R(*X4)]),
+    "MaxPool3D": (lambda P: P.nn.MaxPool3D(2, 2, 1), [R(1, 2, 4, 5, 4)]),
+    "AvgPool1D": (lambda P: P.nn.AvgPool1D(3, 2, 1, exclusive=False),
+                  [R(2, 3, 10)]),
+    "AvgPool2D": (lambda P: P.nn.AvgPool2D(3, 2, 1, ceil_mode=True),
+                  [R(*X4)]),
+    "AvgPool3D": (lambda P: P.nn.AvgPool3D(2, divisor_override=3),
+                  [R(1, 2, 4, 4, 4)]),
+    "AdaptiveAvgPool1D": (lambda P: P.nn.AdaptiveAvgPool1D(3),
+                          [R(2, 3, 10)]),
+    "AdaptiveAvgPool2D": (lambda P: P.nn.AdaptiveAvgPool2D([2, 3]),
+                          [R(2, 3, 5, 7)]),
+    "AdaptiveAvgPool3D": (lambda P: P.nn.AdaptiveAvgPool3D([1, 2, 1]),
+                          [R(1, 2, 3, 5, 4)]),
+    "AdaptiveMaxPool1D": (lambda P: P.nn.AdaptiveMaxPool1D(
+        3, return_mask=True), [R(2, 3, 10)]),
+    "AdaptiveMaxPool2D": (lambda P: P.nn.AdaptiveMaxPool2D([2, 3]),
+                          [R(2, 3, 5, 7)]),
+    "AdaptiveMaxPool3D": (lambda P: P.nn.AdaptiveMaxPool3D([1, 2, 1]),
+                          [R(1, 2, 3, 5, 4)]),
+    "MaxUnPool1D": (lambda P: _Unpool(P, 1), [R(2, 3, 8)]),
+    "MaxUnPool2D": (lambda P: _Unpool(P, 2), [R(*X4)]),
+    "MaxUnPool3D": (lambda P: _Unpool(P, 3), [R(1, 2, 4, 4, 4)]),
+    # rnn
+    "SimpleRNNCell": (lambda P: P.nn.SimpleRNNCell(4, 6), [R(3, 4)]),
+    "LSTMCell": (lambda P: P.nn.LSTMCell(4, 5), [R(3, 4)]),
+    "GRUCell": (lambda P: P.nn.GRUCell(4, 5), [R(3, 4)]),
+    "RNN_reverse": (lambda P: P.nn.RNN(P.nn.SimpleRNNCell(4, 5),
+                                       is_reverse=True), [R(2, 5, 4)]),
+    "BiRNN": (lambda P: P.nn.BiRNN(P.nn.GRUCell(4, 5), P.nn.GRUCell(4, 5)),
+              [R(2, 5, 4)]),
+    "SimpleRNN": (lambda P: P.nn.SimpleRNN(4, 5, 2, "bidirect"),
+                  [R(2, 5, 4)]),
+    "LSTM": (lambda P: P.nn.LSTM(4, 5, 2, time_major=True), [R(5, 2, 4)]),
+    "GRU": (lambda P: P.nn.GRU(4, 5, 2, "bidirect"), [R(2, 5, 4)]),
+}
+VISION = dict(_VISION)
+CASES.update(_VISION)
+
 _ACT = {
     "CELU": lambda P: P.nn.CELU(0.7), "ELU": lambda P: P.nn.ELU(0.5),
     "GELU": lambda P: P.nn.GELU(), "GELU_tanh": lambda P: P.nn.GELU(True),
@@ -222,3 +285,14 @@ def _Params(P):
     return Params()
 
 
+def _Unpool(P, n):
+    """A max pool with its mask, then the unpool of that dimension."""
+    class Unpool(P.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.pool = getattr(P.nn, f"MaxPool{n}D")(2, return_mask=True)
+            self.unpool = getattr(P.nn, f"MaxUnPool{n}D")(2)
+
+        def forward(self, x):
+            return self.unpool(*self.pool(x))
+    return Unpool()

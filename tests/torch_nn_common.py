@@ -7,6 +7,8 @@ parameter's grad equal at ``tol`` (f32)."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
+import torch
 
 import paddle_tpu as pt
 import paddle_tpu_torch as paddle
@@ -61,12 +63,14 @@ def _run(P, layer, inputs, grad_inputs, seed):
 
 
 def twin(make, inputs, tol=TOL, train=True, grad_inputs=None, seed=0,
-         param_grads=True):
+         param_grads=True, relative_to_max=False):
     """Build ``make(P)`` in both packages (the port's from the JAX one's
     weights), run it on ``inputs`` (numpy arrays; float ones take grads
     unless ``grad_inputs`` says otherwise) and compare. ``param_grads``
-    False compares the outputs and the inputs' grads only. Returns the
-    port's layer."""
+    False compares the outputs and the inputs' grads only;
+    ``relative_to_max`` holds each array's largest difference to ``tol``
+    times its largest magnitude (not elementwise). Returns the port's
+    layer."""
     grad_inputs = grad_inputs or [True] * len(inputs)
     pt.seed(seed)
     jl = make(pt)
@@ -83,11 +87,59 @@ def twin(make, inputs, tol=TOL, train=True, grad_inputs=None, seed=0,
                   for g in (jg, tg))
     assert len(jo) == len(to) and jg.keys() == tg.keys(), (jg.keys(),
                                                            tg.keys())
+    def close(b, a, what):
+        if relative_to_max:
+            diff, scale = np.abs(b - a).max(), np.abs(a).max()
+            assert diff <= tol * scale, (what, diff, scale)
+        else:
+            np.testing.assert_allclose(b, a, rtol=tol, atol=tol,
+                                       err_msg=what)
+
     for i, (a, b) in enumerate(zip(jo, to)):
         assert a.shape == b.shape, (i, a.shape, b.shape)
-        np.testing.assert_allclose(b, a, rtol=tol, atol=tol,
-                                   err_msg=f"output {i}")
+        close(b, a, f"output {i}")
     for k in jg:
-        np.testing.assert_allclose(tg[k], jg[k], rtol=tol, atol=tol,
-                                   err_msg=f"grad {k}")
+        close(tg[k], jg[k], f"grad {k}")
     return tl
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread for the test (ROADMAP ground rule 5)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def R(*shape, seed=0):
+    """Seeded standard-normal f32."""
+    return np.random.default_rng(seed).standard_normal(shape).astype("f4")
+
+
+def grads_of(fn, *arrays, seed=7):
+    """A case for ``both``: ``fn(P, *tensors)``'s outputs and the grads of
+    the float inputs under a seeded cotangent on every float output."""
+    def case(P):
+        ts = [P.to_tensor(a, stop_gradient=a.dtype.kind != "f")
+              for a in arrays]
+        out = fn(P, *ts)
+        outs = list(out) if isinstance(out, (list, tuple)) else [out]
+        rng = np.random.default_rng(seed)
+        loss = None
+        for o in outs:
+            if o.stop_gradient:
+                continue
+            term = (o * P.to_tensor(rng.standard_normal(o.shape)
+                                    .astype("f4"))).sum()
+            loss = term if loss is None else loss + term
+        loss.backward()
+        return outs + [t.grad for t in ts if t.grad is not None]
+    case.__name__ = getattr(fn, "__name__", "case")
+    return case
+
+
+def ties(seed=0):
+    """A ReLU'd map: many equal zeros, small integers tying too."""
+    rng = np.random.default_rng(seed)
+    return np.maximum(rng.integers(-2, 3, (2, 3, 9, 9)), 0).astype("f4")
