@@ -239,13 +239,45 @@ Phases, in order; any failure exits non-zero before the result line:
    no K1-K5 launch on the path. Prints one JSON line: step ms graphed and
    eager, images/s, MFU over FlopCounterMode's FLOPs, peak memory,
    ``capture_s``.
+17. Generate (``phase_generate``, ``tools/bench_generate.py``): dense
+   KV-cache ``model.generate`` at full width, Llama-0.76B (vocab 32000,
+   hidden 2048, 12 layers, 16 heads, 16 KV heads) and GPT-355M (vocab
+   50304, hidden 1024, 24 layers, 16 heads), f32, seeded weights, B 8,
+   prompt 128, 128 new tokens, greedy, the device loop (one captured
+   step replayed per token, no host read a token): the first call's
+   seconds, the best of 3, tokens/s, ms a token, ``capture_s`` and
+   ``compile_counts`` a program, peak memory; no K1-K5 launch (the
+   cached attention is the plain masked softmax, as in the JAX package).
+   The device loop equal to the host loop token for token; the cached
+   trunk's logits (prefill, then 4 decode steps at a device ``cur_len``)
+   against one full forward within ``GEN_TOL`` of their scale (f32, TF32
+   off); a sampled call (t 0.8, top_k 40) twice with one seed equal,
+   another seed different; eos at B 1 stopping early with
+   ``stop_reason == "eos"`` in both loops, at B 8 freezing one row; the
+   caches and the loop's state on the card.
+18. Train under recompute (``phase_train_recompute``): gpt13 graphed
+   (``bench --model gpt13 [--recompute --recompute-policy P]``), no
+   recompute and ``full``, ``dots``, ``dots_no_batch``, 4 steps each:
+   step ms, peak memory, K1-K3 counted as in 6 (K1 2 a layer a step under
+   each policy), losses against no recompute's and ``full``'s.
+19. Flags (``phase_flags``): BERT's graphed step (4 steps) with
+   ``FLAGS_use_pallas_flash_attention`` on (K1-K3 48 each) and off (0,
+   and no plain flash call), losses within ``FLAG_LOSS_TOL``;
+   ``FLAGS_check_nan_inf`` raising on an eager inf on ``cuda`` and a
+   ``StaticFunction`` step under it captured and replayed.
+20. Extended ops (``phase_nn_extended_ops``): every case of
+   ``paddle_tpu_torch/tools/extended_cases.py`` (the extended
+   functionals and ``paddle.linalg``) on ``cuda`` against the CPU,
+   outputs and input grads at ``EXT_TOL``.
 
 The last two lines are the kernels' JSON record (K1-K3 with their
 launches by path: ``train_gpt13``, ``train_llama``,
 ``train_graphed_gpt13``, ``train_graphed_llama``,
 ``train_graphed_state``, ``facade_attention``, ``facade_train``,
-``train_bert``, ``train_graphed_bert``, ``train_bert_masked``; on a
-graphed path the eager first step's launches plus the replayed ones; and
+``train_bert``, ``train_graphed_bert``, ``train_bert_masked``,
+``train_gpt13_rc_{off,full,dots,dots_no_batch}``, ``flag_flash_on``,
+``flag_flash_off``, ``generate_llama``, ``generate_gpt``; on a graphed
+path the eager first step's launches plus the replayed ones; and
 ``bert_case``, their times at BERT's shape) and {"ok": true, "device":
 {...}}.
 """
@@ -2966,6 +2998,344 @@ def phase_train_resnet50(torch, card):
     return summary
 
 
+# ──────────────────── generation, recompute, flags, extended ops ────────────────────
+
+GEN_TOL = 1e-3   # f32, TF32 off: cached decode logits vs the full forward's,
+#                  relative to the logits' largest magnitude
+
+
+def k1_k5_launches():
+    """Every launch of K1-K5 counted so far (eager and replayed)."""
+    from paddle_tpu_torch.ops import fused_adamw as fw
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    return (sum(fa.kernel_launches.values())
+            + sum(fa.replayed_launches.values()) + pa.kernel_launches
+            + pa.replayed_launches + fw.kernel_launches)
+
+
+def reset_k1_k5():
+    from paddle_tpu_torch.ops import fused_adamw as fw
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    fa.reset_counters()
+    pa.reset_counters()
+    fw.kernel_launches = fw.plain_calls = 0
+
+
+def cached_vs_full(torch, model, ids):
+    """The KV-cache trunk (prefill of the 128-token prompt, then 4 decode
+    steps at device ``cur_len``) against one full forward over the 132
+    tokens: the largest logit difference and the logits' largest
+    magnitude, at the prompt's positions and at the 4 decode steps."""
+    S0 = ids.shape[1] - 4
+    dev = ids.device
+    with torch.no_grad():
+        full = model(ids)
+        caches = model._kv_caches(ids.shape[0], ids.shape[1], dev)
+        trunk = model._decode_trunk()
+        h, _ = trunk(ids[:, :S0], caches=caches,
+                     cur_len=torch.zeros((), dtype=torch.int64, device=dev))
+        steps = [model.logits(h)]
+        for p in range(S0, S0 + 4):
+            h, _ = trunk(ids[:, p:p + 1], caches=caches,
+                         cur_len=torch.full((), p, dtype=torch.int64,
+                                            device=dev))
+            steps.append(model.logits(h))
+        cached = torch.cat(steps, dim=1)
+    err = (cached - full).abs()
+    return {"prefill_err": float(err[:, :S0].max()),
+            "decode_err": float(err[:, S0:].max()),
+            "max_abs": float(full.abs().max())}
+
+
+def until_eos(ids, eos, S0):
+    """Per row, the length up to and with its first generated ``eos`` (the
+    whole row without one)."""
+    lens = []
+    for row in ids[:, S0:]:
+        hits = (row == eos).nonzero()
+        lens.append(S0 + int(hits[0, 0]) + 1 if len(hits) else ids.shape[1])
+    return lens
+
+
+def phase_generate(torch, card):
+    """Dense ``generate()`` at full width (``tools/bench_generate.py``):
+    Llama-0.76B and GPT-355M, f32, seeded weights, B 8, prompt 128, 128
+    new tokens, greedy, device loop. K1-K5 counted from just before the
+    timed calls to just after: none runs on this path (the cached
+    attention is the plain masked softmax, as in the JAX package). Then:
+    the device loop equal to the host loop token for token; the cached
+    trunk's logits against a full forward over the prompt and 4 generated
+    tokens within ``GEN_TOL`` of their scale; a sampled call (t 0.8,
+    top_k 40) twice with one seed equal, with another seed different; an
+    eos call at B 1 stopping early with ``stop_reason == "eos"`` in both
+    loops, and at B 8 one row's eos freezing that row (eos from then on)
+    while the others keep the greedy stream; the caches, the loop's
+    state and the sampler's key on the card. Prints one JSON line a
+    model."""
+    from paddle_tpu_torch.tools import bench_generate as bg
+
+    out = {}
+    for name in bg.MODELS:
+        t0 = time.perf_counter()
+        built = bg.build(name, 128, 128, False, "cuda")
+        model, vocab, _label = built
+        reset_k1_k5()
+        rec = bg.bench_one(name, built=built)
+        launches = k1_k5_launches()
+        ids = torch.from_numpy(__import__("numpy").random.default_rng(0)
+                               .integers(0, vocab, (8, 128))).cuda()
+        dev_ids = model.generate(ids, 128, temperature=0.0)._value
+        host_ids = model.generate(ids, 128, temperature=0.0,
+                                  device_loop=False)._value
+        close = cached_vs_full(torch, model, dev_ids[:, :132])
+        kw = dict(temperature=0.8, top_k=40)
+        s1 = model.generate(ids, 32, seed=5, **kw)._value
+        s2 = model.generate(ids, 32, seed=5, **kw)._value
+        s3 = model.generate(ids, 32, seed=6, **kw)._value
+        eos = int(dev_ids[0, 128 + 3])
+        one = {}
+        for dl in (True, False):
+            o, st = model.generate(ids[:1], 128, temperature=0.0,
+                                   eos_token_id=eos, device_loop=dl,
+                                   return_stats=True)
+            one[dl] = (o._value, st)
+        frozen = {}
+        for dl in (True, False):
+            frozen[dl] = model.generate(ids, 128, temperature=0.0,
+                                        eos_token_id=eos,
+                                        device_loop=dl)._value
+        f = frozen[True]
+        row0 = f[0, 128:]
+        first = int((row0 == eos).nonzero()[0, 0])
+        others_kept = all(torch.equal(f[r, :n], dev_ids[r, :n])
+                          for r, n in enumerate(until_eos(f, eos, 128)))
+        sig = model._generation_programs[(8, 128, 256, 0.0, 0)]
+        on_card = ({t.device.type for t in sig.state.values()}
+                   | {t.device.type for kv in model._generation_caches[
+                       (8, 256, torch.device("cuda", 0))] for t in kv})
+        checks = {
+            "device_loop_equals_host_loop": torch.equal(dev_ids, host_ids),
+            "cached_logits_close": max(close["prefill_err"],
+                                       close["decode_err"])
+            <= GEN_TOL * max(close["max_abs"], 1.0),
+            "sampled_same_seed_equal": torch.equal(s1, s2),
+            "sampled_other_seed_differs": not torch.equal(s1, s3),
+            "eos_b1_stops_early": all(
+                st["stop_reason"] == "eos" and o.shape[1] < 256
+                for o, st in one.values())
+            and torch.equal(one[True][0], one[False][0]),
+            "eos_b8_loops_equal": torch.equal(frozen[True], frozen[False]),
+            "eos_row_frozen": bool((row0[first:] == eos).all()),
+            "eos_other_rows_kept": others_kept,
+            "state_on_card": on_card == {"cuda"},
+            "no_k1_k5_launch": launches == 0,
+        }
+        out[name] = dict(rec, checks=checks, logits=close, tol=GEN_TOL,
+                         launches=launches, eos=eos,
+                         eos_b1_len=int(one[True][0].shape[1]),
+                         seconds=round(time.perf_counter() - t0, 1),
+                         card=card)
+        log(f"generate {name}: " + json.dumps(out[name]))
+        log(f"generate {name}: {rec['value']} tokens/s, "
+            f"{rec['per_token_ms']} ms a token, first call "
+            f"{rec['first_s']} s, capture {rec['capture_s']} s, peak "
+            f"{rec['peak_memory_gib']} GiB ({card})")
+        if not all(checks.values()):
+            fail(f"generate {name}: {checks}")
+        del model, built, sig
+        torch.cuda.empty_cache()
+    return out
+
+
+RC_POLICIES = (None, "full", "dots", "dots_no_batch")
+
+
+def phase_train_recompute(torch, card):
+    """gpt13 (``bench --model gpt13``, graphed) with no recompute and with
+    ``--recompute --recompute-policy {full,dots,dots_no_batch}``, 4 steps
+    each (eager, capture, 2 replays). Per policy: step ms, peak memory,
+    K1-K3 launches (K1 twice a layer under every policy: flash attention
+    is no aten product, so it is recomputed, as no JAX policy saves a
+    Pallas call's output), and the losses against no recompute's (bit
+    for bit, else the largest difference: under O2 the ``recompute`` op
+    casts the block's f32 norm weights to bf16, as the JAX package's
+    does) and against ``full``'s. Prints one JSON line."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = bench.SETUPS["gpt13"](False)[0]
+    runs, launches = {}, {}
+    for policy in RC_POLICIES:
+        label = f"rc_{policy or 'off'}"
+        fa.reset_counters()
+        rec = bench.bench_model("gpt13", device="cuda", steps=1, reps=1,
+                                recompute=policy is not None,
+                                recompute_policy=policy)
+        counts = flash_counts(fa)
+        per_layer = {"flash_fwd": 1 if policy is None else 2,
+                     "flash_dq": 1, "flash_dkv": 1}
+        check_graphed_counts(f"train gpt13 {label}", counts, per_layer,
+                             cfg.num_layers, rec["steps_run"])
+        launches[label] = ran(counts)
+        runs[label] = rec
+        torch.cuda.empty_cache()
+    base = runs["rc_off"]["losses"]
+    summary = {"phase": "train_recompute", "card": card, "policies": {
+        k: {"config": r["config"], "step_ms": r["step_ms"],
+            "peak_memory_gib": r["peak_memory_gib"],
+            "capture_s": r["capture_s"], "launches": launches[k],
+            "losses": r["losses"],
+            "losses_equal_no_recompute": r["losses"] == base,
+            "losses_equal_full": r["losses"] == runs["rc_full"]["losses"],
+            "max_loss_diff": max(abs(a - b) for a, b in
+                                 zip(r["losses"], base))}
+        for k, r in runs.items()}}
+    log(json.dumps(summary))
+    for k, r in summary["policies"].items():
+        log(f"train gpt13 {k}: step {r['step_ms']} ms, peak "
+            f"{r['peak_memory_gib']} GiB, K1-K3 {r['launches']}, losses "
+            + ("equal" if r["losses_equal_no_recompute"]
+               else f"differ by {r['max_loss_diff']:.3e}") + f" ({card})")
+    if not all(math.isfinite(x) for r in runs.values() for x in r["losses"]):
+        fail(f"train recompute: a loss is not finite: {summary}")
+    return launches, summary
+
+
+FLAG_LOSS_TOL = 0.02   # absolute, BERT's losses (~10.4) over 4 steps:
+#                        bf16 dense attention against the flash kernels
+
+
+def phase_flags(torch, card):
+    """The flags on the card. ``FLAGS_use_pallas_flash_attention``: BERT's
+    graphed step (``bench --model bert``, 4 steps) with the flag on, then
+    off: 12 launches a step of each of K1-K3, then none (and none of
+    their plain versions), losses within ``FLAG_LOSS_TOL`` (one dropout
+    hash in both routes). ``FLAGS_check_nan_inf``: an eager op giving
+    inf on ``cuda`` raises FloatingPointError; a ``StaticFunction`` step
+    under the flag captures (the sweep skips during capture) and replays
+    equal to its eager call. Prints one JSON line."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import bench, jit
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    bert = {}
+    try:
+        for flag in (True, False):
+            paddle.set_flags({"FLAGS_use_pallas_flash_attention": flag})
+            fa.reset_counters()
+            rec = bench.bench_model("bert", device="cuda", steps=1, reps=1)
+            bert[flag] = (rec, flash_counts(fa))
+            torch.cuda.empty_cache()
+    finally:
+        paddle.set_flags({"FLAGS_use_pallas_flash_attention": True})
+    (r_on, c_on), (r_off, c_off) = bert[True], bert[False]
+    diff = max(abs(a - b) for a, b in zip(r_on["losses"], r_off["losses"]))
+    raised = False
+    try:
+        paddle.set_flags({"FLAGS_check_nan_inf": True})
+        x = paddle.to_tensor(np.array([1.0, 0.0], "f4"), place="cuda")
+        try:
+            x / 0.0
+        except FloatingPointError:
+            raised = True
+        w = paddle.to_tensor(np.linspace(-1, 1, 64, dtype="f4"),
+                             place="cuda")
+
+        def sweep_step(a):
+            return paddle.tanh(a * w) * 2.0 + 1.0
+
+        static = jit.StaticFunction(sweep_step)
+        a = paddle.to_tensor(np.ones(64, "f4"), place="cuda")
+        calls = [static(a)._value.clone() for _ in range(3)]
+        replayed = all(torch.equal(c, calls[0]) for c in calls)
+        counts = static.compile_counts()
+    finally:
+        paddle.set_flags({"FLAGS_check_nan_inf": False})
+    on_launch, off_launch = ran(c_on), ran(c_off)
+    checks = {
+        "flash_on_launches": on_launch == dict.fromkeys(fa.KERNELS, 48),
+        "flash_off_no_launch": off_launch == dict.fromkeys(fa.KERNELS, 0)
+        and not any(c_off["plain_calls"].values()),
+        "losses_close": diff <= FLAG_LOSS_TOL,
+        "nan_inf_raises_on_card": raised,
+        "captured_step_replays_under_sweep": replayed and counts == {
+            "signatures": 1, "captured": 1, "calls": 3},
+    }
+    rec = {"phase": "flags", "card": card, "checks": checks,
+           "bert_losses": {"flash_on": r_on["losses"],
+                           "flash_off": r_off["losses"]},
+           "max_loss_diff": diff, "tol": FLAG_LOSS_TOL,
+           "step_ms": {"flash_on": r_on["step_ms"],
+                       "flash_off": r_off["step_ms"]},
+           "peak_memory_gib": {"flash_on": r_on["peak_memory_gib"],
+                               "flash_off": r_off["peak_memory_gib"]},
+           "launches": {"flag_flash_on": on_launch,
+                        "flag_flash_off": off_launch}}
+    log(json.dumps(rec))
+    if not all(checks.values()):
+        fail(f"flags: {checks}")
+    return rec["launches"], rec
+
+
+EXT_TOL = 1e-4   # f32, TF32 off: the card's and the CPU's summation orders
+
+
+def phase_nn_extended_ops(torch, card):
+    """Every case of ``paddle_tpu_torch/tools/extended_cases.py`` (the
+    extended functionals and ``paddle.linalg``, the CPU twins' cases) on
+    ``cuda`` against the CPU: same dtypes and shapes, outputs and input
+    grads within ``EXT_TOL`` of each array's scale, integer outputs
+    equal, the same inputs given grads. Prints one JSON line."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools.extended_cases import CASES, run_case
+
+    t0 = time.perf_counter()
+    bad, worst = [], (0.0, None)
+    try:
+        for name, (fn, arrays) in sorted(CASES.items()):
+            paddle.set_device("cuda")
+            go, gg = run_case(paddle, fn, arrays)
+            paddle.set_device("cpu")
+            wo, wg = run_case(paddle, fn, arrays)
+            if len(go) != len(wo) or gg.keys() != wg.keys():
+                bad.append(f"{name}: {len(go)} outputs, grads {list(gg)} "
+                           f"vs {len(wo)}, {list(wg)}")
+                continue
+            pairs = list(zip(go, wo)) + [(gg[k], wg[k]) for k in wg]
+            for i, (g, w) in enumerate(pairs):
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    bad.append(f"{name}[{i}]: {g.dtype}{g.shape} vs "
+                               f"{w.dtype}{w.shape}")
+                elif w.dtype.kind != "f":
+                    if not np.array_equal(g, w):
+                        bad.append(f"{name}[{i}]: integers differ")
+                elif w.size:
+                    err = float(np.abs(g - w).max())
+                    scale = max(float(np.abs(w).max()), 1.0)
+                    if err / scale > worst[0]:
+                        worst = (err / scale, f"{name}[{i}]")
+                    if err > EXT_TOL * scale:
+                        bad.append(f"{name}[{i}]: err {err:.3e}")
+    finally:
+        paddle.set_device(None)
+    rec = {"phase": "nn_extended_ops", "cases": len(CASES), "tol": EXT_TOL,
+           "failed": bad, "max_rel_err": worst[0], "worst": worst[1],
+           "seconds": round(time.perf_counter() - t0, 1), "card": card}
+    log(json.dumps(rec))
+    if bad:
+        fail(f"nn extended ops: {len(bad)} case(s) off on the card "
+             f"({bad[:5]})")
+    return rec
+
+
 def main():
     try:
         import torch
@@ -3013,6 +3383,14 @@ def main():
     phase_nn_vision_ops(torch, card)
     torch.cuda.empty_cache()
     phase_train_resnet50(torch, card)
+    torch.cuda.empty_cache()
+    generate = phase_generate(torch, card)
+    rc_launches, _ = phase_train_recompute(torch, card)
+    flag_launches, _ = phase_flags(torch, card)
+    torch.cuda.empty_cache()
+    phase_nn_extended_ops(torch, card)
+    gen_launches = {f"generate_{m}": rec["launches"]
+                    for m, rec in generate.items()}
     head = paged["a_decode_f32q_bf16kv"]
     chunk = paged["b_chunk_bf16"]
     kernels = [{
@@ -3033,7 +3411,9 @@ def main():
                               ("serve_gpt", serve_gpt))}
         # every engine of the fleet phase, the restart drill's children
         # (the killed one up to its last step) included
-        | {"serve_fleet": fleet["launches"]},
+        | {"serve_fleet": fleet["launches"]}
+        # dense generate(): K1-K5 together, none expected
+        | gen_launches,
         # NaN in one slot's live K, V or scale rows, per phase-3a case:
         # non-finite on that slot's rows only (the kinds held)
         "nan_confined": {name: rec["nan_confined"]
@@ -3062,7 +3442,11 @@ def main():
                 "train_graphed_state": graphed_state[kname],
                 "facade_attention": facade["attention"][kname],
                 "facade_train": facade["train"][kname]}
-            | {path: bert[path][kname] for path in bert},
+            | {path: bert[path][kname] for path in bert}
+            | {f"train_gpt13_{rc}": n[kname]
+               for rc, n in rc_launches.items()}
+            | {path: n[kname] for path, n in flag_launches.items()}
+            | gen_launches,
             "max_abs_err": flash13["max_abs_err"][kname],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -6,7 +6,8 @@ thin cell over one ``torch.Tensor`` whose tape is torch autograd), every
 op of ``paddle_tpu/ops`` (:mod:`.ops`), the dtypes, ``seed`` and the RNG
 state, grad mode and ``paddle.grad``, ``set_device``/``get_device``, and
 the modules ``autograd``, ``nn``, ``optimizer`` (with ``optimizer.lr``),
-``amp``, ``jit``, ``models`` and ``vision``.
+``amp``, ``jit``, ``linalg``, ``models`` and ``vision``, and
+``set_flags``/``get_flags``.
 
 The JAX package ``paddle_tpu`` is the reference; this package grows
 beside it slice by slice, keeping its module layout and names so each
@@ -29,7 +30,11 @@ core above; and Paddle's ``nn`` (``nn.Layer`` over facade Parameters,
 norm, loss and Transformer layers, ``nn.utils``) with BERT's pretraining
 step (``models.BertForPretraining``, ``bench --model bert``); the conv,
 pooling and RNN layers with ``vision.models``' ResNet family and
-ResNet-50's training step (``bench --model resnet50``).
+ResNet-50's training step (``bench --model resnet50``); Llama's and GPT's
+KV-cache ``generate()`` (host and device loop, as CUDA graphs on the
+card) with the HF converters, the named recompute policies, the flags
+with the NaN/Inf sweep, ``paddle.linalg`` and ``nn``'s extended
+functionals and layers.
 
 Every entry point runs on ``cuda`` unless given ``device="cpu"`` or told
 ``set_device("cpu")`` (:mod:`.device`); kernels are built from ``csrc/``
@@ -37,9 +42,7 @@ with ``nvcc`` at first use (:mod:`.ops._build`). Not ported yet, of the
 JAX package's namespace: ``io``, ``jit.save``/``jit.load``, ``static``,
 ``distributed`` (beyond ``fleet.recompute``), ``metric``, ``hapi``/``Model``,
 ``vision`` beyond the ResNet models, ``incubate``, ``distribution``,
-``fft``, ``signal``, ``sparse``, ``linalg`` (the facade module; the ops
-are here), the extended layers of ``nn``,
-``save``/``load``, ``set_flags``/``get_flags`` and the ``*Place``
+``fft``, ``signal``, ``sparse``, ``save``/``load`` and the ``*Place``
 classes.
 """
 from .device import default_device, get_device, resolve_device, set_device
@@ -55,13 +58,14 @@ from .dtypes import (bfloat16, bool_, complex64, complex128,  # noqa: E402
                      uint8)
 from .dtypes import bool_ as bool  # noqa: E402,A001 - Paddle's name
 from . import framework  # noqa: E402
+from .framework.flags import get_flags, set_flags  # noqa: E402
 from .framework.core_api import (create_parameter, dtype,  # noqa: E402
                                  finfo, get_default_dtype, iinfo,
                                  in_dynamic_mode, is_tensor,
                                  set_default_dtype)
 from .generator import (default_generator, get_rng_state,  # noqa: E402
                         seed, set_rng_state)
-from . import amp, jit, models, nn, optimizer, vision  # noqa: E402
+from . import amp, jit, linalg, models, nn, optimizer, vision  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -74,5 +78,6 @@ __all__ = (["default_device", "resolve_device", "set_device", "get_device",
             "dtype", "finfo", "get_default_dtype", "iinfo",
             "in_dynamic_mode", "is_tensor", "set_default_dtype",
             "default_generator", "get_rng_state", "seed", "set_rng_state",
-            "amp", "jit", "models", "nn", "optimizer", "vision"]
+            "amp", "jit", "linalg", "models", "nn", "optimizer", "vision",
+            "set_flags", "get_flags"]
            + [n for n in ops.__all__ if n not in ("to_tensor",)])

@@ -30,6 +30,12 @@ of the engine is the glue:
   differentiated, and an input the outputs do not reach raises unless
   ``allow_unused``.
 - Grad mode is torch's (thread-local, as the JAX package's).
+- ``FLAGS_check_nan_inf`` (``framework/flags.py``) makes
+  :func:`apply_op` sweep each op's floating outputs and raise
+  ``FloatingPointError`` on a NaN or Inf, with the JAX package's message;
+  the sweep reads the outputs on the host, so it skips while a CUDA graph
+  is being captured (the JAX sweep skips tracers).
+  ``FLAGS_benchmark`` synchronizes the card after each op.
 
 A graph freed by a backward raises on a second one only where torch
 saved a tensor for it (``x * x`` does, ``x + 1`` does not); the JAX tape
@@ -51,6 +57,32 @@ __all__ = ["apply_op", "inplace_rebind", "writes_in_place", "backward",
 no_grad = torch.no_grad
 enable_grad = torch.enable_grad
 is_grad_enabled = torch.is_grad_enabled
+
+
+# FLAGS_check_nan_inf / FLAGS_benchmark (framework/flags.py)
+check_nan_inf_enabled = False
+benchmark_sync_enabled = False
+
+
+def _nan_inf_sweep(outs, name: str) -> None:
+    seq = outs if isinstance(outs, (tuple, list)) else (outs,)
+    for i, o in enumerate(seq):
+        if (isinstance(o, torch.Tensor) and o.is_floating_point()
+                and not (o.is_cuda
+                         and torch.cuda.is_current_stream_capturing())
+                and not bool(torch.isfinite(o).all())):
+            raise FloatingPointError(
+                f"NaN/Inf detected in output {i} of op {name!r} "
+                f"(FLAGS_check_nan_inf sweep)")
+
+
+def _benchmark_sync(outs) -> None:
+    seq = outs if isinstance(outs, (tuple, list)) else (outs,)
+    for o in seq:
+        if (isinstance(o, torch.Tensor) and o.is_cuda
+                and not torch.cuda.is_current_stream_capturing()):
+            torch.cuda.synchronize(o.device)
+            return
 
 
 def set_grad_enabled(mode: bool):
@@ -78,6 +110,10 @@ def apply_op(fn: Callable, tensors: Sequence[Tensor], attrs: dict = None,
     if amp._state.get() is not None:
         vals = amp.cast_inputs(name, *vals)
     outs = fn(*vals, **attrs) if attrs else fn(*vals)
+    if check_nan_inf_enabled:
+        _nan_inf_sweep(outs, name)
+    if benchmark_sync_enabled:
+        _benchmark_sync(outs)
     if isinstance(outs, (tuple, list)):
         return tuple(_wrap_out(o, differentiable, vals) for o in outs)
     return _wrap_out(outs, differentiable, vals)

@@ -6,6 +6,7 @@ ResNet-50.
     python -m paddle_tpu_torch.bench --model bert
     python -m paddle_tpu_torch.bench --model resnet50
     python -m paddle_tpu_torch.bench --eager          # the eager step
+    python -m paddle_tpu_torch.bench --recompute [--recompute-policy dots]
     python -m paddle_tpu_torch.bench --small --device cpu [--model llama]
 
 Counterpart of the root ``bench.py``'s ``bench_gpt13``, ``bench_llama``,
@@ -45,6 +46,11 @@ configuration at the bench's defaults:
   Paddle ``Layer`` model whose step takes facade tensors. ``--small``:
   ``resnet18``, B 2, 64 x 64, 3 steps.
 
+``--recompute``/``--no-recompute`` and ``--recompute-policy`` (``full``,
+``dots``, ``dots_no_batch``, ...; ``distributed/fleet/recompute.py``)
+set the GPT's or Llama's ``recompute`` and ``recompute_policy``, as the
+root bench's ``BENCH_RECOMPUTE``/``BENCH_RC_POLICY`` do (``bench.py:364-366``).
+
 The language models train with ``AdamW(learning_rate=1e-4)``; all run
 the step ``loss.backward(); opt.step(); opt.clear_grad()`` under
 ``amp.auto_cast(level="O2")``, from ``generator.seed(0)`` and inputs
@@ -70,6 +76,7 @@ would run inside a capture.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -322,30 +329,40 @@ def config_name(model: str, cfg, B: int, S: int) -> str:
     if model == "resnet50":
         return f"{cfg}-b{B}-{S}x{S}-bf16"
     head = f"-h{cfg.hidden_size}-l{cfg.num_layers}-b{B}-s{S}-bf16"
-    if model == "gpt13":
-        return "gpt13" + head + "-fce-nomaster"
     if model == "bert":
         return "bert" + head
     rc = ""
     if cfg.recompute:
         rc = "-rc" + (f":{cfg.recompute_policy}" if cfg.recompute_policy
                       else "")
+    if model == "gpt13":
+        return "gpt13" + head + rc + "-fce-nomaster"
     return "llama" + head + rc + ("-fce" if cfg.fused_loss else "")
 
 
 def train_run(model: str = "gpt13", small: bool = False, device=None,
               steps: Optional[int] = None, reps: int = 3,
-              eager: bool = False):
+              eager: bool = False, recompute: Optional[bool] = None,
+              recompute_policy: Optional[str] = None):
     """Run the bench of ``model`` (``gpt13``, ``llama``, ``bert`` or
     ``resnet50``): ``(record, model, optimizer)``, the record with
     ``losses`` (every step's, in order) and ``steps_run``. ``eager`` runs
     ``train_fn`` itself (on torch tensors; BERT's and ResNet's on facade
     tensors); else the root bench's ``StaticFunction`` step on
-    ``paddle.to_tensor`` inputs."""
+    ``paddle.to_tensor`` inputs. ``recompute`` (when not None) and
+    ``recompute_policy`` (when given) set the GPT's or Llama's config
+    fields of those names."""
     import paddle_tpu_torch as paddle
 
     device = resolve_device(device)
     cfg, B, S, default_steps = SETUPS[model](small)
+    if recompute is not None or recompute_policy is not None:
+        if model not in ("gpt13", "llama"):
+            raise ValueError(f"--recompute is a GPT or Llama setting, not "
+                             f"{model}'s")
+        cfg = dataclasses.replace(
+            cfg, recompute=cfg.recompute if recompute is None else recompute,
+            recompute_policy=recompute_policy or cfg.recompute_policy)
     steps = default_steps if steps is None else int(steps)
     model_, opt = build(cfg, device, MASTER_WEIGHT[model])
     flops = {} if model == "resnet50" else None
@@ -417,9 +434,11 @@ def train_run(model: str = "gpt13", small: bool = False, device=None,
 
 def bench_model(model: str = "gpt13", small: bool = False, device=None,
                 steps: Optional[int] = None, reps: int = 3,
-                eager: bool = False) -> dict:
+                eager: bool = False, recompute: Optional[bool] = None,
+                recompute_policy: Optional[str] = None) -> dict:
     """:func:`train_run`'s record."""
-    return train_run(model, small, device, steps, reps, eager)[0]
+    return train_run(model, small, device, steps, reps, eager, recompute,
+                     recompute_policy)[0]
 
 
 def bench_gpt13(small: bool = False, device=None,
@@ -443,12 +462,22 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     ap.add_argument("--eager", action="store_true",
                     help="run train_fn eagerly, not through StaticFunction")
+    ap.add_argument("--recompute", dest="recompute", action="store_const",
+                    const=True, default=None,
+                    help="recompute every block (gpt13, llama)")
+    ap.add_argument("--no-recompute", dest="recompute",
+                    action="store_const", const=False,
+                    help="recompute no block (gpt13, llama)")
+    ap.add_argument("--recompute-policy", default=None,
+                    help="full, dots, dots_no_batch, ... (with recompute)")
     args = ap.parse_args(argv)
     if torch.cuda.is_available():
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.benchmark = False
-    rec = bench_model(args.model, args.small, args.device, eager=args.eager)
+    rec = bench_model(args.model, args.small, args.device, eager=args.eager,
+                      recompute=args.recompute,
+                      recompute_policy=args.recompute_policy)
     rec.pop("losses")
     rec.pop("steps_run")
     print(json.dumps(rec), flush=True)

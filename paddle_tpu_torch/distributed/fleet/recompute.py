@@ -25,40 +25,86 @@ three things of the JAX package's kept:
   to stash them (``preserve_rng_state=False``): its stash reads the
   CUDA generator on the host, which a capture refuses.
 
-Policies: ``None`` and ``"full"`` (recompute everything). The JAX
-package's named policies (``dots``, ``dots_no_batch`` and their aliases,
-which save matmul outputs) raise ``NotImplementedError``: not ported yet.
+Policies, the JAX package's names (``_POLICIES`` and the
+``jax.checkpoint_policies`` it resolves), through
+``torch.utils.checkpoint.create_selective_checkpoint_contexts``:
+
+- ``None``, ``"full"`` and ``"nothing_saveable"``: recompute everything;
+- ``"dots"``/``"dots_saveable"``: save the output of every matrix
+  product (``aten.mm``, ``addmm``, ``bmm``, ``baddbmm`` and
+  ``_scaled_mm``, what ``F.linear`` and ``matmul`` dispatch to) and
+  recompute the rest;
+- ``"dots_no_batch"``/``"dots_with_no_batch_dims"``: save only the
+  products without batch dims (``mm``, ``addmm``), as
+  ``dots_with_no_batch_dims_saveable`` does;
+- ``"everything_saveable"``: save every output (no recompute).
+
+Flash attention (K1-K3) reaches torch through an ``autograd.Function``,
+no ``aten`` product, so it is recomputed under every policy, as no JAX
+policy saves a ``pallas_call``'s output: K1 runs twice a block under each.
+Any other ``jax.checkpoint_policies`` name, and a callable (a JAX policy
+over primitives), raises ``ValueError`` naming what the port accepts.
 ``use_reentrant`` is accepted for the API and ignored (non-reentrant
 always), as the JAX package accepts it.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ... import amp
 from ... import generator as _generator
 
-__all__ = ["recompute"]
+__all__ = ["recompute", "POLICIES"]
 
-# the JAX package's named policies (recompute.py _POLICIES): not ported
-_NAMED_POLICIES = ("dots", "dots_saveable", "dots_no_batch",
-                   "dots_with_no_batch_dims")
+_aten = torch.ops.aten
+_NO_BATCH = frozenset({_aten.mm.default, _aten.addmm.default})
+_DOTS = _NO_BATCH | {_aten.bmm.default, _aten.baddbmm.default,
+                     _aten._scaled_mm.default}
+_EVERYTHING = object()  # every op's output saved
+
+#: policy name -> the aten ops whose outputs are saved (None: recompute
+#: everything)
+POLICIES = {
+    "full": None,
+    "nothing_saveable": None,
+    "dots": _DOTS,
+    "dots_saveable": _DOTS,
+    "dots_no_batch": _NO_BATCH,
+    "dots_with_no_batch_dims": _NO_BATCH,
+    "dots_with_no_batch_dims_saveable": _NO_BATCH,
+    "everything_saveable": _EVERYTHING,
+}
 
 
-def _check_policy(policy) -> None:
-    if policy is None or policy == "full":
-        return
-    if policy in _NAMED_POLICIES or callable(policy):
-        raise NotImplementedError(
-            f"recompute policy {policy!r} is not ported yet; use None or "
-            "'full' (recompute everything)")
-    raise ValueError(f"unknown recompute policy {policy!r}; named options: "
-                     f"{sorted(('full',) + _NAMED_POLICIES)}")
+def _resolve_policy(policy):
+    """The saved ops of ``policy`` (module docstring)."""
+    if policy is None:
+        return None
+    if isinstance(policy, str) and policy in POLICIES:
+        return POLICIES[policy]
+    raise ValueError(
+        f"recompute policy {policy!r} is not supported by the port; named "
+        f"options: None or {sorted(POLICIES)} (a JAX checkpoint policy "
+        "over primitives does not apply to torch ops)")
+
+
+def _saving(saved):
+    """A ``context_fn`` for ``checkpoint`` that saves the outputs of the
+    ops in ``saved`` (every op's for ``_EVERYTHING``) and recomputes the
+    rest."""
+    def policy_fn(ctx, op, *args, **kwargs):
+        keep = saved is _EVERYTHING or op in saved
+        return (CheckpointPolicy.MUST_SAVE if keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
 
 
 @contextlib.contextmanager
@@ -79,7 +125,7 @@ def recompute(function: Callable, *args, preserve_rng_state: bool = True,
     backward (module docstring). ``function`` is an ``nn.Module`` or any
     callable of tensors; only a module's parameters take the amp cast."""
     del use_reentrant
-    _check_policy(policy)
+    saved = _resolve_policy(policy)
     state = amp.current_state()
     rng = _generator.get_rng_state() if preserve_rng_state else None
     calls = [0]
@@ -100,5 +146,8 @@ def recompute(function: Callable, *args, preserve_rng_state: bool = True,
                                                       kwargs)
             return function(*xs, **kwargs)
 
+    if saved is None:
+        return checkpoint(run, *args, use_reentrant=False,
+                          preserve_rng_state=False)
     return checkpoint(run, *args, use_reentrant=False,
-                      preserve_rng_state=False)
+                      preserve_rng_state=False, context_fn=_saving(saved))

@@ -1,6 +1,7 @@
 """The ``torch.nn`` layers that the port's GPT and Llama models are built
-from, and ``rms_norm`` (the JAX package's ``nn.RMSNorm`` formula, not a
-Paddle functional).
+from, ``rms_norm`` (the JAX package's ``nn.RMSNorm`` formula, not a
+Paddle functional) and ``cached_attention`` (the KV-cache attention of
+both models).
 
 These are not Paddle's API: the models are ``torch.nn.Module``s whose
 ``Linear`` weight is ``[out, in]`` (``torch.nn.Linear``'s storage; the
@@ -18,7 +19,8 @@ from torch import nn
 from ..amp import cast_inputs
 from ..nn import functional as F
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "RMSNorm", "rms_norm"]
+__all__ = ["Linear", "Embedding", "LayerNorm", "RMSNorm", "rms_norm",
+           "cached_attention"]
 
 
 def rms_norm(x, weight, epsilon: float = 1e-6):
@@ -30,6 +32,20 @@ def rms_norm(x, weight, epsilon: float = 1e-6):
     x, weight = cast_inputs("rms_norm", x, weight)
     var = x.to(torch.float32).pow(2).mean(dim=-1, keepdim=True)
     return x * (1.0 / torch.sqrt(var + epsilon)).to(x.dtype) * weight
+
+
+def cached_attention(q, k, v, pos, L: int, scale: float):
+    """The KV-cache attention of both models: ``q`` ``[B, S, H, D]`` over
+    the whole buffers ``k``/``v`` ``[B, L, H, D]`` (cast to q's dtype),
+    keys past each query's position ``pos`` masked with -1e30, softmax in
+    q's dtype. Returns ``[B, S, H, D]``."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k.to(q.dtype),
+                                               v.to(q.dtype)))
+    s = torch.matmul(qt, kt.transpose(-1, -2)) * scale
+    cols = torch.arange(L, device=q.device)
+    s = s.masked_fill(cols[None, :] > pos[:, None], -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, vt).transpose(1, 2)
 
 
 class Linear(nn.Linear):

@@ -37,8 +37,17 @@ projections and embeddings, ``0.02 / sqrt(2 * layers)`` for ``out_proj``
 and ``fc2``, zero biases, unit norms); the paged step's grid is
 flattened to ``[T, H]`` (the JAX step's ``[B, 1, H]``) and the KV pools
 are written in place. The head is always tied (``tie_word_embeddings``
-is the JAX default). Tensor/pipeline/sequence parallelism, recompute,
-the KV-cache forward and ``generate()`` are not ported.
+is the JAX default). Tensor/pipeline/sequence parallelism are not
+ported.
+
+``config.recompute`` runs each block under ``recompute`` with
+``config.recompute_policy`` (``distributed/fleet/recompute.py``), as the
+JAX package's GPT does at pp = 1. The KV-cache forward
+(``GPTModel.forward(ids, caches=, cur_len=)``, behind ``generate()``,
+``models/generation.py``) gathers the learned positions at ``cur_len +
+arange(S)`` (``cur_len`` a 0-d device tensor), writes every head's k and
+v into the caches in place and attends over the whole buffer with the
+JAX package's plain masked softmax; no dropout runs on it.
 """
 from __future__ import annotations
 
@@ -51,13 +60,15 @@ from torch import nn
 
 from .. import amp
 from ..device import resolve_device
+from ..distributed.fleet.recompute import recompute
 from ..generator import next_seed
 from ..nn import functional as F
 from ..ops.fused_loss import fused_linear_cross_entropy
 from ..ops.paged_attention import ragged_paged_attention
 from ..quantization.observers import quantize_kv
 from ..tensor import facade_io
-from ._modules import Embedding, LayerNorm, Linear
+from ._modules import Embedding, LayerNorm, Linear, cached_attention
+from .generation import GenerationMixin
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
            "gpt3_1_3b"]
@@ -76,6 +87,11 @@ class GPTConfig:
     layer_norm_epsilon: float = 1e-5
     initializer_range: float = 0.02
     gelu_approximate: bool = False
+    # each block under recompute (distributed/fleet/recompute.py) with the
+    # policy: None/'full' recompute everything, 'dots' saves the matmul
+    # outputs, 'dots_no_batch' those without batch dims
+    recompute: bool = False
+    recompute_policy: Optional[str] = None
     # fused chunked linear + CE (ops/fused_loss.py): forward(labels=...)
     # then returns (None, loss), never forming the [B*S, V] logits
     fused_loss: bool = False
@@ -126,6 +142,27 @@ class GPTAttention(nn.Module):
         ctx, _ = F.flash_attention(
             q, k, v, causal=True,
             dropout=self.attn_drop_p if self.training else 0.0)
+        return self.out_proj(ctx.reshape(B, S, H))
+
+    def forward_cached(self, x, cache, cur_len):
+        """KV-cache step over ``x`` ``[B, S, H]`` at positions ``cur_len +
+        arange(S)`` (``cur_len`` a 0-d int64 device tensor): every head's k
+        and v written into the caches ``(k_buf, v_buf)`` ``[B, L, heads,
+        D]`` in place (in their dtype), then q over the whole buffer, each
+        query masked at its own position (``cached_attention``; the JAX
+        package's ``cached_attention`` op, ``models/gpt.py:142-189``)."""
+        B, S, H = x.shape
+        nh, hd = self.cfg.num_heads, self.head_dim
+        k_buf, v_buf = cache
+        qkv = self.qkv_proj(x)
+        q, k, v = (t.reshape(B, S, nh, hd) for t in qkv.split(H, dim=-1))
+        q, k, v = amp.cast_inputs("cached_attention", q, k, v)
+        pos = cur_len + torch.arange(S, device=x.device)
+        k_buf.index_copy_(1, pos, k.to(k_buf.dtype))
+        v_buf.index_copy_(1, pos, v.to(v_buf.dtype))
+        ctx = cached_attention(q, k_buf, v_buf, pos, k_buf.shape[1],
+                               1.0 / math.sqrt(hd))
+        (ctx,) = amp.cast_inputs("merge_heads", ctx)
         return self.out_proj(ctx.reshape(B, S, H))
 
     def forward_paged(self, x, positions, block_tables, k_pool, v_pool,
@@ -203,7 +240,13 @@ class GPTDecoderLayer(nn.Module):
         self.mlp = GPTMLP(config)
         self.drop_p = config.hidden_dropout_prob
 
-    def forward(self, x):
+    def forward(self, x, cache=None, cur_len=None):
+        """The block; with ``cache`` the KV-cache step (no dropout), which
+        writes the layer's ``(k_buf, v_buf)`` in place at ``cur_len``."""
+        if cache is not None:
+            x = _add(x, self.attn.forward_cached(self.ln1(x), cache,
+                                                 cur_len))
+            return _add(x, self.mlp(self.ln2(x)))
         h = F.dropout(self.attn(self.ln1(x)), self.drop_p,
                       training=self.training)
         x = _add(x, h)
@@ -237,8 +280,23 @@ class GPTModel(nn.Module):
                               eps=config.layer_norm_epsilon)
         self.drop_p = config.hidden_dropout_prob
 
-    def forward(self, input_ids, position_ids=None):
+    def forward(self, input_ids, position_ids=None, caches=None,
+                cur_len=None):
+        """Dense trunk: the final LayerNorm's hidden states ``[B, S, H]``;
+        each block under ``recompute`` when ``config.recompute``. With
+        ``caches`` (a per-layer list of ``(k_buf, v_buf)``) the KV-cache
+        trunk at ``cur_len`` (a 0-d int64 device tensor): returns
+        ``(hidden, caches)``, the caches written in place."""
         B, S = input_ids.shape
+        cfg = self.config
+        if caches is not None:
+            pos = (cur_len + torch.arange(S, device=input_ids.device)
+                   ).expand(B, S)
+            x = _add(self.embeddings(input_ids),
+                     self.position_embeddings(pos))
+            for layer, cache in zip(self.layers, caches):
+                x = layer(x, cache=cache, cur_len=cur_len)
+            return self.ln_f(x), caches
         if S > self.config.max_position_embeddings:
             raise ValueError(f"sequence of {S} tokens past the "
                              f"{self.config.max_position_embeddings} "
@@ -250,7 +308,8 @@ class GPTModel(nn.Module):
                  self.position_embeddings(position_ids))
         x = F.dropout(x, self.drop_p, training=self.training)
         for layer in self.layers:
-            x = layer(x)
+            x = (recompute(layer, x, policy=cfg.recompute_policy)
+                 if cfg.recompute else layer(x))
         return self.ln_f(x)
 
     def forward_paged(self, input_ids, positions, block_tables, caches,
@@ -274,7 +333,7 @@ class GPTModel(nn.Module):
         return self.ln_f(x)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(nn.Module, GenerationMixin):
     """The LM head, tied to the input embedding. Built on ``device``
     (default ``cuda``; ``RuntimeError`` without a card unless
     ``device="cpu"``) in f32, its parameters drawn from

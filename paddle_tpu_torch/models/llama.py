@@ -46,9 +46,15 @@ The paged forward takes ``adapters=`` (``serving/adapters.py``
 delta (q/k/v before RoPE, o on the merged attention output, gate/up/down
 in the MLP), which is exactly zero on the rows of slot 0.
 
-Not ported yet: the KV-cache forward (``cache=``, behind ``generate()``),
-sequence parallelism (``sequence_parallel=True`` raises) and tensor
-parallelism.
+The KV-cache forward (``LlamaModel.forward(ids, caches=, cur_len=)``,
+behind ``generate()``, ``models/generation.py``) writes each call's k
+and v into the caches in place at ``cur_len``, a 0-d device tensor, so
+one captured decode step serves every position; its attention is the
+JAX package's plain masked softmax over the whole buffer, not flash
+attention.
+
+Not ported yet: sequence parallelism (``sequence_parallel=True``
+raises) and tensor parallelism.
 """
 from __future__ import annotations
 
@@ -61,13 +67,14 @@ from torch import nn
 
 from .. import amp
 from ..device import resolve_device
+from .generation import GenerationMixin
 from ..distributed.fleet.recompute import recompute
 from ..nn import functional as F
 from ..ops.fused_loss import fused_linear_cross_entropy
 from ..ops.paged_attention import ragged_paged_attention
 from ..quantization.observers import quantize_kv
 from ..tensor import facade_io
-from ._modules import Embedding, Linear, RMSNorm
+from ._modules import Embedding, Linear, RMSNorm, cached_attention
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny"]
 
@@ -91,8 +98,9 @@ class LlamaConfig:
     sequence_parallel: bool = False
     tie_word_embeddings: bool = False
     recompute: bool = False
-    # recompute policy: None/'full' recompute everything; the JAX
-    # package's named policies raise (distributed/fleet/recompute.py)
+    # recompute policy (distributed/fleet/recompute.py): None/'full'
+    # recompute everything, 'dots' saves the matmul outputs,
+    # 'dots_no_batch' those without batch dims
     recompute_policy: Optional[str] = None
     # fused chunked linear + CE (ops/fused_loss.py): forward(labels=...)
     # then returns (None, loss), never forming the [B*S, V] logits
@@ -191,6 +199,36 @@ class LlamaAttention(nn.Module):
         (ctx,) = amp.cast_inputs("merge_heads", ctx)
         return self.o_proj(ctx.reshape(B, S, nh * hd))
 
+    def forward_cached(self, x, cache, cur_len, rope=None):
+        """KV-cache step over ``x`` ``[B, S, H]`` at the absolute positions
+        ``cur_len + arange(S)`` (``cur_len`` a 0-d int64 device tensor):
+        RoPE at those positions (``rope``, the trunk's ``_rope_rows`` for
+        them, or computed here), k and v written into the caches ``(k_buf,
+        v_buf)`` ``[B, L, kv heads, D]`` in place (before the GQA repeat,
+        in the caches' dtype), then attention of q over the whole buffer,
+        each query masked at its own position with -1e30, softmax in q's
+        dtype (``llama_cached_attention``, ``models/llama.py:274-338`` of
+        the JAX package). Nothing reads a device value on the host."""
+        B, S, _ = x.shape
+        nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        k_buf, v_buf = cache
+        L = k_buf.shape[1]
+        q, k, v = amp.cast_inputs("llama_cached_attention", self.q_proj(x),
+                                  self.k_proj(x), self.v_proj(x))
+        pos = cur_len + torch.arange(S, device=x.device)
+        cos, sin = rope or _rope_rows(pos, hd, self.cfg.rope_theta)
+        cos, sin = cos[None].to(q.dtype), sin[None].to(q.dtype)
+        q = _apply_rope(q.view(B, S, nh, hd), cos, sin)
+        k = _apply_rope(k.view(B, S, nkv, hd), cos, sin)
+        k_buf.index_copy_(1, pos, k.to(k_buf.dtype))
+        v_buf.index_copy_(1, pos, v.view(B, S, nkv, hd).to(v_buf.dtype))
+        kr, vr = k_buf, v_buf
+        if nh != nkv:  # the cache keeps kv heads; repeat them to read
+            kr = kr.repeat_interleave(nh // nkv, dim=2)
+            vr = vr.repeat_interleave(nh // nkv, dim=2)
+        ctx = cached_attention(q, kr, vr, pos, L, 1.0 / math.sqrt(hd))
+        return self.o_proj(ctx.reshape(B, S, nh * hd))
+
     def forward_paged(self, x, positions, block_tables, k_pool, v_pool,
                       rope, attention=ragged_paged_attention, k_scale=None,
                       v_scale=None, adapters=None, layer_idx=0):
@@ -276,8 +314,13 @@ class LlamaDecoderLayer(nn.Module):
                                                 epsilon=eps)
         self.mlp = LlamaMLP(config)
 
-    def forward(self, x):
-        x = _add(x, self.self_attn(self.input_layernorm(x)))
+    def forward(self, x, cache=None, cur_len=None, rope=None):
+        """The dense layer; with ``cache`` the KV-cache step, which writes
+        the layer's ``(k_buf, v_buf)`` in place at ``cur_len``."""
+        h = self.input_layernorm(x)
+        h = (self.self_attn(h) if cache is None
+             else self.self_attn.forward_cached(h, cache, cur_len, rope))
+        x = _add(x, h)
         return _add(x, self.mlp(self.post_attention_layernorm(x)))
 
     def forward_paged(self, x, positions, block_tables, k_pool, v_pool, rope,
@@ -300,12 +343,22 @@ class LlamaModel(nn.Module):
                                      for _ in range(config.num_layers)])
         self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, caches=None, cur_len=None):
         """Dense trunk: ``input_ids`` ``[B, S]`` -> the final-norm hidden
         states ``[B, S, H]``; each layer under ``recompute`` when
-        ``config.recompute``."""
+        ``config.recompute``. With ``caches`` (a per-layer list of
+        ``(k_buf, v_buf)``) the KV-cache trunk at ``cur_len`` (a 0-d int64
+        device tensor): returns ``(hidden, caches)``, the caches written
+        in place."""
         cfg = self.config
         x = self.embed_tokens(input_ids)
+        if caches is not None:
+            pos = cur_len + torch.arange(x.shape[1], device=x.device)
+            rope = _rope_rows(pos, cfg.hidden_size // cfg.num_heads,
+                              cfg.rope_theta)
+            for layer, cache in zip(self.layers, caches):
+                x = layer(x, cache=cache, cur_len=cur_len, rope=rope)
+            return self.norm(x), caches
         for layer in self.layers:
             x = (recompute(layer, x, policy=cfg.recompute_policy)
                  if cfg.recompute else layer(x))
@@ -334,7 +387,7 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(nn.Module, GenerationMixin):
     """Llama with its vocab head. Built on ``device`` (default ``cuda``;
     ``RuntimeError`` without a card unless ``device="cpu"``), parameters
     drawn in f32 from ``torch.Generator(device).manual_seed(seed)``. With

@@ -7,7 +7,10 @@ for CUDA tensors, at every length, and its plain version for CPU
 tensors. The JAX package sends only TPU arrays at ``S >= 512`` to its
 Pallas kernel; the length at which the H100 should switch is for a later
 measurement to set. Any other mask takes :func:`_sdpa_ref`, the dense
-version, as in the JAX package.
+version, as in the JAX package. ``FLAGS_use_pallas_flash_attention``
+set False (``framework/flags.py``) sends every call to :func:`_sdpa_ref`
+on every device, a switch the user sets; left True (the default), a CUDA
+tensor's call launches the kernels or raises.
 
 Both functionals take facade tensors (``paddle.Tensor``) as well as
 torch tensors, and return what they were given (``tensor.facade_io``).
@@ -26,6 +29,9 @@ from ...tensor import facade_io
 
 __all__ = ["scaled_dot_product_attention", "flash_attention"]
 
+# FLAGS_use_pallas_flash_attention (framework/flags.py)
+pallas_flash_enabled = True
+
 
 def _sdpa_ref(q, k, v, mask, dropout_p: float, causal: bool,
               scale: Optional[float], seed=None):
@@ -37,7 +43,8 @@ def _sdpa_ref(q, k, v, mask, dropout_p: float, causal: bool,
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * s
-    neg = torch.tensor(NEG_INF, dtype=logits.dtype, device=logits.device)
+    # a fill, not a host copy: the function runs inside captured steps
+    neg = torch.full((), NEG_INF, dtype=logits.dtype, device=logits.device)
     if causal:
         qlen, klen = logits.shape[-2], logits.shape[-1]
         cm = torch.ones((qlen, klen), dtype=torch.bool,
@@ -82,7 +89,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     read, and that a captured step carries in its seed buffer."""
     drop = dropout_p if training else 0.0
     kpad = _as_key_padding(attn_mask, query.shape[0], key.shape[1])
-    if attn_mask is None or kpad is not None:
+    if pallas_flash_enabled and (attn_mask is None or kpad is not None):
         q, k, v = cast_inputs("flash_attention", query, key, value)
         return flash_attention_bshd(
             q, k, v, causal=is_causal, dropout_p=drop,

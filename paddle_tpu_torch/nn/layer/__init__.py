@@ -1,3 +1,3 @@
 """Layers of the port (``paddle_tpu/nn/layer``): ``activation``,
-``common``, ``container``, ``conv``, ``loss``, ``norm``, ``pooling``,
-``rnn`` and ``transformer``."""
+``common``, ``container``, ``conv``, ``extended``, ``loss``, ``norm``,
+``pooling``, ``rnn`` and ``transformer``."""

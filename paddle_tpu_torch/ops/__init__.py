@@ -193,6 +193,15 @@ def _patch_tensor():
     T.__and__ = lambda s, o: logic.bitwise_and(s, o)
     T.__or__ = lambda s, o: logic.bitwise_or(s, o)
     T.__xor__ = lambda s, o: logic.bitwise_xor(s, o)
+    # the paddle.linalg methods Paddle patches onto Tensor
+    from .. import linalg as _linalg_facade
+
+    T.cond = lambda s, p=None, name=None: _linalg_facade.cond(s, p)
+    T.multi_dot = lambda s, xs, name=None: _linalg_facade.multi_dot(
+        [s] + list(xs))
+    T.lu_unpack = lambda s, y, unpack_ludata=True, unpack_pivots=True, \
+        name=None: _linalg_facade.lu_unpack(s, y, unpack_ludata,
+                                            unpack_pivots)
     T.is_tensor = lambda s: True
     T.create_parameter = staticmethod(
         lambda *a, **k: __import__(

@@ -17,6 +17,9 @@ What is reproduced (``jax_default_prng_impl=threefry2x32``,
   defines as 0.
 - ``fold_in(key, data)`` hashes the counter pair ``(0, data)`` under
   ``key``; the two output words are the new key.
+- ``split(key, num)`` hashes the counter pairs ``(0, i)`` for ``i <
+  num`` (the partitionable layout: the high and low words of the flat
+  index); the two output words of pair ``i`` are key ``i``.
 - ``random_bits(key, 32, (n,))`` hashes the counter pairs ``(0, i)`` for
   ``i < n`` and xors the two output words.
 - ``uniform`` keeps the top 23 bits as the mantissa of a float in
@@ -30,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["threefry2x32", "prng_key", "fold_in", "random_bits",
+__all__ = ["threefry2x32", "prng_key", "fold_in", "split", "random_bits",
            "gumbel", "categorical", "sample"]
 
 _MASK = 0xFFFFFFFF
@@ -72,6 +75,14 @@ def fold_in(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     data = torch.as_tensor(data, device=key.device).to(torch.int64) & _MASK
     y0, y1 = threefry2x32(key[..., 0], key[..., 1],
                           torch.zeros_like(data), data)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` for one key ``[2]``: ``[num, 2]``
+    int64 words."""
+    count = torch.arange(num, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(count), count)
     return torch.stack([y0, y1], dim=-1)
 
 

@@ -1,7 +1,8 @@
 """The layer cases of the ``nn`` twin tests: ``CASES[name] = (make,
 inputs[, train])``, ``make(P)`` building a layer from a Paddle namespace
 ``P`` and ``inputs`` the numpy arrays it is called on; ``LAYERS``
-(``VISION``: the conv, pooling and RNN layers among them),
+(``VISION``: the conv, pooling and RNN layers among them; ``EXTENDED``:
+those of ``nn/layer/extended.py``),
 ``ACTIVATIONS`` and ``LOSSES`` split them by the module their class
 lives in."""
 import numpy as np
@@ -204,6 +205,23 @@ ACTIVATIONS = {name: (make, [R(3, 5, 4, scale=3.0)], "eval" not in name)
                for name, make in _ACT.items()}
 LAYERS = dict(CASES)
 CASES.update(ACTIVATIONS)
+
+# the Layers of nn/layer/extended.py
+EXTENDED = {
+    "Softmax2D": (lambda P: P.nn.Softmax2D(), [R(2, 3, 4, 4)]),
+    "Softmax2D_chw": (lambda P: P.nn.Softmax2D(), [R(3, 4, 5)]),
+    "HSigmoidLoss": (lambda P: P.nn.HSigmoidLoss(8, 6),
+                     [R(5, 8), _ids((5, 1), 6)]),
+    "HSigmoidLoss_no_bias": (lambda P: P.nn.HSigmoidLoss(
+        8, 5, bias_attr=False), [R(4, 8), _ids((4,), 5, seed=1)]),
+    "MultiMarginLoss": (lambda P: P.nn.MultiMarginLoss(p=2, margin=0.5),
+                        [R(5, 4), _ids(5, 4)]),
+    "RNNTLoss": (lambda P: P.nn.RNNTLoss(reduction="sum"),
+                 [R(2, 4, 3, 5), _ids((2, 2), 4) + 1, np.array([4, 3]),
+                  np.array([2, 1])]),
+}
+LAYERS.update(EXTENDED)
+CASES.update(EXTENDED)
 
 _LOSS = {
     "CrossEntropyLoss": (lambda P: P.nn.CrossEntropyLoss(
