@@ -124,15 +124,20 @@ Phases, in order; any failure exits non-zero before the result line:
    graphed and eagerly: equal streams, one capture a bucket, K4 in every
    layer of every step and its plain version never; decode p50, tokens/s,
    TTFT p50, capture seconds per bucket and peak memory printed. Serve
-   fleet (``tools/serve_fleet.py``): the JAX chaos tool's scenarios 7 and
-   9-20 on routers of Llama-0.76B engines at full width, graphed, bf16
+   fleet (``tools/serve_fleet.py``): the JAX chaos tool's scenarios 7-20
+   on routers of Llama-0.76B engines at full width, graphed, bf16
    pages of 16 (int8 for scenario 18): failover with requeue-once,
+   a rolling ``Router.reload`` of a donor checkpoint (another seed,
+   committed by ``CheckpointManager``) into two replicas across live
+   requests (every request completes, ``compile_counts()`` unchanged,
+   each engine's greedy stream after the push equal to a lone engine's
+   on the donor; the reload's seconds per engine printed),
    least-loaded dispatch, kills mid-decode, through a cached prefix,
    between prompt chunks, mid speculative burst, mid constrained adapter
    stream, with the flight recorder and with a parked stream, the
-   control-plane thread fuzz under the lock sanitizer (no reload racer),
-   the autoscaler, the brownout ladder, and the WAL-armed child process
-   SIGKILLed mid-decode and recovered on one engine fewer; plus
+   control-plane thread fuzz under the lock sanitizer (two rolling
+   reloads among its racers), the autoscaler, the brownout ladder, and
+   the WAL-armed child process SIGKILLed mid-decode and recovered on one engine fewer; plus
    ``CompletionAPI`` routing by model between a three-engine Llama fleet
    and the GPT engine. Every drill must pass; each prints its seconds,
    migrations, captures and ``nvcc`` runs (0 after the build: a new
@@ -269,6 +274,25 @@ Phases, in order; any failure exits non-zero before the result line:
    ``paddle_tpu_torch/tools/extended_cases.py`` (the extended
    functionals and ``paddle.linalg``) on ``cuda`` against the CPU,
    outputs and input grads at ``EXT_TOL``.
+21. Train chaos (``phase_train_chaos``, ``tools/train_chaos.py --model
+   bert_base``): BERT-base (110.1 M parameters, B 32, S 128, O2 bf16
+   with master weights, dropout 0.1, AdamW) (a) fine-tuned through
+   ``hapi.Model.fit(epochs=2, checkpoint_dir=, sentinel=TrainSentinel())``
+   over a shuffled ``io.DataLoader``, in a child SIGKILLed mid-epoch 1
+   after epoch 0 committed and then resumed: parameters, moments, epoch
+   1's losses and the accuracy equal an uninterrupted child's bit for
+   bit; (b) pretrained through ``TrainSentinel.guard`` with marks
+   committed by a ``CheckpointManager``: a NaN step (``train.grads``)
+   skipped, a NaN region rolled back to the committed mark and skipped
+   past, parameters and moments equal a clean run's bit for bit, no
+   capture; the checkpoint's bytes, sync and async save seconds and
+   GB/s, restore and verify seconds, the eager step with and without an
+   async save draining and the guarded step printed; (c) a child
+   preempted by SIGTERM (``save_on_signal``) and a fresh child resumed
+   through ``restore_or_init``: after 10 steps the losses (dropout on),
+   parameters and moments equal an uninterrupted child's bit for bit.
+   K1-K3 launch on every path and in every child, the plain versions
+   never; no ``nvcc`` run.
 
 The last two lines are the kernels' JSON record (K1-K3 with their
 launches by path: ``train_gpt13``, ``train_llama``,
@@ -276,10 +300,11 @@ launches by path: ``train_gpt13``, ``train_llama``,
 ``train_graphed_state``, ``facade_attention``, ``facade_train``,
 ``train_bert``, ``train_graphed_bert``, ``train_bert_masked``,
 ``train_gpt13_rc_{off,full,dots,dots_no_batch}``, ``flag_flash_on``,
-``flag_flash_off``, ``generate_llama``, ``generate_gpt``; on a graphed
+``flag_flash_off``, ``generate_llama``, ``generate_gpt``,
+``train_fit_resume``, ``train_guard``, ``train_preemption``; on a graphed
 path the eager first step's launches plus the replayed ones; and
-``bert_case``, their times at BERT's shape) and {"ok": true, "device":
-{...}}.
+``bert_case``, their times at BERT's shape; K4's paths add
+``serve_fleet_reload``) and {"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -1917,9 +1942,21 @@ def phase_serve_fleet(torch, card, gpt_model):
         "autoscale_new_engine_captures":
             records["autoscale-under-burst"]["new_engine_captures"],
         "autoscale_capture_s": records["autoscale-under-burst"]["capture_s"],
+        "reload_s_per_engine":
+            records["router-rolling-reload"]["reload_s_per_engine"],
+        "reload_save_s": records["router-rolling-reload"]["save_s"],
+        "reload_k4_launches": records["router-rolling-reload"]["k4_launches"],
+        "fuzz_reloads": records["thread-fuzz-control-plane"]["reloads"],
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         **counts, "child_counts": children, "launches": launches}
+    if summary["reload_k4_launches"] == 0 or summary["fuzz_reloads"] < 2:
+        fail(f"serve fleet: the reload drills: K4 launches "
+             f"{summary['reload_k4_launches']}, fuzz reloads "
+             f"{summary['fuzz_reloads']}")
     log("serve fleet summary: " + json.dumps(summary, default=str))
+    log(f"reload ({card}): {summary['reload_s_per_engine']:.3f} s per "
+        f"engine (drain of the live requests, restore, in-place load, "
+        f"canary), donor save {summary['reload_save_s']:.3f} s")
     del fleet, model
     return summary
 
@@ -3336,6 +3373,93 @@ def phase_nn_extended_ops(torch, card):
     return rec
 
 
+# ──────────────────── checkpoints, the sentinel, fit and reload ────────────────────
+
+
+def phase_train_chaos(torch, card):
+    """``tools/train_chaos.py --model bert_base`` at BERT-base's full width
+    (B 32, S 128, O2 bf16 with master weights, dropout 0.1, AdamW):
+    (a) ``hapi.Model.fit`` with ``checkpoint_dir`` and a ``TrainSentinel``
+    in a child SIGKILLed mid-epoch 1 and resumed, equal to an
+    uninterrupted child bit for bit; (b) the guarded pretraining loop with
+    one NaN step skipped and a NaN region rolled back to its committed
+    mark, equal to a clean run bit for bit, with the checkpoint's costs;
+    (c) a child preempted by SIGTERM and resumed, equal to an
+    uninterrupted child bit for bit. K1-K3 must launch on every path, in
+    every child, and their plain versions never. Prints each drill's
+    record and the costs beside the card's name and power limit."""
+    import gc
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.tools import train_chaos
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_k1_k5()
+    from paddle_tpu_torch.ops import fused_adamw as fw
+
+    nvcc0 = _build.nvcc_runs
+    t0 = time.perf_counter()
+    try:
+        recs = train_chaos.run_bert_drills("cuda", small=False, log=log)
+    except train_chaos.DrillFailed as e:
+        fail(f"train chaos: {e}")
+    if _build.nvcc_runs != nvcc0:
+        fail("train chaos: a kernel was built during the drills")
+    fit, guard, pre = (recs["fit-resume"], recs["guard-skip-rollback"],
+                       recs["preemption"])
+    paths = {"train_fit_resume": [fit["flash_reference"],
+                                  fit["flash_resumed"]],
+             "train_guard": [guard["flash"]],
+             "train_preemption": [pre["flash_reference"],
+                                  pre["flash_resumed"]]}
+    plains = [fit["plain_reference"], fit["plain_resumed"], guard["plain"],
+              pre["plain_reference"], pre["plain_resumed"]]
+    for path, runs in paths.items():
+        for c in runs:
+            if not all(c[k] > 0 for k in ("flash_fwd", "flash_dq",
+                                          "flash_dkv")):
+                fail(f"train chaos: {path}: a flash kernel never launched "
+                     f"({c})")
+    if any(n for c in plains for n in c.values()):
+        fail(f"train chaos: a plain flash version ran: {plains}")
+    launches = {path: {k: sum(c[k] for c in runs) for k in runs[0]}
+                for path, runs in paths.items()}
+    costs = {k: guard[k] for k in (
+        "state_bytes", "sync_save_s", "sync_save_gb_s", "async_snapshot_s",
+        "async_save_s", "async_save_gb_s", "verify_s", "restore_s",
+        "restore_gb_s", "eager_step_ms", "eager_step_ms_async_draining",
+        "save_outlasted_the_steps", "guarded_step_ms", "unguarded_step_ms",
+        "eager_step_ms_turns", "guarded_step_ms_turns")}
+    rec = {"phase": "train_chaos", "card": card,
+           "seconds": time.perf_counter() - t0,
+           "fit_resume": {k: fit[k] for k in (
+               "seconds", "accuracy", "epoch1_losses", "tensors_compared",
+               "moments_compared", "fit_seconds_reference")},
+           "guard": {k: guard[k] for k in (
+               "seconds", "actions", "excluded", "forward_only",
+               "marks_committed", "tensors_compared")},
+           "preemption": {k: pre[k] for k in (
+               "seconds", "sigterm_step", "losses_compared",
+               "tensors_compared")},
+           "checkpoint_costs": costs, "flash_launches": launches,
+           "fused_adamw_launches": fw.kernel_launches}
+    log(json.dumps(rec, default=str))
+    log(f"checkpoint costs ({card}): state {costs['state_bytes']} "
+        f"bytes; sync save {costs['sync_save_s']:.3f} s "
+        f"({costs['sync_save_gb_s']:.3f} GB/s), async save "
+        f"{costs['async_save_s']:.3f} s (host copy "
+        f"{costs['async_snapshot_s']:.3f} s); verify {costs['verify_s']:.3f}"
+        f" s, restore {costs['restore_s']:.3f} s; eager step "
+        f"{costs['eager_step_ms']:.2f} ms, "
+        f"{costs['eager_step_ms_async_draining']:.2f} ms while an async "
+        f"save drains; guarded step "
+        f"{costs['guarded_step_ms']:.2f} ms against "
+        f"{costs['unguarded_step_ms']:.2f} unguarded (best of 3 turns)")
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     try:
         import torch
@@ -3389,6 +3513,7 @@ def main():
     flag_launches, _ = phase_flags(torch, card)
     torch.cuda.empty_cache()
     phase_nn_extended_ops(torch, card)
+    chaos = phase_train_chaos(torch, card)
     gen_launches = {f"generate_{m}": rec["launches"]
                     for m, rec in generate.items()}
     head = paged["a_decode_f32q_bf16kv"]
@@ -3410,8 +3535,10 @@ def main():
                               ("serve_resilience", resilience),
                               ("serve_gpt", serve_gpt))}
         # every engine of the fleet phase, the restart drill's children
-        # (the killed one up to its last step) included
-        | {"serve_fleet": fleet["launches"]}
+        # (the killed one up to its last step) included, and of its
+        # rolling-reload drill alone
+        | {"serve_fleet": fleet["launches"],
+           "serve_fleet_reload": fleet["reload_k4_launches"]}
         # dense generate(): K1-K5 together, none expected
         | gen_launches,
         # NaN in one slot's live K, V or scale rows, per phase-3a case:
@@ -3446,7 +3573,11 @@ def main():
             | {f"train_gpt13_{rc}": n[kname]
                for rc, n in rc_launches.items()}
             | {path: n[kname] for path, n in flag_launches.items()}
-            | gen_launches,
+            | gen_launches
+            # the train chaos phase: fit killed and resumed (both
+            # children), the guarded loop, preempted and resumed
+            | {path: n[kname]
+               for path, n in chaos["flash_launches"].items()},
             "max_abs_err": flash13["max_abs_err"][kname],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -3467,6 +3598,10 @@ def main():
         "source": "paddle_tpu_torch/csrc/fused_adamw.cu",
         "replaces": "paddle_tpu/ops/pallas/fused_adamw.py:62",
         "launches": adamw_launches,
+        # the training paths of the train chaos phase (the optimizer there
+        # is AdamW's plain update: none expected)
+        "launches_by_path": {"adamw_path": adamw_launches,
+                             "train_guard": chaos["fused_adamw_launches"]},
         "max_abs_err": k5["max_abs_err"],
         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],

@@ -7,7 +7,8 @@ op of ``paddle_tpu/ops`` (:mod:`.ops`), the dtypes, ``seed`` and the RNG
 state, grad mode and ``paddle.grad``, ``set_device``/``get_device``, and
 the modules ``autograd``, ``nn``, ``optimizer`` (with ``optimizer.lr``),
 ``amp``, ``jit``, ``linalg``, ``models`` and ``vision``, and
-``set_flags``/``get_flags``.
+``set_flags``/``get_flags``, ``save``/``load``, ``Model`` and the modules
+``io``, ``metric``, ``callbacks``, ``hapi`` and ``checkpoint``.
 
 The JAX package ``paddle_tpu`` is the reference; this package grows
 beside it slice by slice, keeping its module layout and names so each
@@ -34,16 +35,21 @@ ResNet-50's training step (``bench --model resnet50``); Llama's and GPT's
 KV-cache ``generate()`` (host and device loop, as CUDA graphs on the
 card) with the HF converters, the named recompute policies, the flags
 with the NaN/Inf sweep, ``paddle.linalg`` and ``nn``'s extended
-functionals and layers.
+functionals and layers; crash-consistent checkpoints
+(``checkpoint.CheckpointManager`` over ``distributed.checkpoint``'s
+files, the JAX package's format), ``save``/``load``, the train sentinel
+(``faults.TrainSentinel``), ``io.DataLoader`` with its samplers and
+datasets, ``metric``, ``hapi.Model`` with its callbacks, and the
+router's rolling weight reload (``serving.Router.reload``).
 
 Every entry point runs on ``cuda`` unless given ``device="cpu"`` or told
 ``set_device("cpu")`` (:mod:`.device`); kernels are built from ``csrc/``
 with ``nvcc`` at first use (:mod:`.ops._build`). Not ported yet, of the
-JAX package's namespace: ``io``, ``jit.save``/``jit.load``, ``static``,
-``distributed`` (beyond ``fleet.recompute``), ``metric``, ``hapi``/``Model``,
-``vision`` beyond the ResNet models, ``incubate``, ``distribution``,
-``fft``, ``signal``, ``sparse``, ``save``/``load`` and the ``*Place``
-classes.
+JAX package's namespace: ``jit.save``/``jit.load``, ``static``,
+``distributed`` (beyond ``fleet.recompute``, the single-process
+checkpoint files and the rank helpers), ``hapi.summary``, ``vision``
+beyond the ResNet models, ``incubate``, ``distribution``, ``fft``,
+``signal``, ``sparse`` and the ``*Place`` classes.
 """
 from .device import default_device, get_device, resolve_device, set_device
 from . import dtypes  # noqa: E402
@@ -66,6 +72,10 @@ from .framework.core_api import (create_parameter, dtype,  # noqa: E402
 from .generator import (default_generator, get_rng_state,  # noqa: E402
                         seed, set_rng_state)
 from . import amp, jit, linalg, models, nn, optimizer, vision  # noqa: E402
+from .framework.io import load, save  # noqa: E402
+from . import checkpoint, io, metric  # noqa: E402
+from . import callbacks, hapi  # noqa: E402
+from .hapi import Model  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -79,5 +89,6 @@ __all__ = (["default_device", "resolve_device", "set_device", "get_device",
             "in_dynamic_mode", "is_tensor", "set_default_dtype",
             "default_generator", "get_rng_state", "seed", "set_rng_state",
             "amp", "jit", "linalg", "models", "nn", "optimizer", "vision",
-            "set_flags", "get_flags"]
+            "set_flags", "get_flags", "save", "load", "checkpoint", "io",
+            "metric", "callbacks", "hapi", "Model"]
            + [n for n in ops.__all__ if n not in ("to_tensor",)])

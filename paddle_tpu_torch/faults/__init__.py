@@ -1,7 +1,7 @@
 """paddle_tpu_torch.faults: fault injection and the resilience primitives.
 
 Counterpart of ``paddle_tpu/faults/`` (its own copy of the jax-free
-modules), the serving half:
+modules):
 
 - **Fault points** (injection.py): failure-prone sites are marked with
   ``faults.point("serving.kv_alloc")``, free until a test arms a fault
@@ -18,9 +18,10 @@ modules), the serving half:
   step, sees a live hang from any thread, recovers after N healthy steps;
   the state behind ``/healthz``.
 - **Signals** (signals.py): scoped handler installation.
-
-The JAX package's ``TrainSentinel`` (self-healing training) is not
-ported yet.
+- **TrainSentinel** (sentinel.py): self-healing training: per-step
+  health verdicts (OK / SKIP / ROLLBACK / abort) over loss and grad-norm
+  detectors, last-known-good marks, rollback with a deterministic skip
+  past the quarantined batches, and ``guard(step_fn)`` for custom loops.
 
     from paddle_tpu_torch import faults
 
@@ -35,12 +36,15 @@ from .injection import (CallbackError, FaultInjected, FaultSpec,
                         inject, known_points, point, reset)
 from .retry import backoff_delays, retry
 from .sanitizer import LockSanitizer, LockViolation
+from .sentinel import (Action, SentinelAbort, SentinelConfig, StepReport,
+                       TrainSentinel)
 from .signals import SignalScope, install_signal_handler
 from .watchdog import StepWatchdog
 
 __all__ = [
-    "CallbackError", "Deadline", "DeadlineExceeded", "FaultInjected",
-    "FaultSpec", "LockSanitizer", "LockViolation", "ResourceExhausted",
+    "Action", "SentinelAbort", "SentinelConfig", "StepReport",
+    "TrainSentinel", "CallbackError", "Deadline", "DeadlineExceeded",
+    "FaultInjected", "FaultSpec", "LockSanitizer", "LockViolation", "ResourceExhausted",
     "SignalScope", "StepWatchdog", "active_faults", "backoff_delays",
     "declare_point", "inject", "install_signal_handler", "known_points",
     "point", "reset", "retry",

@@ -9,6 +9,13 @@ device, seeded from this one (:func:`device_generator`). The streams are
 not the JAX package's: tests hand both packages the same inputs, and a
 state from :func:`get_rng_state` restores only this package's stream.
 
+The seed itself is kept (:func:`initial_seed`), as the JAX generator
+keeps ``_seed``: host-side shuffling (``io``'s samplers, ``random_split``)
+draws from ``np.random.default_rng((seed, ...))`` streams
+(:func:`host_rng`), which equal the JAX package's index for index for one
+``paddle.seed``. Nothing here calls ``torch.Generator.seed()``, which
+reseeds a generator from a non-deterministic source.
+
 Seeds as data. Dropout (``nn.functional.dropout``, the flash kernels)
 takes its seed as a 0-d int32 tensor on its device, ``next_seed(device)``,
 which the kernels read from device memory, as the Pallas kernels read
@@ -29,25 +36,55 @@ stays fixed across calls:
 """
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
-__all__ = ["default_generator", "seed", "next_seed", "device_generator",
-           "get_rng_state", "set_rng_state", "SeedTape", "SEED_SLOTS"]
+__all__ = ["default_generator", "seed", "initial_seed", "set_initial_seed",
+           "host_rng", "next_seed", "device_generator", "get_rng_state",
+           "set_rng_state", "SeedTape", "SEED_SLOTS"]
 
 SEED_BOUND = 1 << 24
 # slots of a tape's seed buffer per device: one a dropout site per call
 SEED_SLOTS = 4096
 
 default_generator = torch.Generator().manual_seed(0)
+# the value paddle.seed set, and the count of host_rng streams drawn since
+_seed = 0
+_host_counter = itertools.count()
 
 _tape: Optional["SeedTape"] = None
 
 
 def seed(value: int) -> torch.Generator:
-    """Reseed the global generator (``paddle.seed``); returns it."""
-    return default_generator.manual_seed(int(value))
+    """Reseed the global generator (``paddle.seed``); returns it. The
+    :func:`host_rng` streams start again from the first."""
+    global _seed, _host_counter
+    _seed = int(value)
+    _host_counter = itertools.count()
+    return default_generator.manual_seed(_seed)
+
+
+def initial_seed() -> int:
+    """The value the last :func:`seed` set (0 before any)."""
+    return _seed
+
+
+def set_initial_seed(value: int) -> None:
+    """Put back a seed read by :func:`initial_seed` (a checkpoint's)
+    without touching the generator's state, which
+    :func:`set_rng_state` restores on its own."""
+    global _seed
+    _seed = int(value)
+
+
+def host_rng() -> np.random.Generator:
+    """A fresh seeded numpy stream for host-side shuffling and splits:
+    ``default_rng((seed, n))`` for the n-th call since :func:`seed`, as
+    the JAX package's ``host_rng``."""
+    return np.random.default_rng((_seed, next(_host_counter)))
 
 
 def _draw() -> int:

@@ -89,8 +89,13 @@ class BertEmbeddings(nn.Layer):
             position_ids = Tensor._wrap(torch.arange(
                 S, dtype=torch.int32, device=dev)[None, :].expand(B, S))
         if token_type_ids is None:
+            # every position reads row 0: look it up once and broadcast.
+            # The same values as a [B, S] lookup of zeros, but its grad is
+            # a reduction in a fixed order, where the lookup's backward
+            # adds B x S rows into one in no fixed order on the card (a
+            # bf16 grad then rounds differently from run to run)
             token_type_ids = Tensor._wrap(torch.zeros(
-                (B, S), dtype=torch.int32, device=dev))
+                (1, 1), dtype=torch.int32, device=dev))
         x = (self.word_embeddings(ids)
              + self.position_embeddings(position_ids)
              + self.token_type_embeddings(token_type_ids))

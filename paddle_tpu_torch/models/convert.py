@@ -14,7 +14,13 @@ shape must match.
 bf16 arrays (``ml_dtypes.bfloat16``, what the JAX package's ``state_dict``
 holds after ``amp.decorate(level="O2")``) cross as their 16-bit patterns:
 numpy ``uint16`` -> ``torch.int16`` -> ``.view(torch.bfloat16)``, so the
-values arrive bit for bit and never pass through f32.
+values arrive bit for bit and never pass through f32. A value may also
+be a torch tensor or a port ``Tensor`` (a restored checkpoint's), copied
+on its device without a host round trip.
+
+:func:`reference_state_dict` is the way back: a ``torch.nn`` model's
+parameters under the reference's names and layouts (Linears transposed
+to ``[in, out]``), what a checkpoint for ``serving.Router.reload`` holds.
 """
 from __future__ import annotations
 
@@ -26,18 +32,19 @@ from torch import nn
 
 from ..nn.layer_base import Layer
 
-__all__ = ["load_reference_state_dict"]
+__all__ = ["load_reference_state_dict", "reference_state_dict"]
 
 
 @torch.no_grad()
 def load_reference_state_dict(model: nn.Module,
                               ref: Dict[str, np.ndarray]) -> None:
-    """Copy ``ref`` (the JAX model's ``state_dict()`` as numpy arrays) into
-    ``model`` in place, in the model's dtype and on its device. Raises
-    ``KeyError`` on a missing or unexpected key and ``ValueError`` on a
-    shape mismatch. A Paddle ``Layer`` model (BERT) has the reference's
-    names, layouts and buffers, so it loads through ``set_state_dict``
-    with no transposes."""
+    """Copy ``ref`` (the JAX model's ``state_dict()`` as numpy arrays, or
+    torch tensors / Tensors in its layout) into ``model`` in place, in
+    the model's dtype and on its device. Raises ``KeyError`` on a missing
+    or unexpected key and ``ValueError`` on a shape mismatch, before any
+    parameter is written. A Paddle ``Layer`` model (BERT) has the
+    reference's names, layouts and buffers, so it loads through
+    ``set_state_dict`` with no transposes."""
     if isinstance(model, Layer):
         missing, unexpected = model.set_state_dict(ref)
         if missing or unexpected:
@@ -52,16 +59,41 @@ def load_reference_state_dict(model: nn.Module,
     if missing or unexpected:
         raise KeyError(f"state dict mismatch: missing {missing}, "
                        f"unexpected {unexpected}")
+    srcs = {}
     for key, p in params.items():
-        src = np.asarray(ref[key])
-        if key in linear:
-            src = src.T
+        src = getattr(ref[key], "_value", ref[key])
+        if isinstance(src, torch.Tensor):
+            src = src.detach()
+            shape = tuple(src.shape)
+            src = src.t() if key in linear else src
+        else:
+            src = np.asarray(src)
+            shape = tuple(src.shape)
+            src = src.T if key in linear else src
         if tuple(src.shape) != tuple(p.shape):
             raise ValueError(
-                f"{key}: reference shape {tuple(np.asarray(ref[key]).shape)}"
-                f" does not fit {tuple(p.shape)}"
+                f"{key}: reference shape {shape} does not fit "
+                f"{tuple(p.shape)}"
                 f"{' (transposed Linear)' if key in linear else ''}")
-        p.copy_(_to_torch(src).to(p.dtype))
+        srcs[key] = src
+    for key, p in params.items():
+        src = srcs[key]
+        if not isinstance(src, torch.Tensor):
+            src = _to_torch(src)
+        p.copy_(src.to(p.device, p.dtype))
+
+
+@torch.no_grad()
+def reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``model``'s parameters under the reference's names and layouts:
+    copies, each Linear weight transposed to ``[in, out]``, in the
+    parameter's dtype and on its device (the inverse of
+    :func:`load_reference_state_dict`)."""
+    linear = {f"{name}.weight" for name, m in model.named_modules()
+              if isinstance(m, nn.Linear)}
+    return {k: (p.detach().t().contiguous() if k in linear
+                else p.detach().clone())
+            for k, p in model.named_parameters()}
 
 
 def _to_torch(a: np.ndarray) -> torch.Tensor:

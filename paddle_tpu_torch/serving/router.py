@@ -33,8 +33,14 @@ steps and never inside one.
   on every engine of a model under traffic, each proven by a one-token
   canary through it; a failed canary rolls that engine's install back.
 
-Not ported: the rolling weight reload. :meth:`Router.reload` raises
-``NotImplementedError`` until the port has its checkpoint manager.
+- **Rolling weight reload**: :meth:`Router.reload` drains one engine at
+  a time, restores the newest committed checkpoint of
+  ``checkpoint.CheckpointManager`` into its model in place (the
+  reference's names and ``[in, out]`` layouts, through
+  ``models.load_reference_state_dict``: a step committed by either
+  package), flushes its prefix cache and proves it with a canary before
+  it rejoins rotation. The captured step programs read the new weights
+  at their next replay: nothing is captured again.
 
 Threading: dispatch, step and run belong to one driver thread, the one
 that launches every engine's device work (in torch the current CUDA
@@ -197,6 +203,12 @@ class Router:
             "Exceptions escaping one engine's step() that the router "
             "contained by marking the engine down and migrating its work",
             labels=("engine_id", "model_id"))
+        self._m_reloads = reg.counter(
+            "paddle_tpu_router_reloads_total",
+            "Per-engine rolling weight reloads by result",
+            labels=("result",))
+        for r in ("ok", "error"):
+            self._m_reloads.labels(result=r)   # pre-create: scrapes show 0
         self._m_adapter_loads = reg.counter(
             "paddle_tpu_serving_adapter_loads_total",
             "Fleet-wide LoRA adapter hot-loads via "
@@ -943,9 +955,10 @@ class Router:
         the durability contract. Call after ``add_model`` (the restarted
         fleet may have fewer or more replicas than the one that died;
         placement is ordinary least-loaded dispatch). ``wal_dir`` arms
-        the WAL if the router was built without one; ``ckpt_dir`` would
-        first roll a checkpoint into the fleet (:meth:`reload`) and
-        raises ``NotImplementedError`` as it does. ``grammar_resolver(key) -> GrammarFSM``
+        the WAL if the router was built without one; ``ckpt_dir`` first
+        rolls the newest committed checkpoint into the fleet
+        (:meth:`reload`) so recovered streams decode under the exact
+        weights the dead process served. ``grammar_resolver(key) -> GrammarFSM``
         rebuilds constrained requests' DFAs from their journaled spec
         key ``(pattern, vocab_size, eos_token_id)``; the default lowers
         through :func:`~.grammar.toy_tokenizer` (every test/bench
@@ -1184,15 +1197,88 @@ class Router:
     def reload(self, checkpoint_dir: str, model: Optional[str] = None,
                step: Optional[int] = None,
                warm_prompt: Sequence[int] = (1,)) -> Dict[str, object]:
-        """The JAX router's rolling weight push (drain an engine, restore
-        a checkpoint into it in place, canary, return it to rotation).
-        Not ported: it restores through the checkpoint manager, which
-        the port does not have yet (ROADMAP, the checkpoint item).
-        Raises ``NotImplementedError`` without touching the fleet."""
-        raise NotImplementedError(
-            "Router.reload (rolling weight push) waits for the port's "
-            "checkpoint manager: see ROADMAP.md, Queue 1C, the "
-            "checkpoint item")
+        """Rolling weight push for ONE model's engines (``model`` may be
+        omitted only when the router serves a single model): engine by
+        engine — gate it ``draining``, finish its in-flight and queued
+        work while the rest of the fleet keeps serving, restore the newest
+        committed checkpoint (checksum-verified; ``step=`` pins one) into
+        its model in place, flush its prefix cache (its pages hold KV of
+        the old weights), and re-warm it with a canary request before it
+        returns to rotation.
+
+        The checkpoint holds a ``capture_train_state``-shaped state (its
+        ``"model"`` entry is used) or a bare state dict, in the
+        reference's names and layouts (``[in, out]`` Linears): a step
+        committed by either package's ``CheckpointManager``
+        (``models.reference_state_dict`` writes one from a port model).
+        Every key and shape is checked before any weight is written: a
+        checkpoint missing a key refuses the load and leaves the weights
+        as they were. The load copies into each replica's own parameters
+        (``copy_``), so replicas never share storage, and the captured
+        step programs read the new weights at their next replay:
+        ``compile_counts()`` does not move. A canary that retires
+        ``nan``/``error`` marks that engine ``down`` and the push goes
+        on; a failed load marks it down and raises. Returns ``{"step",
+        "engines": [per-engine result]}``."""
+        from ..checkpoint import CheckpointManager
+
+        mid = self._resolve_model(model)
+        handles = self._models[mid]
+        mgr = CheckpointManager(checkpoint_dir, max_to_keep=None,
+                                device=handles[0].engine.device)
+        state, ck_step = mgr.restore(step=step)
+        sd = state["model"] if isinstance(state, dict) and "model" in state \
+            else state
+        results: List[Dict[str, object]] = []
+        for h in handles:
+            if h.state == DOWN:
+                results.append({"engine_id": h.engine_id,
+                                "result": "skipped-down"})
+                continue
+            results.append(self._reload_one(h, sd, ck_step, warm_prompt))
+        return {"step": ck_step, "engines": results}
+
+    def _reload_one(self, h: EngineHandle, sd, ck_step: int,
+                    warm_prompt: Sequence[int]) -> Dict[str, object]:
+        with self._lock:
+            h.state = DRAINING
+        self._set_state_gauge(h)
+        # drain: the whole fleet keeps stepping (siblings serve live
+        # traffic; draining gates h out of new admissions) until h has
+        # finished its in-flight and queued work. Queued work does not
+        # requeue: the push visits every sibling next. Bounded on the gate
+        # too: an engine that dies mid-drain is stepped no more
+        while h.state != DOWN and self._safe_has_work(h):
+            self.step()
+        if h.state == DOWN:
+            self._m_reloads.labels(result="error").inc()
+            return {"engine_id": h.engine_id, "result": "error",
+                    "error": h.last_error}
+        try:
+            _load_weights(h.engine.model, sd, h.engine_id)
+            if h.engine.prefix_cache is not None:
+                h.engine.prefix_cache.clear()
+            canary_ok, reason = self._warm(h, warm_prompt)
+        except Exception:
+            with self._lock:
+                h.state = DOWN
+            self._set_state_gauge(h)
+            self._m_reloads.labels(result="error").inc()
+            raise
+        if not canary_ok:
+            with self._lock:
+                h.state = DOWN
+            self._set_state_gauge(h)
+            self._m_reloads.labels(result="error").inc()
+            return {"engine_id": h.engine_id, "result": "error",
+                    "canary_finish_reason": reason}
+        h.weights_step = ck_step
+        with self._lock:
+            h.state = HEALTHY
+        self._set_state_gauge(h)
+        self._m_reloads.labels(result="ok").inc()
+        return {"engine_id": h.engine_id, "result": "ok",
+                "weights_step": ck_step}
 
     def _warm(self, h: EngineHandle, warm_prompt: Sequence[int],
               **canary_kwargs):
@@ -1341,3 +1427,21 @@ class Router:
         return {"status": "ok" if all_ok else "degraded",
                 "models": models,
                 "engines": {h.engine_id: h.state for h in handles}}
+
+
+def _load_weights(model, sd, engine_id: str) -> None:
+    """Copy a reference-layout state dict into a served model (a
+    ``torch.nn.Module``) in place, only the model's own parameters; a
+    missing key refuses the whole load before anything is written
+    (``load_reference_state_dict`` then checks every shape before its
+    first copy)."""
+    from ..models.convert import load_reference_state_dict
+
+    names = [k for k, _ in model.named_parameters()]
+    missing = [k for k in names if k not in sd]
+    if missing:
+        raise ValueError(
+            f"checkpoint is missing {len(missing)} model keys (first: "
+            f"{missing[:3]}); refusing a partial weight load on engine "
+            f"{engine_id}")
+    load_reference_state_dict(model, {k: sd[k] for k in names})

@@ -2,8 +2,8 @@
 
     python -m paddle_tpu_torch.tools.serve_fleet [--drills a,b] [--with-gpt]
 
-Counterpart of the JAX package's ``tools/chaos_serve.py`` scenarios 7 and
-9-20 (names as in its ``SCENARIOS``), each asserting what its JAX
+Counterpart of the JAX package's ``tools/chaos_serve.py`` scenarios 7-20
+(names as in its ``SCENARIOS``), each asserting what its JAX
 counterpart asserts, over routers of the port's engines: Llama-0.76B at
 full width on a card, every engine capturing its own CUDA graph per
 token-grid bucket, migration and recovery re-prefilling journaled tokens
@@ -17,6 +17,15 @@ step's).
 7. ``router-failover-requeue-once``: a NaN-poisoned and degraded engine;
    its queue moves to the sibling once; a dark fleet retires the rest
    ``"unavailable"``.
+8. ``router-rolling-reload``: ``Router.reload`` across a live request
+   stream on two replicas (each a model of its own: a reload writes into
+   the replica's parameters): a donor of another seed committed by the
+   port's ``CheckpointManager`` in the reference's layout
+   (``models.reference_state_dict``); every live request completes,
+   both engines report ``ok`` at the donor's step, ``compile_counts()``
+   is what it was before the push (the captured graphs replay the new
+   weights in place), and each engine's greedy stream after the push
+   equals a lone engine's on the donor. Prints the reload's seconds.
 9. ``router-least-loaded-dispatch``: two hogs on one engine; least-loaded
    dispatch beats round-robin on the queue waits (p95 and mean), read
    from the request tracer's enqueue and admit times.
@@ -33,10 +42,11 @@ step's).
     parked int8 stream's host pages drain on the dead engine and the
     sibling re-serves both through its own park/unpark (18).
 13. ``thread-fuzz-control-plane``: driver, ``/metrics`` scraper and
-    ``health()`` prober threads race under ``faults.LockSanitizer``. It
-    keeps every racer of the JAX drill but its rolling reloads
-    (``Router.reload`` waits for the checkpoint slice). Only the driver
-    thread launches device work; the others read host state.
+    ``health()`` prober threads race under ``faults.LockSanitizer``, the
+    driver rolling a donor checkpoint into the fleet (``Router.reload``)
+    every 67th iteration (every third of the iterations when there are
+    fewer), as the JAX drill does. Only the driver thread launches
+    device work; the others read host state.
 15. ``autoscale-under-burst``: a Poisson burst scales a one-engine fleet
     up and back to one, every request exactly-once. The JAX drill asserts
     zero fresh compiles, which its persistent compile cache gives it. A
@@ -63,11 +73,13 @@ Plus ``multi-model-completion-api``: ``CompletionAPI`` routes by
 model.
 
 A failed check raises :class:`DrillFailed`. Each drill returns a record
-with its seconds, migrations, captures and ``nvcc`` runs.
+with its seconds, migrations, captures, ``nvcc`` runs and K4's launches
+(eager and replayed, ``k4_launches``).
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import gc
 import json
 import os
@@ -85,9 +97,11 @@ import numpy as np
 import torch
 
 from .. import bench, faults, loadgen, metrics
+from ..checkpoint import CheckpointManager
 from ..device import default_device
-from ..models import LlamaConfig, LlamaForCausalLM
+from ..models import LlamaConfig, LlamaForCausalLM, reference_state_dict
 from ..ops import _build
+from ..ops import paged_attention as pa
 from ..serving import (CompletionAPI, GrammarFSM, OverloadConfig,
                        OverloadController, RetryBudget, Router,
                        ServingEngine, random_adapter, toy_tokenizer, tracing)
@@ -445,9 +459,89 @@ def drill_kill_mid_chunked_prefill(fleet: Fleet) -> dict:
     return dict(moved, boundary=boundary, prefill_tokens_saved=saved)
 
 
+def _replicas(fleet: Fleet, n: int = 2) -> list:
+    """``n`` models with the fleet model's weights, each in storage of its
+    own (a reload writes into a replica's parameters)."""
+    return [copy.deepcopy(fleet.model) for _ in range(n)]
+
+
+def _donor_checkpoint(fleet: Fleet, seed: int, path: str):
+    """A Llama of ``fleet.model``'s config and dtype from another seed,
+    committed as step 1 under ``path`` in the reference's layout; returns
+    the donor and the save's seconds."""
+    dtypes = {p.dtype for p in fleet.model.parameters()}
+    dtype = next((d for d in (torch.bfloat16, torch.float16) if d in dtypes),
+                 torch.float32)
+    donor = LlamaForCausalLM(fleet.model.config, device=fleet.device,
+                             dtype=dtype, seed=seed)
+    t0 = time.perf_counter()
+    CheckpointManager(path, max_to_keep=2, device=fleet.device).save(
+        1, {"model": reference_state_dict(donor)})
+    return donor, time.perf_counter() - t0
+
+
+def drill_router_reload(fleet: Fleet) -> dict:
+    """Scenario 8."""
+    prompts = fleet.prompts()
+    tmp = tempfile.mkdtemp(prefix="fleet_ckpt_")
+    try:
+        donor, save_s = _donor_checkpoint(fleet, 8, tmp)
+        r = fleet.adopt(fleet.router(replicas=2, max_batch_slots=1,
+                                     model=_replicas(fleet)))
+        # every engine serves every prompt twice (cold, then through its
+        # prefix cache, whose tail prefills are other step shapes) and a
+        # canary-sized request first: the live traffic and the push then
+        # meet no step shape that was not captured before
+        for e in r.engines("m"):
+            for _ in range(2):
+                for p in prompts:
+                    e.add_request(p, max_new_tokens=8)
+                e.run()
+            e.add_request(np.asarray([1], np.int32), max_new_tokens=1)
+            e.run()
+        counts0 = [e.compile_counts() for e in r.engines("m")]
+        live = [r.submit(p, model="m", max_new_tokens=6) for p in prompts]
+        r.step()
+        ok0 = _counter("paddle_tpu_router_reloads_total", result="ok")
+        t0 = time.perf_counter()
+        summary = r.reload(tmp)
+        reload_s = time.perf_counter() - t0
+        outs = r.run()
+        _check([e["result"] for e in summary["engines"]] == ["ok", "ok"],
+               f"reload results: {summary}")
+        _check(sorted(outs) == sorted(live),
+               "live requests dropped or duplicated across the reload")
+        _check(all(outs[k].finish_reason == "length" for k in live),
+               "a live request did not complete normally")
+        _check(_counter("paddle_tpu_router_reloads_total", result="ok")
+               == ok0 + 2, "reload counter")
+        _check(all(h.weights_step == 1 for h in r.handles("m")),
+               "weights_step not recorded")
+        ref = fleet.reference(donor, max_batch_slots=1)
+        rid = ref.add_request(prompts[0], max_new_tokens=8)
+        want = list(ref.run()[rid].token_ids)
+        for e in r.engines("m"):
+            rid = e.add_request(prompts[0], max_new_tokens=8)
+            got = list(e.run()[rid].token_ids)
+            _check(got == want, f"{e.engine_id} after the push streams "
+                   f"{got}, the donor {want}")
+        counts1 = [e.compile_counts() for e in r.engines("m")]
+        _check(counts1 == counts0 and all(
+            c["step"] == c["step_buckets"] for c in counts1),
+            f"step programs moved across the push: {counts0} -> {counts1}")
+        return {"live": len(live), "save_s": save_s, "reload_s": reload_s,
+                "reload_s_per_engine": reload_s / 2,
+                "compile_counts": counts1}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def drill_thread_fuzz(fleet: Fleet) -> dict:
-    """Scenario 13 without its reload racers."""
+    """Scenario 13."""
     iters = int(fleet.fuzz_iters)
+    # the JAX drill's every 67th iteration (two pushes in its 200), or
+    # three pushes in a shorter run
+    period = 67 if iters >= 2 * 67 else max(iters // 3, 2)
     P5, P9, P3, P4 = fleet.prompts()
     san = faults.LockSanitizer(
         order=("router", "engine", "scheduler", "pool"),
@@ -455,8 +549,12 @@ def drill_thread_fuzz(fleet: Fleet) -> dict:
                 "watchdog/0", "watchdog/1"))
     registry = metrics.get_registry()
     orig_reg_lock = None
+    tmp = tempfile.mkdtemp(prefix="fleet_ckpt_")
+    reloads = []
     try:
-        r = fleet.adopt(fleet.router(replicas=2, max_batch_slots=1))
+        _donor_checkpoint(fleet, 13, tmp)
+        r = fleet.adopt(fleet.router(replicas=2, max_batch_slots=1,
+                                     model=_replicas(fleet)))
         san.attach(r, "_lock", "router")
         orig_reg_lock = san.attach(registry, "_lock", "metrics.registry")
         for i, eng in enumerate(r.engines("m")):
@@ -470,6 +568,12 @@ def drill_thread_fuzz(fleet: Fleet) -> dict:
                 live.append(r.submit(prompts[int(rng.randint(4))],
                                      model="m", max_new_tokens=2))
             r.step()
+            if i % period == period - 1:  # rolling weight pushes mid-fuzz
+                summary = r.reload(tmp)
+                _check(all(e["result"] == "ok"
+                           for e in summary["engines"]),
+                       f"reload failed mid-fuzz: {summary}")
+                reloads.append(summary["step"])
 
         def scrape(i, rng):
             path = ("/metrics", "/metrics.json",
@@ -479,6 +583,8 @@ def drill_thread_fuzz(fleet: Fleet) -> dict:
                                             timeout=10) as resp:
                     _check(resp.status == 200, f"{path}: {resp.status}")
             except urllib.error.HTTPError as e:
+                # a scrape that lands mid-reload may read degraded: 503
+                # on /healthz is consistent, a 5xx on /metrics is not
                 _check(path.startswith("/healthz") and e.code == 503,
                        f"{path}: HTTP {e.code}")
 
@@ -525,11 +631,17 @@ def drill_thread_fuzz(fleet: Fleet) -> dict:
                "a fuzzed request did not complete normally")
         _check(all(e.pool.used_pages == 0 for e in r.engines("m")),
                "pages leaked under fuzz")
+        _check(len(reloads) == iters // period,
+               f"{len(reloads)} reloads, wanted {iters // period}")
+        _check(all(h.weights_step == 1 for h in r.handles("m")),
+               "an engine is not on the donor's step")
         san.assert_clean()
-        return {"iterations": iters, "requests": len(live)}
+        return {"iterations": iters, "requests": len(live),
+                "reloads": len(reloads)}
     finally:
         if orig_reg_lock is not None:
             registry._lock = orig_reg_lock
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 class SpecOracle:
@@ -971,6 +1083,7 @@ def drill_multi_model(fleet: Fleet) -> dict:
 
 DRILLS: Dict[str, Callable[[Fleet], dict]] = {
     "router-failover-requeue-once": drill_router_failover,
+    "router-rolling-reload": drill_router_reload,
     "router-least-loaded-dispatch": drill_least_loaded,
     "kill-engine-mid-decode": drill_kill_mid_decode,
     "prefix-cache-failover-migration": drill_prefix_cache_failover,
@@ -992,14 +1105,15 @@ def run_drills(fleet: Fleet, names=None,
                log: Callable[[str], None] = print) -> Dict[str, dict]:
     """Run ``names`` (default: every drill) on ``fleet`` in order; log and
     return one record a drill: its result, seconds, router migrations,
-    the captures of the engines it built and ``nvcc`` runs. Raises on the
-    first failure."""
+    the captures of the engines it built, ``nvcc`` runs and K4's launches
+    in this process (eager and replayed). Raises on the first failure."""
     records = {}
     for name in (names or list(DRILLS)):
         faults.reset()
         n0 = len(fleet.made)
         nvcc0 = _build.nvcc_runs
         mig0 = _counter("paddle_tpu_router_migrated_total")
+        k4_0 = pa.kernel_launches + pa.replayed_launches
         t0 = time.perf_counter()
         try:
             rec = DRILLS[name](fleet)
@@ -1016,7 +1130,9 @@ def run_drills(fleet: Fleet, names=None,
                                 if e._graphed),
                    capture_s=sum(sum(e.capture_seconds().values())
                                  for e in new),
-                   nvcc_runs=_build.nvcc_runs - nvcc0)
+                   nvcc_runs=_build.nvcc_runs - nvcc0,
+                   k4_launches=pa.kernel_launches + pa.replayed_launches
+                   - k4_0)
         del fleet.made[n0:], new
         gc.collect()  # the drill's engines and their graphs go now
         records[name] = rec

@@ -64,8 +64,14 @@ def test_importing_every_module_loads_no_jax():
         "framework.core_api", "ops._apply", "ops.creation", "ops.math",
         "ops.manipulation", "ops.logic", "ops.stat", "ops.linalg",
         "ops.random", "ops.extras", "tools.op_cases")} <= walked
-    # the training sentinel of the JAX package is not ported
-    assert "paddle_tpu_torch.faults.sentinel" not in walked
+    # the training sentinel of the JAX package is ported now, with the
+    # checkpoint, io, metric and hapi modules of its slice
+    assert "paddle_tpu_torch.faults.sentinel" in walked
+    assert {f"paddle_tpu_torch.{m}" for m in (
+        "framework.io", "distributed.checkpoint", "checkpoint",
+        "checkpoint.manager", "checkpoint.state", "io", "io.dataset",
+        "io.sampler", "io.dataloader", "metric", "hapi", "hapi.model",
+        "hapi.callbacks", "callbacks", "tools.train_chaos")} <= walked
 
 
 def _imports(path: Path):
@@ -451,5 +457,84 @@ def test_resnet_and_its_bench_need_a_card_unless_told_cpu(no_cuda):
                 make()
         paddle.set_device("cpu")
         assert paddle.nn.Conv2D(3, 4, 3).weight.place == "cpu"
+    finally:
+        device._current = saved
+
+
+_SLICE = ["paddle_tpu_torch.framework.io",
+          "paddle_tpu_torch.distributed.checkpoint",
+          "paddle_tpu_torch.checkpoint", "paddle_tpu_torch.io",
+          "paddle_tpu_torch.faults.sentinel", "paddle_tpu_torch.metric",
+          "paddle_tpu_torch.hapi", "paddle_tpu_torch.callbacks",
+          "paddle_tpu_torch.serving.router",
+          "paddle_tpu_torch.tools.train_chaos"]
+
+
+def test_checkpoint_and_training_loop_modules_import_no_jax():
+    """The checkpoint, sentinel, io, metric and hapi modules and the
+    router's reload name no jax, ml_dtypes or paddle_tpu import, and
+    importing them (and reaching ``Router.reload``) in a fresh
+    interpreter loads none of them."""
+    files = [PKG / (m[len("paddle_tpu_torch."):].replace(".", "/") + ".py")
+             for m in _SLICE]
+    files = [f if f.exists() else f.with_suffix("") / "__init__.py"
+             for f in files]
+    files += sorted((PKG / "checkpoint").glob("*.py")) + sorted(
+        (PKG / "io").glob("*.py")) + sorted((PKG / "hapi").glob("*.py"))
+    bad = [f"{f.name}:{line} {name}" for f in files
+           for line, name in _imports(f)
+           if _forbidden(name) or name.split(".")[0] == "ml_dtypes"]
+    assert all(f.exists() for f in files) and not bad, bad
+    probe = ("import importlib, sys\n"
+             f"for n in {_SLICE!r}:\n"
+             "    importlib.import_module(n)\n"
+             "from paddle_tpu_torch.serving import Router\n"
+             "assert callable(Router.reload)\n"
+             "bad = [m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes')]\n"
+             "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, cwd=str(REPO), env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_checkpoint_manager_needs_a_card_and_the_loop_is_device_free(
+        no_cuda, tmp_path):
+    """``CheckpointManager`` (where restored tensors go) and ``paddle.load``
+    resolve to the card; ``TrainSentinel``, ``DataLoader`` and ``Model``
+    are device-free, as the JAX classes are: they work on what they are
+    given (a DataLoader's batches are CPU Tensors, a Model follows its
+    network)."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import checkpoint, device, faults, io
+
+    saved = device._current
+    device._current = None
+    try:
+        with pytest.raises(RuntimeError):
+            checkpoint.CheckpointManager(str(tmp_path / "a"))
+        mgr = checkpoint.CheckpointManager(str(tmp_path / "b"),
+                                           device="cpu")
+        assert mgr.device.type == "cpu"
+        faults.TrainSentinel()
+        loader = io.DataLoader(io.TensorDataset([np.ones((4, 2),
+                                                         np.float32)]),
+                               batch_size=2)
+        (x,) = next(iter(loader))
+        assert x.place == "cpu"
+        with pytest.raises(RuntimeError):
+            paddle.nn.Linear(2, 2)
+        with device.using_device("cpu"):
+            net = paddle.nn.Linear(2, 2)
+        model = paddle.Model(net)
+        assert model._device.type == "cpu"
+        model.prepare(paddle.optimizer.SGD(parameters=net.parameters()),
+                      paddle.nn.MSELoss())
+        assert np.isfinite(model.train_batch([x], [x])[0])
     finally:
         device._current = saved

@@ -17,7 +17,8 @@ requeue-once on a degraded engine and ``"unavailable"`` when the fleet
 is dark, ``mark_down`` of an engine whose methods raise, the health
 views, the adapter hot-load with its canary, runtime topology, and the
 completion API routing by model between a Llama fleet and a GPT engine.
-``Router.reload`` is not ported and must say so. Crash containment and
+``Router.reload`` refuses a directory with no committed step (its twin
+is ``test_torch_router_reload.py``). Crash containment and
 migration are ``test_torch_router_migration.py``'s.
 """
 import numpy as np
@@ -303,11 +304,17 @@ def test_completion_api_routes_by_model(sides):
 
 
 def test_reload_is_not_ported(sides, tmp_path):
+    """``Router.reload`` is ported now (``test_torch_router_reload.py``
+    holds it to the JAX router); without a committed checkpoint it
+    raises, in reload and in ``recover(ckpt_dir=)``, and the fleet stays
+    healthy."""
+    from paddle_tpu_torch.checkpoint import CheckpointNotFoundError
+
     r = sides[1].router()
     sides[1].add(r, "m", page_size=4, max_batch_slots=1)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    with pytest.raises(CheckpointNotFoundError):
         r.reload(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    with pytest.raises(CheckpointNotFoundError):
         r.recover(wal_dir=str(tmp_path / "w"), ckpt_dir=str(tmp_path))
     assert r.states() == {"m/0": "healthy"}
 
