@@ -293,6 +293,33 @@ Phases, in order; any failure exits non-zero before the result line:
    parameters and moments equal an uninterrupted child's bit for bit.
    K1-K3 launch on every path and in every child, the plain versions
    never; no ``nvcc`` run.
+22. Distributed (``phase_distributed``): (a) gpt13's bench step under
+   ``DataParallel`` at world size 1 on NCCL (``init_parallel_env`` in
+   this process through ``fleet.init``, ``fleet.distributed_model`` and
+   ``distributed_optimizer``), 3 eager steps then 5 ``StaticFunction``
+   calls (the reduction captured in the graph), against the plain step
+   from the same state and batch: every loss and every parameter equal
+   bit for bit after the eager and after the graphed steps; step ms of
+   both, the buckets, the all_reduces and bytes a step. (b) Two ranks on
+   the card over gloo (``tools/dist_drills.py``): every collective of
+   ``tools/dist_cases.py`` on CUDA tensors against the value worked out
+   from both ranks' inputs; GPT-355M data-parallel (its 4 rows a rank
+   through ``DistributedBatchSampler`` and process workers, 2 steps,
+   ranks equal bit for bit, each step's reduced gradients leaf by leaf
+   within their tolerance of the single full-batch model's, and the
+   unreduced gradient, a control, outside it) and tensor-parallel (mp 2,
+   8 heads a rank, weights carried from the dense model; logits, loss
+   and the gathered gradients within theirs, and the gradients of a
+   backward without ``c_identity``'s all-reduce, a control, outside
+   it); K1-K3 and the embedding backward in each rank, no child left.
+   (c) The deterministic embedding backward (``csrc/embedding_grad.cu``):
+   the kernel equal to its plain version bit for bit at gpt13's shape
+   with Zipf ids (s 1.1), timed against its bound and ``tF.embedding``'s
+   backward; 8 backwards from one state of BERT-base's and gpt13's word
+   embeddings (Zipf ids) and of one f32 row under all 4,096 lookups of
+   a batch all equal with ``FLAGS_cudnn_deterministic`` on, how many
+   differ with it off, and an atomic sum of the one-row case, a control
+   that must differ. Prints each part's seconds.
 
 The last two lines are the kernels' JSON record (K1-K3 with their
 launches by path: ``train_gpt13``, ``train_llama``,
@@ -301,10 +328,15 @@ launches by path: ``train_gpt13``, ``train_llama``,
 ``train_bert``, ``train_graphed_bert``, ``train_bert_masked``,
 ``train_gpt13_rc_{off,full,dots,dots_no_batch}``, ``flag_flash_on``,
 ``flag_flash_off``, ``generate_llama``, ``generate_gpt``,
-``train_fit_resume``, ``train_guard``, ``train_preemption``; on a graphed
-path the eager first step's launches plus the replayed ones; and
-``bert_case``, their times at BERT's shape; K4's paths add
-``serve_fleet_reload``) and {"ok": true, "device": {...}}.
+``train_fit_resume``, ``train_guard``, ``train_preemption``,
+``train_dp_gpt13``, ``train_dp2_gpt355m``, ``train_tp2_gpt355m`` (the
+two-rank paths summed over the ranks); on a graphed path the eager first
+step's launches plus the replayed ones; and ``bert_case``, their times at
+BERT's shape; K4's paths add ``serve_fleet_reload``; K4 and K5 record
+the distributed paths' 0; then the embedding backward kernel, which
+replaces no Pallas kernel, with its launches on every training path
+above, counted the same way, and on the repeats of (c) alone) and
+{"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -2046,12 +2078,13 @@ def phase_train(torch, card, model):
     cfg = bench.SETUPS[model](False)[0]
     rc = bool(getattr(cfg, "recompute", False))
     per_layer = {"flash_fwd": 2 if rc else 1, "flash_dq": 1, "flash_dkv": 1}
-    fa.reset_counters()
+    reset_train_counts(fa)
     t0 = time.perf_counter()
     rec = bench.bench_model(model, small=False, device="cuda", steps=5,
                             reps=1)
     wall = time.perf_counter() - t0
     counts = flash_counts(fa)
+    note_embedding(f"train_{model}")
     losses = rec.pop("losses")
     steps = rec.pop("steps_run")
     summary = dict(rec, steps_run=steps, wall_s=wall, losses=losses,
@@ -2076,6 +2109,31 @@ def ran(counts):
     of graph replays."""
     return {n: counts["kernel_launches"][n] + counts["replayed_launches"][n]
             for n in counts["kernel_launches"]}
+
+
+# The embedding backward kernel's launches (eager and graph-replayed) on
+# each training path: zeroed with K1-K3's just before that path's run
+# (``reset_train_counts``) and read just after it (``note_embedding``)
+EMB_BY_PATH = {}
+
+
+def reset_train_counts(fa):
+    from paddle_tpu_torch.ops import embedding_grad as eg
+
+    fa.reset_counters()
+    eg.reset_counters()
+
+
+def note_embedding(path):
+    """Record the embedding backward's launches on ``path``'s run, which
+    looked rows up and took their gradient: the kernel must have
+    launched, and its plain version never."""
+    from paddle_tpu_torch.ops import embedding_grad as eg
+
+    if eg.launches() == 0 or eg.plain_calls:
+        fail(f"{path}: the embedding backward kernel launched "
+             f"{eg.launches()} times, its plain version {eg.plain_calls}")
+    EMB_BY_PATH[path] = eg.launches()
 
 
 def check_graphed_counts(label, counts, per_layer, layers, steps):
@@ -2119,11 +2177,13 @@ def phase_train_graphed(torch, card, model):
     per_layer = {"flash_fwd": 2 if rc else 1, "flash_dq": 1, "flash_dkv": 1}
     runs = {}
     for kind in ("eager", "graphed"):
-        fa.reset_counters()
+        reset_train_counts(fa)
         before = jit_compiles("train_fn")
         rec, net, opt = bench.train_run(model, device="cuda", steps=5,
                                         reps=1, eager=kind == "eager")
         counts = flash_counts(fa)
+        if kind == "graphed":
+            note_embedding(f"train_graphed_{model}")
         rec["jit_compiles"] = jit_compiles("train_fn") - before
         runs[kind] = (rec, [getattr(p, "_value", p).detach().clone()
                             for p in net.parameters()], counts)
@@ -2235,9 +2295,10 @@ def bert_masked_step(torch, card):
     for row in rng.choice(B, B // 4, replace=False):
         mask[row, rng.integers(1, S):] = 0
     am = paddle.to_tensor(mask, place="cuda")
-    fa.reset_counters()
+    reset_train_counts(fa)
     losses = [float(step(ids, mlm, nsp, am)) for _ in range(3)]
     counts = flash_counts(fa)
+    note_embedding("train_bert_masked")
     log(f"train bert masked: losses {losses}, padded rows "
         f"{int((mask.sum(1) < S).sum())}, {step.compile_counts()}, "
         f"counts {counts} ({card})")
@@ -2332,7 +2393,7 @@ def phase_train_graphed_state(torch, card):
     runs = {}
     for graphed in (False, True):
         step, args, model, scaler, sched = state_step(torch, graphed)
-        fa.reset_counters()
+        reset_train_counts(fa)
         hist = []
         for i in range(6):
             mult = torch.full((), math.inf if i == 2 else 1.0,
@@ -2344,6 +2405,8 @@ def phase_train_graphed_state(torch, card):
                 "cells": [c.clone() for c in scaler.__jit_state__()]})
             sched.step()
         torch.cuda.synchronize()
+        if graphed:
+            note_embedding("train_graphed_state")
         runs[graphed] = (hist, flash_counts(fa),
                          step.compile_counts() if graphed else None)
     (h_e, c_e, _), (h_g, c_g, cc) = runs[False], runs[True]
@@ -2692,10 +2755,11 @@ def facade_train(torch, card, gpt13):
         kept[:] = [step(*a)]
         return kept[0]
 
-    fa.reset_counters()
+    reset_train_counts(fa)
     dt, first_s, losses = bench.time_steps(run, args, 5, 1,
                                            torch.device("cuda"))
     launches, plain = dict(fa.kernel_launches), dict(fa.plain_calls)
+    note_embedding("facade_train")
     # the bench's own read of the loss (bench.py:413)
     last = float(np.asarray(kept[0].numpy(), dtype="float32"))
     steps = len(losses)
@@ -3208,11 +3272,12 @@ def phase_train_recompute(torch, card):
     runs, launches = {}, {}
     for policy in RC_POLICIES:
         label = f"rc_{policy or 'off'}"
-        fa.reset_counters()
+        reset_train_counts(fa)
         rec = bench.bench_model("gpt13", device="cuda", steps=1, reps=1,
                                 recompute=policy is not None,
                                 recompute_policy=policy)
         counts = flash_counts(fa)
+        note_embedding(f"train_gpt13_{label}")
         per_layer = {"flash_fwd": 1 if policy is None else 2,
                      "flash_dq": 1, "flash_dkv": 1}
         check_graphed_counts(f"train gpt13 {label}", counts, per_layer,
@@ -3265,9 +3330,10 @@ def phase_flags(torch, card):
     try:
         for flag in (True, False):
             paddle.set_flags({"FLAGS_use_pallas_flash_attention": flag})
-            fa.reset_counters()
+            reset_train_counts(fa)
             rec = bench.bench_model("bert", device="cuda", steps=1, reps=1)
             bert[flag] = (rec, flash_counts(fa))
+            note_embedding("flag_flash_on" if flag else "flag_flash_off")
             torch.cuda.empty_cache()
     finally:
         paddle.set_flags({"FLAGS_use_pallas_flash_attention": True})
@@ -3423,6 +3489,13 @@ def phase_train_chaos(torch, card):
                      f"({c})")
     if any(n for c in plains for n in c.values()):
         fail(f"train chaos: a plain flash version ran: {plains}")
+    for path, r in (("train_fit_resume", fit), ("train_guard", guard),
+                    ("train_preemption", pre)):
+        if not all(r["embedding_grad"]) or r["embedding_grad_plain"]:
+            fail(f"train chaos: {path}: the embedding backward kernel "
+                 f"launched {r['embedding_grad']} times (a child each), "
+                 f"its plain version {r['embedding_grad_plain']}")
+        EMB_BY_PATH[path] = sum(r["embedding_grad"])
     launches = {path: {k: sum(c[k] for c in runs) for k in runs[0]}
                 for path, runs in paths.items()}
     costs = {k: guard[k] for k in (
@@ -3458,6 +3531,354 @@ def phase_train_chaos(torch, card):
         f"{costs['unguarded_step_ms']:.2f} unguarded (best of 3 turns)")
     torch.cuda.empty_cache()
     return rec
+
+
+DP13_EAGER, DP13_GRAPHED = 3, 5   # eager steps, then StaticFunction calls
+
+
+def dp13_run(torch, wrap):
+    """gpt13's bench step (O2 bf16, no master weights, fused CE, B 8, S
+    1024) from ``bench.build``'s state: ``DP13_EAGER`` eager steps, then
+    ``DP13_GRAPHED`` calls of ``jit.StaticFunction`` (a warm-up, a
+    capture, replays), on the bench's batch. With ``wrap`` the model and
+    optimizer go through ``fleet.init`` (dp 1: ``init_parallel_env`` on
+    NCCL in this process), ``fleet.distributed_model`` and
+    ``distributed_optimizer``. Returns the losses, host copies of every
+    parameter after the eager steps and after the graphed ones, the step
+    times and the launch counts of the run."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import bench, jit
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import embedding_grad as eg
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_adamw as fw
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    cfg, B, S, _ = bench.SETUPS["gpt13"](False)
+    model, opt = bench.build(cfg, "cuda", bench.MASTER_WEIGHT["gpt13"])
+    net = model
+    if wrap:
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1}
+        fleet.init(is_collective=True, strategy=strategy)
+        net = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(opt)
+    train_fn = bench.make_train_fn(net, opt)
+    rng = np.random.default_rng(0)
+    ids_np = rng.integers(0, cfg.vocab_size, (B, S))
+    labels_np = np.roll(ids_np, -1, axis=1)
+    ids = torch.from_numpy(ids_np).cuda()
+    labels = torch.from_numpy(labels_np).cuda()
+    reset_k1_k5()
+    eg.reset_counters()
+    losses, eager_s = [], []
+    for _ in range(DP13_EAGER):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(train_fn(ids, labels).detach())
+        torch.cuda.synchronize()
+        eager_s.append(time.perf_counter() - t0)
+    after_eager = [p.detach().cpu() for p in model.parameters()]
+    step = jit.StaticFunction(train_fn, observe=[net, opt], warmup=False)
+    args = (paddle.to_tensor(ids_np, place="cuda"),
+            paddle.to_tensor(labels_np, place="cuda"))
+    graphed_s = []
+    for _ in range(DP13_GRAPHED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(*args)._value.detach())
+        torch.cuda.synchronize()
+        graphed_s.append(time.perf_counter() - t0)
+    after_graphed = [p.detach().cpu() for p in model.parameters()]
+    launches = {k: fa.kernel_launches[k] + fa.replayed_launches[k]
+                for k in fa.KERNELS}
+    rec = {"losses": [float(x) for x in losses], "after_eager": after_eager,
+           "after_graphed": after_graphed,
+           "eager_step_ms": 1000 * min(eager_s[1:]),
+           "graphed_step_ms": 1000 * min(graphed_s[2:]),
+           "flash_launches": launches,
+           "flash_plain": dict(fa.plain_calls),
+           "paged_launches": pa.kernel_launches + pa.replayed_launches,
+           "adamw_launches": fw.kernel_launches,
+           "embedding_grad_launches": eg.launches(),
+           "embedding_grad_plain": eg.plain_calls,
+           "compile_counts": step.compile_counts()}
+    if wrap:
+        rec["comm"] = net.comm_stats()
+    del step, train_fn, net, model, opt
+    return rec
+
+
+def phase_dp_gpt13(torch, card):
+    """Part 1 of the distributed phase: gpt13 under ``DataParallel`` at
+    world size 1 on NCCL (``dp13_run``) against the plain step from the
+    same state and batch: every loss and every parameter equal bit for
+    bit after the eager steps and after the graphed ones."""
+    import gc
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import parallel
+
+    t0 = time.perf_counter()
+    plain = dp13_run(torch, False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ["MASTER_ADDR"] = "127.0.0.1"
+    os.environ["MASTER_PORT"] = str(parallel._free_port())
+    try:
+        dp = dp13_run(torch, True)
+    except RuntimeError as e:
+        fail(f"distributed: gpt13 under DataParallel: {e}")
+    backend = dist.get_backend()
+    dist.destroy_process_group()
+    for k in ("MASTER_ADDR", "MASTER_PORT"):
+        os.environ.pop(k, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if backend != "NCCL":
+        fail(f"distributed: gpt13 DataParallel ran on {backend}, not NCCL")
+    if dp["losses"] != plain["losses"]:
+        fail(f"distributed: DataParallel losses {dp['losses']} != the plain "
+             f"step's {plain['losses']}")
+    for when in ("after_eager", "after_graphed"):
+        bad = sum(not torch.equal(a, b)
+                  for a, b in zip(dp[when], plain[when]))
+        if bad or len(dp[when]) != len(plain[when]):
+            fail(f"distributed: {bad} parameters differ {when} from the "
+                 "plain step's")
+    for r in (plain, dp):
+        if not all(v > 0 for v in r["flash_launches"].values()) \
+                or any(r["flash_plain"].values()):
+            fail(f"distributed: gpt13 flash counts {r['flash_launches']}, "
+                 f"plain {r['flash_plain']}")
+        if r["embedding_grad_plain"] or not r["embedding_grad_launches"]:
+            fail("distributed: the embedding backward kernel did not run "
+                 f"({r['embedding_grad_launches']} launches, "
+                 f"{r['embedding_grad_plain']} plain)")
+    comm = dp["comm"]
+    steps = comm["reductions"]
+    rec = {"phase": "dp_gpt13", "card": card, "backend": backend,
+           "losses": dp["losses"],
+           "plain_eager_step_ms": plain["eager_step_ms"],
+           "plain_graphed_step_ms": plain["graphed_step_ms"],
+           "dp_eager_step_ms": dp["eager_step_ms"],
+           "dp_graphed_step_ms": dp["graphed_step_ms"],
+           "buckets": comm["buckets"],
+           "bucket_bytes_max": max(comm["bucket_bytes"]),
+           "all_reduces_per_step": comm["all_reduces"] / steps,
+           "bytes_reduced_per_step": comm["bytes_reduced"] / steps,
+           "reductions_issued": steps,
+           "params_compared": len(dp["after_graphed"]),
+           "compile_counts": dp["compile_counts"],
+           "flash_launches": dp["flash_launches"],
+           "paged_launches": dp["paged_launches"],
+           "adamw_launches": dp["adamw_launches"],
+           "embedding_grad_launches": dp["embedding_grad_launches"],
+           "seconds": time.perf_counter() - t0}
+    log("distributed dp_gpt13: " + json.dumps(rec))
+    log(f"distributed dp_gpt13 ({card}): step ms plain eager "
+        f"{rec['plain_eager_step_ms']:.2f}, DataParallel eager "
+        f"{rec['dp_eager_step_ms']:.2f}; plain graphed "
+        f"{rec['plain_graphed_step_ms']:.2f}, DataParallel graphed "
+        f"{rec['dp_graphed_step_ms']:.2f}; {rec['buckets']} buckets, "
+        f"{rec['all_reduces_per_step']:.0f} all_reduces and "
+        f"{rec['bytes_reduced_per_step']:.0f} bytes a step")
+    return rec
+
+
+EMB_SHAPE = (50304, 2048, 8 * 1024)   # gpt13's rows, width and B x S ids
+
+
+def zipf_ids(n, vocab, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return (rng.zipf(1.1, n) - 1) % vocab
+
+
+def embedding_repeats(torch, params, weight, make_loss, flag):
+    """The embedding weight's gradient of 8 backwards from one state (the
+    parameters and the generator's seed, so dropout draws the same masks)
+    with ``FLAGS_cudnn_deterministic`` set to ``flag``: how many differ
+    anywhere from the first."""
+    import paddle_tpu_torch as paddle
+
+    from paddle_tpu_torch import generator
+
+    paddle.set_flags({"FLAGS_cudnn_deterministic": flag})
+    grads = []
+    try:
+        for _ in range(8):
+            generator.seed(0)  # one state: the same dropout masks
+            loss = make_loss()
+            loss.backward()
+            grads.append(weight.grad.detach().clone())
+            for p in params:
+                getattr(p, "_value", p).grad = None
+    finally:
+        paddle.set_flags({"FLAGS_cudnn_deterministic": True})
+    return sum(not torch.equal(grads[0], g) for g in grads[1:])
+
+
+ONE_ROW = (2, 768, 32 * 128)   # BERT-base's token types: every id row 0
+
+
+def one_row_repeats(torch):
+    """One row under every lookup: BERT-base's f32 token-type table
+    ``[2, 768]`` with all 4,096 ids of a batch (B 32, S 128) on row 0,
+    and a fixed f32 output gradient. Returns how many of 8 repeats differ from the first
+    with ``FLAGS_cudnn_deterministic`` on and off, and for a control
+    that sums the same rows with atomics (``index_add_``) and so must
+    differ, or the repeats could not see a nondeterministic sum."""
+    from paddle_tpu_torch.nn import functional as F
+
+    V, H, N = ONE_ROW
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    w = torch.randn(V, H, device="cuda", generator=gen).requires_grad_()
+    ids = torch.zeros(N, dtype=torch.int64, device="cuda")
+    g = torch.randn(N, H, device="cuda", generator=gen)
+
+    def loss():
+        return (F.embedding(ids, w) * g).sum()
+
+    out = {flag: embedding_repeats(torch, [w], w, loss, flag)
+           for flag in (True, False)}
+    sums = [torch.zeros(V, H, device="cuda").index_add_(0, ids, g)
+            for _ in range(8)]
+    out["atomics"] = sum(not torch.equal(sums[0], x) for x in sums[1:])
+    return out
+
+
+def phase_embedding_grad(torch, card):
+    """Part 3 of the distributed phase: the deterministic embedding
+    backward. (a) The kernel against its plain version at gpt13's shape
+    (8192 Zipf ids, s 1.1, over 50304 rows of 2048, bf16): equal bit for
+    bit (the same f32 sum in the same order), timed beside its bound and
+    ``tF.embedding``'s backward (``embedding_dense_backward``). (b)
+    BERT-base's and gpt13's backward 8 times each from one state with
+    Zipf ids, and of one f32 row under 4,096 lookups
+    (``one_row_repeats``): the gradients all equal with the flag on; with
+    it off, how many differ; an atomic sum of the one-row case must
+    differ, or the repeats could not tell. The kernel's launches are
+    counted over the repeats alone."""
+    import numpy as np
+
+    from paddle_tpu_torch import amp, bench
+    from paddle_tpu_torch.ops import embedding_grad as eg
+
+    t0 = time.perf_counter()
+    V, H, N = EMB_SHAPE
+    ids = torch.from_numpy(zipf_ids(N, V, 11)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    g = torch.randn(N, H, device="cuda", generator=gen).to(torch.bfloat16)
+    eg.reset_counters()
+    got = eg.embedding_grad(ids, g, V)
+    want = eg.ref_embedding_grad(ids.cpu(), g.cpu(), V)
+    err = float((got.float().cpu() - want.float()).abs().max())
+    if not torch.equal(got.cpu(), want):
+        fail(f"embedding_grad: kernel != plain version (max abs {err})")
+    ms = cuda_ms(torch, lambda: eg.embedding_grad(ids, g, V))
+    plain_ms = cuda_ms(torch, lambda: eg.ref_embedding_grad(ids, g, V))
+    lib_ms = cuda_ms(torch, lambda: torch.ops.aten.embedding_dense_backward(
+        g, ids, V, -1, False))
+    distinct = int(torch.unique(ids).numel())
+    nbytes = 8 * N + N * H * 2 + V * H * 2
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = N * H / PEAK_OPS["f32"]
+    kernel = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              "library_ms": lib_ms, "bound_ms": 1000 * max(t_bytes, t_ops),
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+              "distinct_rows": distinct, "ids": N}
+    log(f"embedding_grad ({card}): kernel {ms:.4f} ms, plain version "
+        f"{plain_ms:.4f} ms, tF.embedding backward {lib_ms:.4f} ms, bound "
+        f"{kernel['bound_ms']:.4f} ms ({N} Zipf ids, {distinct} distinct, "
+        f"{V} x {H} bf16)")
+
+    eg.reset_counters()
+    repeats = {"one_row_f32": one_row_repeats(torch)}
+    cfg, B, S, _ = bench.SETUPS["gpt13"](False)
+    model, _ = bench.build(cfg, "cuda", False)
+    ids13 = torch.from_numpy(zipf_ids(B * S, cfg.vocab_size, 12)
+                             .reshape(B, S)).cuda()
+    lab13 = torch.roll(ids13, -1, 1)
+
+    def gpt_loss():
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            return model(ids13, labels=lab13)[1]
+
+    w = model.gpt.embeddings.weight
+    repeats["gpt13"] = {flag: embedding_repeats(
+        torch, list(model.parameters()), w, gpt_loss, flag)
+        for flag in (True, False)}
+    del model
+    torch.cuda.empty_cache()
+    bcfg, bB, bS, _ = bench.SETUPS["bert"](False)
+    bert, _ = bench.build(bcfg, "cuda", None)
+    bids = torch.from_numpy(zipf_ids(bB * bS, bcfg.vocab_size, 13)
+                            .reshape(bB, bS)).cuda()
+    mlm = bids.clone()
+    nsp = torch.zeros(bB, dtype=torch.int64, device="cuda")
+
+    def bert_loss():
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            return bert(bids, masked_lm_labels=mlm,
+                        next_sentence_labels=nsp)[1]._value
+
+    bw = bert.bert.embeddings.word_embeddings.weight._value
+    repeats["bert_base"] = {flag: embedding_repeats(
+        torch, list(bert.parameters()), bw, bert_loss, flag)
+        for flag in (True, False)}
+    del bert
+    torch.cuda.empty_cache()
+    for name, r in repeats.items():
+        if r[True]:
+            fail(f"embedding_grad: {name}'s embedding gradients differ in "
+                 f"{r[True]} of 7 repeats with the flag on")
+    if not repeats["one_row_f32"]["atomics"]:
+        fail("embedding_grad: an atomic sum of one row's 4,096 gradients "
+             "gave the same bits 8 times: the repeats cannot see a "
+             "nondeterministic sum")
+    rec = {"phase": "embedding_grad", "card": card, "kernel": kernel,
+           "repeats_differing": {k: {"flag_on": v[True], "flag_off": v[False]}
+                                 for k, v in repeats.items()},
+           "atomics_control_differing": repeats["one_row_f32"]["atomics"],
+           "launches": eg.launches(),
+           "seconds": time.perf_counter() - t0}
+    log("distributed embedding_grad: " + json.dumps(rec))
+    log(f"embedding repeats ({card}): of 7, differing with the flag on / "
+        f"off: " + ", ".join(f"{k} {v[True]} / {v[False]}"
+                             for k, v in repeats.items())
+        + f"; the one-row atomic control {rec['atomics_control_differing']}")
+    return rec
+
+
+def phase_distributed(torch, card):
+    """The distributed phase: (1) gpt13 under ``DataParallel`` at world
+    size 1 on NCCL, eager and graphed, bit for bit against the plain step
+    (``phase_dp_gpt13``); (2) two ranks on the card over gloo
+    (``tools/dist_drills.py``: the collectives on CUDA tensors, GPT-355M
+    data-parallel and tensor-parallel at its stated tolerances, K1-K3 in
+    each rank, no child left holding the card); (3) the deterministic
+    embedding backward (``phase_embedding_grad``). Prints each part's
+    seconds."""
+    from paddle_tpu_torch.tools import dist_drills
+
+    t0 = time.perf_counter()
+    dp13 = phase_dp_gpt13(torch, card)
+    t1 = time.perf_counter()
+    try:
+        drills = dist_drills.run("cuda", small=False, log=log)
+    except (dist_drills.DrillFailed, RuntimeError) as e:
+        fail(f"distributed: two-rank drills: {e}")
+    log("distributed two ranks: " + json.dumps(drills, default=str))
+    t2 = time.perf_counter()
+    emb = phase_embedding_grad(torch, card)
+    t3 = time.perf_counter()
+    log(f"distributed phase ({card}): dp_gpt13 {t1 - t0:.1f} s, two ranks "
+        f"{t2 - t1:.1f} s, embedding_grad {t3 - t2:.1f} s")
+    return {"dp_gpt13": dp13, "drills": drills, "embedding_grad": emb}
 
 
 def main():
@@ -3514,6 +3935,11 @@ def main():
     torch.cuda.empty_cache()
     phase_nn_extended_ops(torch, card)
     chaos = phase_train_chaos(torch, card)
+    torch.cuda.empty_cache()
+    distributed = phase_distributed(torch, card)
+    dp13 = distributed["dp_gpt13"]
+    dist_flash = {"train_dp_gpt13": dp13["flash_launches"],
+                  **distributed["drills"]["flash_launches"]}
     gen_launches = {f"generate_{m}": rec["launches"]
                     for m, rec in generate.items()}
     head = paged["a_decode_f32q_bf16kv"]
@@ -3540,7 +3966,11 @@ def main():
         | {"serve_fleet": fleet["launches"],
            "serve_fleet_reload": fleet["reload_k4_launches"]}
         # dense generate(): K1-K5 together, none expected
-        | gen_launches,
+        | gen_launches
+        # the distributed phase's training paths: none expected
+        | {"train_dp_gpt13": dp13["paged_launches"]}
+        | {path: n["paged_attention"]
+           for path, n in distributed["drills"]["flash_launches"].items()},
         # NaN in one slot's live K, V or scale rows, per phase-3a case:
         # non-finite on that slot's rows only (the kinds held)
         "nan_confined": {name: rec["nan_confined"]
@@ -3577,7 +4007,11 @@ def main():
             # the train chaos phase: fit killed and resumed (both
             # children), the guarded loop, preempted and resumed
             | {path: n[kname]
-               for path, n in chaos["flash_launches"].items()},
+               for path, n in chaos["flash_launches"].items()}
+            # the distributed phase: gpt13 under DataParallel at world
+            # size 1 (eager and graphed), GPT-355M data- and
+            # tensor-parallel on two ranks (summed over the ranks)
+            | {path: n[kname] for path, n in dist_flash.items()},
             "max_abs_err": flash13["max_abs_err"][kname],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -3601,11 +4035,34 @@ def main():
         # the training paths of the train chaos phase (the optimizer there
         # is AdamW's plain update: none expected)
         "launches_by_path": {"adamw_path": adamw_launches,
-                             "train_guard": chaos["fused_adamw_launches"]},
+                             "train_guard": chaos["fused_adamw_launches"],
+                             "train_dp_gpt13": dp13["adamw_launches"]}
+        | {path: n["fused_adamw"]
+           for path, n in distributed["drills"]["flash_launches"].items()},
         "max_abs_err": k5["max_abs_err"],
         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "library_ms": k5["library_ms"],
+    })
+    k6 = distributed["embedding_grad"]
+    kernels.append({
+        "name": "embedding_grad", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/embedding_grad.cu",
+        # no Pallas kernel: the JAX package's embedding gradient is XLA's
+        # scatter-add, behind this function
+        "replaces": "paddle_tpu/nn/functional/common.py:103",
+        # gpt13's bench path, as K1-K3's; every training path's run,
+        # counted the same way (eager and graph-replayed launches)
+        "launches": EMB_BY_PATH["train_gpt13"],
+        "launches_by_path": dict(EMB_BY_PATH)
+        | {"train_dp_gpt13": dp13["embedding_grad_launches"]}
+        | {path: n["embedding_grad"]
+           for path, n in distributed["drills"]["flash_launches"].items()}
+        # the repeats of the distributed phase alone (flag on)
+        | {"embedding_repeats": k6["launches"]},
+        **{k: k6["kernel"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")},
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

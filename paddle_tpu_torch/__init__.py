@@ -8,7 +8,8 @@ state, grad mode and ``paddle.grad``, ``set_device``/``get_device``, and
 the modules ``autograd``, ``nn``, ``optimizer`` (with ``optimizer.lr``),
 ``amp``, ``jit``, ``linalg``, ``models`` and ``vision``, and
 ``set_flags``/``get_flags``, ``save``/``load``, ``Model`` and the modules
-``io``, ``metric``, ``callbacks``, ``hapi`` and ``checkpoint``.
+``io``, ``metric``, ``callbacks``, ``hapi`` and ``checkpoint``, and
+``distributed`` with ``DataParallel``.
 
 The JAX package ``paddle_tpu`` is the reference; this package grows
 beside it slice by slice, keeping its module layout and names so each
@@ -40,14 +41,18 @@ functionals and layers; crash-consistent checkpoints
 files, the JAX package's format), ``save``/``load``, the train sentinel
 (``faults.TrainSentinel``), ``io.DataLoader`` with its samplers and
 datasets, ``metric``, ``hapi.Model`` with its callbacks, and the
-router's rolling weight reload (``serving.Router.reload``).
+router's rolling weight reload (``serving.Router.reload``); process
+groups, the collectives, ``DataParallel``, the mesh, the placements and
+the tensor-parallel layers on ``torch.distributed`` (``distributed``),
+with GPT's and Llama's tensor-parallel paths, ``spawn`` and ``launch``,
+and the DataLoader's process workers.
 
 Every entry point runs on ``cuda`` unless given ``device="cpu"`` or told
 ``set_device("cpu")`` (:mod:`.device`); kernels are built from ``csrc/``
 with ``nvcc`` at first use (:mod:`.ops._build`). Not ported yet, of the
 JAX package's namespace: ``jit.save``/``jit.load``, ``static``,
-``distributed`` (beyond ``fleet.recompute``, the single-process
-checkpoint files and the rank helpers), ``hapi.summary``, ``vision``
+``distributed``'s ZeRO sharding, pipelines, ring attention, parameter
+server, ``rpc`` and ``auto_parallel``, ``hapi.summary``, ``vision``
 beyond the ResNet models, ``incubate``, ``distribution``, ``fft``,
 ``signal``, ``sparse`` and the ``*Place`` classes.
 """
@@ -76,6 +81,8 @@ from .framework.io import load, save  # noqa: E402
 from . import checkpoint, io, metric  # noqa: E402
 from . import callbacks, hapi  # noqa: E402
 from .hapi import Model  # noqa: E402
+from . import distributed  # noqa: E402
+from .distributed import DataParallel  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -90,5 +97,6 @@ __all__ = (["default_device", "resolve_device", "set_device", "get_device",
             "default_generator", "get_rng_state", "seed", "set_rng_state",
             "amp", "jit", "linalg", "models", "nn", "optimizer", "vision",
             "set_flags", "get_flags", "save", "load", "checkpoint", "io",
-            "metric", "callbacks", "hapi", "Model"]
+            "metric", "callbacks", "hapi", "Model", "distributed",
+            "DataParallel"]
            + [n for n in ops.__all__ if n not in ("to_tensor",)])

@@ -4,13 +4,15 @@
 ``iinfo`` and ``finfo`` are torch's (``finfo(bfloat16)`` included).
 ``set_default_dtype`` records the name ``get_default_dtype`` returns, as
 there; creation ops take their dtype from their own defaults, as there.
-``create_parameter`` draws from the global generator: zeros for a bias,
-else Xavier-normal (``std = sqrt(2 / (fan_in + fan_out))``, the fans of
-a Paddle ``[in, out]`` weight), on the default device.
+``create_parameter`` builds on ``nn.initializer`` and
+``ParamAttr._to_attr``, as the JAX package's does: ``attr``'s
+initializer when it has one, else ``default_initializer``, else zeros
+for a bias and ``XavierNormal`` for a weight (fans of ``[in, out]``, or
+``[out, in, k...]`` times the receptive field), drawn from the global
+generator on the default device.
 """
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
 import torch
@@ -67,24 +69,22 @@ def in_dynamic_mode() -> bool:
 
 def create_parameter(shape: Sequence[int], dtype, name=None, attr=None,
                      is_bias=False, default_initializer=None):
-    """A standalone Parameter (module docstring). ``default_initializer``
-    is a callable ``(shape, torch dtype) -> tensor`` when given; ``attr``
-    is not ported."""
+    """A standalone Parameter (module docstring). An initializer is an
+    ``nn.initializer`` object or any callable ``(shape, dtype) ->
+    tensor``."""
     from ..device import default_device
-    from ..generator import default_generator
+    from ..nn.initializer import Constant, XavierNormal
+    from ..nn.param_attr import ParamAttr
     from ..tensor import Parameter
 
-    if attr is not None:
-        raise NotImplementedError("create_parameter(attr=...) is not ported")
-    shape = tuple(int(s) for s in shape)
-    dt = dtypes.convert_dtype(dtype)
-    if default_initializer is not None:
-        value = default_initializer(shape, dt)
-    elif is_bias:
-        value = torch.zeros(shape, dtype=dt)
-    else:
-        fan_in = shape[0] if shape else 1
-        fan_out = shape[1] if len(shape) > 1 else fan_in
-        std = math.sqrt(2.0 / (fan_in + fan_out))
-        value = torch.randn(shape, generator=default_generator).to(dt) * std
-    return Parameter(torch.as_tensor(value).to(default_device()), name=name)
+    init = default_initializer
+    a = ParamAttr._to_attr(attr)
+    if a and getattr(a, "initializer", None) is not None:
+        init = a.initializer
+    if init is None:
+        init = Constant(0.0) if is_bias else XavierNormal()
+    value = init(tuple(int(s) for s in shape), dtypes.convert_dtype(dtype))
+    trainable = not a or a.trainable
+    return Parameter(torch.as_tensor(value).to(default_device()),
+                     trainable=trainable,
+                     name=name or (a.name if a else None))

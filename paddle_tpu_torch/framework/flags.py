@@ -22,8 +22,14 @@ what each does on torch:
   default) keeps them on flash attention, whose CUDA kernels K1-K3 run on
   CUDA tensors or raise.
 
-The others (``FLAGS_cudnn_deterministic``, the allocator flags) are
-accepted and do nothing.
+- ``FLAGS_cudnn_deterministic``: True (the default) gives
+  ``nn.functional.embedding`` (and the GPT's, Llama's and BERT's
+  embeddings through it) the deterministic weight gradient of
+  ``ops/embedding_grad.py``, whose CUDA kernel runs on CUDA tensors or
+  raises; False gives PyTorch's own, which accumulates with atomics on
+  the card.
+
+The others (the allocator flags) are accepted and do nothing.
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ __all__ = ["set_flags", "get_flags"]
 _DEFS = {
     "FLAGS_check_nan_inf": (False, "per-op NaN/Inf sweep at dispatch"),
     "FLAGS_benchmark": (False, "synchronize the card after each op"),
-    "FLAGS_cudnn_deterministic": (True, "accepted; does nothing"),
+    "FLAGS_cudnn_deterministic": (True, "deterministic embedding "
+                                  "backward"),
     "FLAGS_eager_delete_tensor_gb": (0.0, "accepted; does nothing"),
     "FLAGS_allocator_strategy": ("auto_growth", "accepted; does nothing"),
     "FLAGS_fraction_of_gpu_memory_to_use": (0.92, "accepted; does nothing"),
@@ -86,6 +93,10 @@ def _apply_side_effects(name: str, value) -> None:
         from ..nn.functional import attention
 
         attention.pallas_flash_enabled = bool(value)
+    elif name == "FLAGS_cudnn_deterministic":
+        from ..nn.functional import common
+
+        common.deterministic_embedding = bool(value)
 
 
 def _init() -> None:

@@ -2,10 +2,12 @@
 
 reference parity: paddle.io (python/paddle/io/, fluid/reader.py:311,
 fluid/dataloader/). Host-side and device-free: batches are Tensors on
-the CPU. The process and shared-memory workers and
-``get_worker_info`` are not ported yet (ROADMAP Queue 1C item 13(b)).
+the CPU, made by the caller's thread, by worker threads or by worker
+processes (``worker_mode="process"``, whose batches travel as
+shared-memory tensors, ``io/shm_channel.py``).
 """
-from .dataloader import DataLoader, default_collate_fn
+from .dataloader import (DataLoader, WorkerInfo, default_collate_fn,
+                         get_worker_info)
 from .dataset import (
     ChainDataset, ComposeDataset, ConcatDataset, Dataset, IterableDataset,
     Subset, TensorDataset, random_split,
@@ -16,7 +18,7 @@ from .sampler import (
 )
 
 __all__ = [
-    "DataLoader", "default_collate_fn",
+    "DataLoader", "default_collate_fn", "get_worker_info", "WorkerInfo",
     "Dataset", "IterableDataset", "TensorDataset", "ComposeDataset",
     "ChainDataset", "ConcatDataset", "Subset", "random_split",
     "Sampler", "SequenceSampler", "RandomSampler", "SubsetRandomSampler",

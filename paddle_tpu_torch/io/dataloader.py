@@ -3,7 +3,16 @@
 reference parity: python/paddle/io.DataLoader (fluid/reader.py:311) and
 fluid/dataloader/dataloader_iter.py. ``num_workers=0`` is synchronous;
 ``num_workers > 0`` assembles batches on a pool of prefetch threads
-feeding a bounded, ordered queue (numpy slicing releases the GIL).
+feeding a bounded, ordered queue (numpy slicing releases the GIL), or,
+with ``worker_mode="process"``, in worker processes (the spawn context of
+``torch.multiprocessing``): each takes batch indices from one queue,
+fetches and collates them and puts the batch on the channel of
+``io/shm_channel.py`` (shared-memory tensors with ``use_shared_memory``),
+and the trainer hands them out in order, at most ``prefetch_factor x
+num_workers`` in flight. A worker's exception is raised in the trainer
+(its own type, the worker's traceback attached), and a worker that dies
+ends the epoch with a ``RuntimeError``; ``get_worker_info`` answers in a
+worker.
 Collation yields this package's Tensors on the CPU: the train loop moves
 a batch to its device (``hapi.Model`` moves it to the network's).
 
@@ -14,9 +23,8 @@ shuffling, ``set_epoch``) and skip the consumed prefix, and
 ``advance_batches(n)`` queues a further skip (the train sentinel's
 quarantine).
 
-Not ported yet: the process and shared-memory worker modes
-(``worker_mode="process"`` raises ``NotImplementedError``, ROADMAP Queue
-1C item 13(b)) and ``get_worker_info``'s process workers.
+The position stays sample-exact with process workers: it counts the
+batches handed out, not those in flight.
 """
 from __future__ import annotations
 
@@ -32,7 +40,35 @@ from ..tensor import Tensor
 from .dataset import Dataset, IterableDataset
 from .sampler import BatchSampler
 
-__all__ = ["DataLoader", "default_collate_fn"]
+__all__ = ["DataLoader", "default_collate_fn", "get_worker_info",
+           "WorkerInfo"]
+
+# inside a process worker: its id, the worker count and the dataset
+_process_worker_state: dict = {}
+
+
+class WorkerInfo:
+    """Identity of the current DataLoader worker (reference:
+    fluid/dataloader/worker.py get_worker_info)."""
+
+    def __init__(self, id: int, num_workers: int, dataset=None):
+        self.id = id
+        self.num_workers = num_workers
+        self.dataset = dataset
+
+    def __repr__(self):
+        return (f"WorkerInfo(id={self.id}, "
+                f"num_workers={self.num_workers})")
+
+
+def get_worker_info():
+    """Inside a process worker: this worker's (id, num_workers, dataset);
+    in the main process: None (reference contract)."""
+    st = _process_worker_state
+    if "dataset" not in st:
+        return None
+    return WorkerInfo(st.get("worker_id", 0), st.get("num_workers", 1),
+                      st.get("dataset"))
 
 
 def _end_epoch_once(it):
@@ -171,6 +207,136 @@ class _ThreadedPrefetchIter:
         self.close()
 
 
+def _worker_loop(dataset, collate_fn, init_fn, worker_id: int,
+                 num_workers: int, index_queue, channel, shared: bool):
+    """A process worker: batches of indices in, packed batches out, until
+    a None."""
+    import torch
+
+    from . import shm_channel
+
+    torch.set_num_threads(1)
+    _process_worker_state.update(dataset=dataset, worker_id=worker_id,
+                                 num_workers=num_workers)
+    collate = collate_fn or default_collate_fn
+    try:
+        if init_fn is not None:
+            init_fn(worker_id)
+        failure = None
+    except Exception as e:
+        failure = shm_channel.WorkerFailure(e, traceback.format_exc())
+    while True:
+        item = index_queue.get()
+        if item is None:
+            return
+        seq, indices = item
+        if failure is not None:
+            channel.put((seq, failure))
+            continue
+        try:
+            batch = collate([dataset[i] for i in indices])
+            channel.put((seq, shm_channel.pack(batch, shared)))
+        except Exception as e:
+            channel.put((seq, shm_channel.WorkerFailure(
+                e, traceback.format_exc())))
+
+
+class _ProcessWorkersIter:
+    """Process workers feeding an ordered channel (module docstring)."""
+
+    def __init__(self, loader: "DataLoader"):
+        import torch.multiprocessing as mp
+
+        from .shm_channel import ShmChannel
+
+        self._loader = loader
+        self._workers = []
+        self._channel = None
+        self._indices = loader._epoch_indices()
+        self._capacity = max(2, loader.prefetch_factor * loader.num_workers)
+        self._next_submit = 0
+        self._next_seq = 0
+        self._stash = {}
+        try:
+            ctx = mp.get_context("spawn")
+            self._channel = ShmChannel(ctx)
+            self._index_queue = ctx.Queue()
+            for wid in range(loader.num_workers):
+                p = ctx.Process(
+                    target=_worker_loop, daemon=True,
+                    args=(loader.dataset, loader.collate_fn,
+                          loader.worker_init_fn, wid, loader.num_workers,
+                          self._index_queue, self._channel,
+                          loader.use_shared_memory))
+                p.start()
+                self._workers.append(p)
+            self._fill()
+        except Exception:
+            self.close()
+            raise
+
+    def _fill(self):
+        while (self._next_submit < len(self._indices)
+               and self._next_submit - self._next_seq < self._capacity):
+            self._index_queue.put((self._next_submit,
+                                   self._indices[self._next_submit]))
+            self._next_submit += 1
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        from .shm_channel import WorkerFailure, unpack
+
+        if self._next_seq >= len(self._indices):
+            self.close()
+            _end_epoch_once(self)
+            raise StopIteration
+        want = self._next_seq
+        while want not in self._stash:
+            try:
+                seq, payload = self._channel.get(timeout=1.0)
+                self._stash[seq] = payload
+            except TimeoutError:
+                dead = [p.exitcode for p in self._workers
+                        if p.exitcode not in (None, 0)]
+                if dead:
+                    self.close()
+                    raise RuntimeError(
+                        f"DataLoader worker process(es) exited with codes "
+                        f"{dead} before batch {want}") from None
+        payload = self._stash.pop(want)
+        self._next_seq += 1
+        if isinstance(payload, WorkerFailure):
+            self.close()
+            payload.reraise()
+        self._fill()
+        self._loader._note_batch(len(self._indices[want]))
+        return unpack(payload)
+
+    def close(self):
+        workers, self._workers = self._workers, []
+        for _ in workers:
+            try:
+                self._index_queue.put(None)
+            except Exception:
+                pass
+        for p in workers:
+            p.join(5)
+            if p.is_alive():
+                p.terminate()
+                p.join(5)
+        chan, self._channel = self._channel, None
+        if chan is not None:
+            chan.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
 class _IterableDatasetIter:
     def __init__(self, loader: "DataLoader"):
         self._loader = loader
@@ -258,11 +424,6 @@ class DataLoader:
         self.use_shared_memory = bool(use_shared_memory)
         if worker_mode not in ("thread", "process"):
             raise ValueError("worker_mode must be 'thread' or 'process'")
-        if worker_mode == "process":
-            raise NotImplementedError(
-                "DataLoader(worker_mode='process'): the process and "
-                "shared-memory workers are not ported yet (ROADMAP.md, "
-                "Queue 1C item 13(b)); use worker_mode='thread'")
         self.worker_mode = worker_mode
         self._is_iterable = isinstance(dataset, IterableDataset)
         self.drop_last = drop_last
@@ -383,6 +544,8 @@ class DataLoader:
     def __iter__(self):
         if self._is_iterable:
             return _IterableDatasetIter(self)
+        if self.num_workers > 0 and self.worker_mode == "process":
+            return _ProcessWorkersIter(self)
         if self.num_workers > 0:
             return _ThreadedPrefetchIter(self)
         return _SingleProcessIter(self)

@@ -69,6 +69,7 @@ from .. import dtypes
 from .. import generator as _generator
 from ..metrics import get_registry
 from ..nn.layer_base import Layer
+from ..ops import embedding_grad as _eg
 from ..ops import flash_attention as _fa
 from ..ops import paged_attention as _pa
 from ..optimizer.optimizer import Optimizer, _value
@@ -308,6 +309,7 @@ class _Program:
         self.first_seeds: Optional[Dict] = None
         self.flash_calls: Dict[str, int] = {}
         self.paged_calls = 0
+        self.embedding_calls = 0
         self.capture_s: Optional[float] = None
         self._staging: Dict[torch.device, tuple] = {}
 
@@ -466,6 +468,7 @@ class StaticFunction:
         prog.graph.replay()
         _fa.count_replays(prog.flash_calls)
         _pa.count_replays(prog.paged_calls)
+        _eg.count_replays(prog.embedding_calls)
         return _rebuild_out(prog.out_spec,
                             [t.detach().clone() for t in prog.outputs])
 
@@ -526,6 +529,7 @@ class StaticFunction:
         side.wait_stream(torch.cuda.current_stream(device))
         flash_before = dict(_fa.captured_launches)
         paged_before = _pa.captured_launches
+        embedding_before = _eg.captured_launches
         graph = torch.cuda.CUDAGraph()
         # no cyclic collection inside the capture: a graph dropped in a
         # reference cycle and destroyed mid-capture invalidates it
@@ -554,6 +558,7 @@ class StaticFunction:
         prog.flash_calls = {k: _fa.captured_launches[k] - flash_before[k]
                             for k in _fa.KERNELS}
         prog.paged_calls = _pa.captured_launches - paged_before
+        prog.embedding_calls = _eg.captured_launches - embedding_before
         prog.capture_s = time.perf_counter() - t0
         prog.built = True
         self._count_compile()

@@ -17,10 +17,13 @@ import torch
 from torch import nn
 
 from ..amp import cast_inputs
+from ..distributed import topology
+from ..distributed.fleet import mp_layers
 from ..nn import functional as F
 
 __all__ = ["Linear", "Embedding", "LayerNorm", "RMSNorm", "rms_norm",
-           "cached_attention"]
+           "cached_attention", "ColumnParallelLinear", "RowParallelLinear",
+           "VocabParallelEmbedding", "mp_size"]
 
 
 def rms_norm(x, weight, epsilon: float = 1e-6):
@@ -83,3 +86,80 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return rms_norm(x, self.weight, self.epsilon)
+
+
+# ----------------------------------------------- tensor-parallel layers
+# Megatron-style shards of the layers above, over the current mesh's
+# ``mp`` group (``distributed/fleet/mp_layers.py``). Each carries
+# ``shard_dim`` (the dim of its torch-layout weight split over the
+# ranks) and ``shard_pieces`` (a fused weight's pieces, split each on
+# its own: GPT's QKV is 3), which ``models/convert.py`` reads to carry a
+# whole weight into this rank's shard and to gather it back.
+
+
+def mp_size() -> int:
+    """The current mesh's ``mp`` degree (1 without a mesh)."""
+    return topology.axis_size("mp")
+
+
+class ColumnParallelLinear(Linear):
+    """This rank's ``[out/mp, in]`` rows of a ``Linear`` (``pieces``
+    blocks of ``out / pieces`` each split alike) and its bias block; the
+    output is this rank's block of the last dim."""
+
+    shard_dim = 0
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, pieces: int = 1):
+        self.group = mp_layers.get_mp_group()
+        n = self.group.nranks
+        if out_features % (n * pieces):
+            raise ValueError(f"out_features {out_features} not divisible by "
+                             f"mp degree {n} x {pieces}")
+        super().__init__(in_features, out_features // n, bias=bias)
+        self.shard_pieces = pieces
+
+    def forward(self, x):
+        return super().forward(mp_layers.c_identity(x, self.group))
+
+
+class RowParallelLinear(Linear):
+    """This rank's ``[out, in/mp]`` columns of a ``Linear``; the input is
+    this rank's block of the last dim, the partial products are
+    all-reduced and the whole bias added."""
+
+    shard_dim = 1
+    shard_pieces = 1
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
+        self.group = mp_layers.get_mp_group()
+        super().__init__(mp_layers._mp_size_check(in_features, "in_features",
+                                                  self.group),
+                         out_features, bias=bias)
+
+    def forward(self, x):
+        y = mp_layers.mp_allreduce(F.linear(x, self.weight.t()), self.group)
+        if self.bias is None:
+            return y
+        (y, b) = cast_inputs("add", y, self.bias)
+        return y + b
+
+
+class VocabParallelEmbedding(Embedding):
+    """This rank's ``[V/mp, H]`` rows of the vocabulary
+    (``mp_layers.vocab_parallel_embedding``)."""
+
+    shard_dim = 0
+    shard_pieces = 1
+
+    def __init__(self, num_embeddings: int, embedding_dim: int):
+        self.group = mp_layers.get_mp_group()
+        v_local = mp_layers._mp_size_check(num_embeddings, "vocab size",
+                                           self.group)
+        super().__init__(v_local, embedding_dim)
+        self.vocab_start_index = self.group.rank * v_local
+
+    def forward(self, ids):
+        return mp_layers.vocab_parallel_embedding(ids, self.weight,
+                                                  self.group)

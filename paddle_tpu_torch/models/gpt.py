@@ -37,8 +37,18 @@ projections and embeddings, ``0.02 / sqrt(2 * layers)`` for ``out_proj``
 and ``fc2``, zero biases, unit norms); the paged step's grid is
 flattened to ``[T, H]`` (the JAX step's ``[B, 1, H]``) and the KV pools
 are written in place. The head is always tied (``tie_word_embeddings``
-is the JAX default). Tensor/pipeline/sequence parallelism are not
-ported.
+is the JAX default). Pipeline and sequence parallelism are not ported.
+
+Tensor parallelism (``paddle_tpu/models/gpt.py:121-135``, ``:297-310``,
+``:374-380``, ``:529``, ``:548``): when the current mesh's ``mp`` degree
+is above 1 at construction, the QKV projection and ``fc1`` are
+column-parallel, ``out_proj`` and ``fc2`` row-parallel, the word
+embedding vocab-parallel (``models/_modules.py``, Megatron-style shards
+over the ``mp`` group), so attention runs on ``num_heads / mp`` heads a
+rank; the logits are this rank's vocabulary block ``[B, S, V/mp]`` and
+the loss is ``ParallelCrossEntropy``'s mean (``fused_loss`` is for
+``mp`` 1, as in the JAX package). ``models/convert.py`` carries a whole
+JAX weight into this rank's shard and gathers it back.
 
 ``config.recompute`` runs each block under ``recompute`` with
 ``config.recompute_policy`` (``distributed/fleet/recompute.py``), as the
@@ -67,7 +77,11 @@ from ..ops.fused_loss import fused_linear_cross_entropy
 from ..ops.paged_attention import ragged_paged_attention
 from ..quantization.observers import quantize_kv
 from ..tensor import facade_io
-from ._modules import Embedding, LayerNorm, Linear, cached_attention
+from ..distributed.fleet.mp_layers import (c_identity,
+                                             parallel_cross_entropy)
+from ._modules import (ColumnParallelLinear, Embedding, LayerNorm, Linear,
+                       RowParallelLinear, VocabParallelEmbedding,
+                       cached_attention, mp_size)
 from .generation import GenerationMixin
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
@@ -128,21 +142,31 @@ class GPTAttention(nn.Module):
     def __init__(self, config: GPTConfig):
         super().__init__()
         self.cfg = config
-        h = config.hidden_size
-        self.head_dim = h // config.num_heads
-        self.qkv_proj = Linear(h, 3 * h)
-        self.out_proj = Linear(h, h)
+        h, nh = config.hidden_size, config.num_heads
+        self.head_dim = h // nh
+        mp = mp_size()
+        if nh % mp:
+            raise ValueError(f"num_heads {nh} not divisible by mp {mp}")
+        if mp > 1:
+            self.qkv_proj = ColumnParallelLinear(h, 3 * h, pieces=3)
+            self.out_proj = RowParallelLinear(h, h)
+        else:
+            self.qkv_proj = Linear(h, 3 * h)
+            self.out_proj = Linear(h, h)
         self.attn_drop_p = config.attention_dropout_prob
 
     def forward(self, x):
-        B, S, H = x.shape
-        nh, hd = self.cfg.num_heads, self.head_dim
-        qkv = self.qkv_proj(x)  # [B, S, 3H]
-        q, k, v = (t.view(B, S, nh, hd) for t in qkv.split(H, dim=-1))
+        """Causal attention over ``x`` ``[B, S, H]``; under tensor
+        parallelism over this rank's ``num_heads / mp`` heads."""
+        B, S, _ = x.shape
+        hd = self.head_dim
+        qkv = self.qkv_proj(x)  # [B, S, 3H/mp]
+        hl = qkv.shape[-1] // 3
+        q, k, v = (t.view(B, S, hl // hd, hd) for t in qkv.split(hl, dim=-1))
         ctx, _ = F.flash_attention(
             q, k, v, causal=True,
             dropout=self.attn_drop_p if self.training else 0.0)
-        return self.out_proj(ctx.reshape(B, S, H))
+        return self.out_proj(ctx.reshape(B, S, hl))
 
     def forward_cached(self, x, cache, cur_len):
         """KV-cache step over ``x`` ``[B, S, H]`` at positions ``cur_len +
@@ -213,8 +237,12 @@ class GPTMLP(nn.Module):
     def __init__(self, config: GPTConfig):
         super().__init__()
         h, ff = config.hidden_size, config.intermediate_size
-        self.fc1 = Linear(h, ff)
-        self.fc2 = Linear(ff, h)
+        if mp_size() > 1:
+            self.fc1 = ColumnParallelLinear(h, ff)
+            self.fc2 = RowParallelLinear(ff, h)
+        else:
+            self.fc1 = Linear(h, ff)
+            self.fc2 = Linear(ff, h)
         self._gelu_approx = config.gelu_approximate
 
     def forward(self, x, adapters=None, layer_idx=0):
@@ -271,7 +299,10 @@ class GPTModel(nn.Module):
     def __init__(self, config: GPTConfig):
         super().__init__()
         self.config = config
-        self.embeddings = Embedding(config.vocab_size, config.hidden_size)
+        self.embeddings = (
+            VocabParallelEmbedding(config.vocab_size, config.hidden_size)
+            if mp_size() > 1 else
+            Embedding(config.vocab_size, config.hidden_size))
         self.position_embeddings = Embedding(config.max_position_embeddings,
                                              config.hidden_size)
         self.layers = nn.ModuleList([GPTDecoderLayer(config)
@@ -386,8 +417,21 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
     def forward(self, input_ids, position_ids=None, labels=None):
         """Logits ``[B, S, V]`` without ``labels``; with them ``(logits,
         mean loss)``, or ``(None, loss)`` when ``config.fused_loss``. Given
-        facade Tensors, it returns facade Tensors (``tensor.facade_io``)."""
+        facade Tensors, it returns facade Tensors (``tensor.facade_io``).
+        Under tensor parallelism the logits are this rank's vocabulary
+        block and the loss ``ParallelCrossEntropy``'s mean."""
         hidden = self.gpt(input_ids, position_ids)
+        emb = self.gpt.embeddings
+        if isinstance(emb, VocabParallelEmbedding):
+            # the head reads the whole hidden state on every rank: its
+            # gradient sums over the vocabulary blocks (c_identity)
+            logits = self.logits(c_identity(hidden, emb.group))
+            if labels is None:
+                return logits
+            loss = parallel_cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+                emb.group)
+            return logits, loss.mean()
         if labels is not None and self.config.fused_loss:
             H = self.config.hidden_size
             h, w = amp.cast_inputs("fused_linear_cross_entropy", hidden,
@@ -403,6 +447,9 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
 
     # ---------------------------------------------------- serving hooks
     def _decode_trunk(self):
+        if isinstance(self.gpt.embeddings, VocabParallelEmbedding):
+            raise NotImplementedError(
+                "generate and serving run the mp = 1 model")
         return self.gpt
 
     def _cache_spec(self):

@@ -55,6 +55,16 @@ attention.
 
 Not ported yet: sequence parallelism (``sequence_parallel=True``
 raises) and tensor parallelism.
+
+Tensor parallelism (``paddle_tpu/models/llama.py:137``, ``:387``): when
+the current mesh's ``mp`` degree is above 1 at construction, q/k/v,
+``gate_proj`` and ``up_proj`` are column-parallel, ``o_proj`` and
+``down_proj`` row-parallel and the embedding vocab-parallel
+(``models/_modules.py``), so each rank runs ``num_heads / mp`` heads and
+``num_key_value_heads / mp`` KV heads; a tied head gives this rank's
+vocabulary block and ``ParallelCrossEntropy``'s mean loss, an untied one
+(a whole ``Linear``, as the JAX model's) the whole logits and the dense
+loss.
 """
 from __future__ import annotations
 
@@ -74,7 +84,11 @@ from ..ops.fused_loss import fused_linear_cross_entropy
 from ..ops.paged_attention import ragged_paged_attention
 from ..quantization.observers import quantize_kv
 from ..tensor import facade_io
-from ._modules import Embedding, Linear, RMSNorm, cached_attention
+from ..distributed.fleet.mp_layers import (c_identity,
+                                             parallel_cross_entropy)
+from ._modules import (ColumnParallelLinear, Embedding, Linear, RMSNorm,
+                       RowParallelLinear, VocabParallelEmbedding,
+                       cached_attention, mp_size)
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny"]
 
@@ -172,10 +186,21 @@ class LlamaAttention(nn.Module):
         self.num_heads = config.num_heads
         self.num_kv_heads = config.num_key_value_heads
         self.head_dim = h // config.num_heads
-        self.q_proj = Linear(h, self.num_heads * self.head_dim, bias=False)
-        self.k_proj = Linear(h, self.num_kv_heads * self.head_dim, bias=False)
-        self.v_proj = Linear(h, self.num_kv_heads * self.head_dim, bias=False)
-        self.o_proj = Linear(self.num_heads * self.head_dim, h, bias=False)
+        nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        mp = mp_size()
+        if nh % mp or nkv % mp:
+            raise ValueError(f"heads ({nh}) and kv heads ({nkv}) must be "
+                             f"divisible by mp degree {mp}")
+        if mp > 1:
+            self.q_proj = ColumnParallelLinear(h, nh * hd, bias=False)
+            self.k_proj = ColumnParallelLinear(h, nkv * hd, bias=False)
+            self.v_proj = ColumnParallelLinear(h, nkv * hd, bias=False)
+            self.o_proj = RowParallelLinear(nh * hd, h, bias=False)
+        else:
+            self.q_proj = Linear(h, nh * hd, bias=False)
+            self.k_proj = Linear(h, nkv * hd, bias=False)
+            self.v_proj = Linear(h, nkv * hd, bias=False)
+            self.o_proj = Linear(nh * hd, h, bias=False)
 
     def forward(self, x):
         """Causal self-attention over ``x`` ``[B, S, H]``: q/k/v shaped to
@@ -183,9 +208,11 @@ class LlamaAttention(nn.Module):
         cast to the activations' dtype (``llama_rope_gqa``), kv heads
         repeated per query group, then flash attention."""
         B, S, _ = x.shape
-        nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        hd = self.head_dim
         q, k, v = amp.cast_inputs("llama_rope_gqa", self.q_proj(x),
                                   self.k_proj(x), self.v_proj(x))
+        # this rank's heads under tensor parallelism
+        nh, nkv = q.shape[-1] // hd, k.shape[-1] // hd
         cos, sin = _rope_rows(torch.arange(S, device=x.device), hd,
                               self.cfg.rope_theta)
         cos, sin = cos[None].to(q.dtype), sin[None].to(q.dtype)
@@ -288,9 +315,14 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig):
         super().__init__()
         h, ff = config.hidden_size, config.intermediate_size
-        self.gate_proj = Linear(h, ff, bias=False)
-        self.up_proj = Linear(h, ff, bias=False)
-        self.down_proj = Linear(ff, h, bias=False)
+        if mp_size() > 1:
+            self.gate_proj = ColumnParallelLinear(h, ff, bias=False)
+            self.up_proj = ColumnParallelLinear(h, ff, bias=False)
+            self.down_proj = RowParallelLinear(ff, h, bias=False)
+        else:
+            self.gate_proj = Linear(h, ff, bias=False)
+            self.up_proj = Linear(h, ff, bias=False)
+            self.down_proj = Linear(ff, h, bias=False)
 
     def forward(self, x, adapters=None, layer_idx=0):
         """``adapters`` (an ``AdapterRows``, paged step only) adds the
@@ -338,7 +370,10 @@ class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig):
         super().__init__()
         self.config = config
-        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size)
+        self.embed_tokens = (
+            VocabParallelEmbedding(config.vocab_size, config.hidden_size)
+            if mp_size() > 1 else
+            Embedding(config.vocab_size, config.hidden_size))
         self.layers = nn.ModuleList([LlamaDecoderLayer(config)
                                      for _ in range(config.num_layers)])
         self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps)
@@ -442,7 +477,19 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         mean loss)``, or ``(None, loss)`` when ``config.fused_loss``. Given
         facade Tensors, it returns facade Tensors (``tensor.facade_io``)."""
         hidden = self.llama(input_ids)
-        if labels is not None and self.config.fused_loss:
+        emb = self.llama.embed_tokens
+        if isinstance(emb, VocabParallelEmbedding) and self.lm_head is None:
+            # this rank's vocabulary block; the hidden state's gradient
+            # sums over the blocks (c_identity)
+            logits = self.logits(c_identity(hidden, emb.group))
+            if labels is None:
+                return logits
+            loss = parallel_cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+                emb.group)
+            return logits, loss.mean()
+        if labels is not None and self.config.fused_loss \
+                and not isinstance(emb, VocabParallelEmbedding):
             w = (self.lm_head.weight if self.lm_head is not None
                  else self.llama.embed_tokens.weight)
             h, w = amp.cast_inputs("fused_linear_cross_entropy", hidden, w)
@@ -456,6 +503,9 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         return logits, loss
 
     def _decode_trunk(self):
+        if isinstance(self.llama.embed_tokens, VocabParallelEmbedding):
+            raise NotImplementedError(
+                "generate and serving run the mp = 1 model")
         return self.llama
 
     def _cache_spec(self):

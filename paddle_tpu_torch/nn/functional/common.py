@@ -27,6 +27,7 @@ import torch.nn.functional as tF
 
 from ...amp import cast_inputs
 from ...generator import device_generator, next_seed
+from ...ops.embedding_grad import DeterministicEmbedding
 from ...ops.flash_attention import keep_mask
 from ...tensor import _as_torch, facade_io
 
@@ -37,6 +38,10 @@ __all__ = [
     "channel_shuffle", "unfold", "fold", "label_smooth",
     "class_center_sample", "normalize",
 ]
+
+# FLAGS_cudnn_deterministic (framework/flags.py): embedding's weight
+# gradient from ops/embedding_grad.py
+deterministic_embedding = True
 
 
 def as_torch(x, ref: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -156,7 +161,9 @@ def embedding(x, weight, padding_idx: Optional[int] = None,
     """Rows of ``weight`` by id. With ``padding_idx`` that row reads as
     zeros and gets no gradient (the table is zeroed there inside the
     differentiated function, as in the JAX package). ``sparse`` is taken
-    and ignored: grads are dense."""
+    and ignored: grads are dense. While ``FLAGS_cudnn_deterministic`` is
+    True (the default) the weight's gradient is the deterministic one of
+    ``ops/embedding_grad.py`` (the CUDA kernel on the card)."""
     del sparse
     weight = as_torch(weight)
     ids = as_torch(x, weight).to(torch.int64)
@@ -166,6 +173,9 @@ def embedding(x, weight, padding_idx: Optional[int] = None,
             weight.shape[0] + padding_idx
         weight = weight.index_fill(0, torch.tensor([pidx],
                                                    device=weight.device), 0.0)
+    if deterministic_embedding and weight.requires_grad \
+            and torch.is_grad_enabled():
+        return DeterministicEmbedding.apply(ids, weight)
     return tF.embedding(ids, weight)
 
 

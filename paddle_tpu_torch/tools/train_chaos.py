@@ -652,6 +652,7 @@ def fit_child(device, small: bool, ckdir: str, out: str,
     from .. import metric, nn
     from ..faults import TrainSentinel
     from ..hapi import Model
+    from ..ops import embedding_grad as eg
     from ..ops import flash_attention as fa
 
     device = resolve_device(device)
@@ -665,6 +666,7 @@ def fit_child(device, small: bool, ckdir: str, out: str,
     loader = DataLoader(fit_data(cfg, B, S), batch_size=B, shuffle=True)
     rec = _Record(pause_at, os.path.join(ckdir, "PAUSED"))
     fa.reset_counters()
+    eg.reset_counters()
     t0 = time.perf_counter()
     model.fit(loader, epochs=2, checkpoint_dir=ckdir,
               sentinel=TrainSentinel(), verbose=0, callbacks=[rec])
@@ -673,7 +675,9 @@ def fit_child(device, small: bool, ckdir: str, out: str,
               "losses": rec.losses, "seconds": time.perf_counter() - t0,
               "flash": {k: fa.kernel_launches[k] + fa.replayed_launches[k]
                         for k in fa.kernel_launches},
-              "plain": dict(fa.plain_calls)}
+              "plain": dict(fa.plain_calls),
+              "embedding_grad": eg.launches(),
+              "embedding_grad_plain": eg.plain_calls}
     with open(out, "w") as f:
         json.dump(result, f)
     return result
@@ -780,6 +784,9 @@ def drill_fit_resume(device, small: bool, root: str, log) -> dict:
            "moments_compared": n_moments,
            "flash_reference": want["flash"], "flash_resumed": got["flash"],
            "plain_reference": want["plain"], "plain_resumed": got["plain"],
+           "embedding_grad": [want["embedding_grad"], got["embedding_grad"]],
+           "embedding_grad_plain": want["embedding_grad_plain"]
+           + got["embedding_grad_plain"],
            "fit_seconds_reference": want["seconds"]}
     shutil.rmtree(ref_dir, ignore_errors=True)
     shutil.rmtree(run_dir, ignore_errors=True)
@@ -976,6 +983,7 @@ def measure_checkpoint(cfg, device, net, opt, loader, root, log) -> dict:
 
 def drill_guard_skip_rollback(device, small: bool, root: str, log) -> dict:
     from ..faults import Action, TrainSentinel
+    from ..ops import embedding_grad as eg
     from ..ops import flash_attention as fa
 
     cfg, B, S = _bert_shapes(small)
@@ -995,6 +1003,7 @@ def drill_guard_skip_rollback(device, small: bool, root: str, log) -> dict:
     victim = _first_grad_param(net)
     compiles0 = _counter("paddle_tpu_jit_compiles_total")
     fa.reset_counters()
+    eg.reset_counters()
     t0 = time.perf_counter()
     with faults.inject("train.grads", call=_nan_grads(victim), seed=SEED,
                        after=2, times=1) as one, \
@@ -1006,6 +1015,8 @@ def drill_guard_skip_rollback(device, small: bool, root: str, log) -> dict:
     launches = {k: fa.kernel_launches[k] + fa.replayed_launches[k]
                 for k in fa.kernel_launches}
     plain = dict(fa.plain_calls)
+    emb = {"embedding_grad": [eg.launches()],
+           "embedding_grad_plain": eg.plain_calls}
     actions = [r.action for r in reports]
     _check(one.fired == 1 and region.fired == 3,
            f"faults fired {one.fired}/{region.fired}, wanted 1/3")
@@ -1027,7 +1038,7 @@ def drill_guard_skip_rollback(device, small: bool, root: str, log) -> dict:
     rec = {"seconds": seconds, "actions": actions,
            "excluded": sorted(excluded), "forward_only": sorted(consumed),
            "marks_committed": mgr.all_steps(), "tensors_compared": len(want),
-           "flash": launches, "plain": plain, **costs}
+           "flash": launches, "plain": plain, **emb, **costs}
     shutil.rmtree(mgr.directory, ignore_errors=True)
     log(f"[train_chaos] guard-skip-rollback: {actions.count('skip')} skips, "
         f"1 rollback, excluded {sorted(excluded)}; {len(want)} tensors "
@@ -1043,6 +1054,7 @@ def preempt_child(device, small: bool, ckdir: str, out: str,
     commit its position and exit 0. Writes each call's loss to
     ``progress`` and its result to ``out``."""
     from ..faults import TrainSentinel
+    from ..ops import embedding_grad as eg
     from ..ops import flash_attention as fa
 
     device = resolve_device(device)
@@ -1078,6 +1090,7 @@ def preempt_child(device, small: bool, ckdir: str, out: str,
         signal.pthread_sigmask(signal.SIG_BLOCK, blocked)
 
     fa.reset_counters()
+    eg.reset_counters()
     signal.pthread_sigmask(signal.SIG_BLOCK, blocked)
     scope = mgr.save_on_signal(lambda: (done["step"], ck.capture_train_state(
         model=net, optimizer=opt, dataloader=loader, step=done["step"],
@@ -1104,7 +1117,9 @@ def preempt_child(device, small: bool, ckdir: str, out: str,
               "seconds": time.perf_counter() - t0,
               "flash": {k: fa.kernel_launches[k] + fa.replayed_launches[k]
                         for k in fa.kernel_launches},
-              "plain": dict(fa.plain_calls)}
+              "plain": dict(fa.plain_calls),
+              "embedding_grad": eg.launches(),
+              "embedding_grad_plain": eg.plain_calls}
     with open(out, "w") as f:
         json.dump(result, f)
     return result
@@ -1156,7 +1171,10 @@ def drill_preemption(device, small: bool, root: str, log) -> dict:
            "losses_compared": len(got["losses"]),
            "tensors_compared": len(want["digest"]),
            "flash_reference": want["flash"], "flash_resumed": got["flash"],
-           "plain_reference": want["plain"], "plain_resumed": got["plain"]}
+           "plain_reference": want["plain"], "plain_resumed": got["plain"],
+           "embedding_grad": [want["embedding_grad"], got["embedding_grad"]],
+           "embedding_grad_plain": want["embedding_grad_plain"]
+           + got["embedding_grad_plain"]}
     shutil.rmtree(ref_dir, ignore_errors=True)
     shutil.rmtree(run_dir, ignore_errors=True)
     log(f"[train_chaos] preemption: SIGTERM committed step {at}; the "

@@ -538,3 +538,102 @@ def test_checkpoint_manager_needs_a_card_and_the_loop_is_device_free(
         assert np.isfinite(model.train_batch([x], [x])[0])
     finally:
         device._current = saved
+
+
+_DISTRIBUTED = ["paddle_tpu_torch.distributed",
+                "paddle_tpu_torch.distributed.env",
+                "paddle_tpu_torch.distributed.store",
+                "paddle_tpu_torch.distributed.collective",
+                "paddle_tpu_torch.distributed.communication",
+                "paddle_tpu_torch.distributed.communication.stream",
+                "paddle_tpu_torch.distributed.parallel",
+                "paddle_tpu_torch.distributed.misc",
+                "paddle_tpu_torch.distributed.spawn",
+                "paddle_tpu_torch.distributed.launch",
+                "paddle_tpu_torch.distributed.launch.main",
+                "paddle_tpu_torch.distributed.topology",
+                "paddle_tpu_torch.distributed.sharding_api",
+                "paddle_tpu_torch.distributed.fleet",
+                "paddle_tpu_torch.distributed.fleet.mp_layers",
+                "paddle_tpu_torch.io.dataloader",
+                "paddle_tpu_torch.io.shm_channel",
+                "paddle_tpu_torch.ops.embedding_grad",
+                "paddle_tpu_torch.tools.dist_cases",
+                "paddle_tpu_torch.tools.dist_drills"]
+
+
+def test_distributed_modules_import_no_jax():
+    """The modules of the distributed slice (process groups, collectives,
+    ``DataParallel``, the mesh, the placements, ``spawn``, ``launch``,
+    ``fleet`` and its tensor-parallel layers), the DataLoader's process
+    workers and the embedding backward name no jax or paddle_tpu import,
+    and importing them in a fresh interpreter loads neither; the package
+    walk reaches each of them."""
+    files = [PKG / (m[len("paddle_tpu_torch."):].replace(".", "/") + ".py")
+             for m in _DISTRIBUTED]
+    files = [f if f.exists() else f.with_suffix("") / "__init__.py"
+             for f in files]
+    files.append(PKG / "csrc" / "embedding_grad.cu")
+    assert all(f.exists() for f in files), [f for f in files
+                                            if not f.exists()]
+    bad = [f"{f.name}:{line} {name}" for f in files if f.suffix == ".py"
+           for line, name in _imports(f) if _forbidden(name)]
+    assert not bad, bad
+    probe = ("import importlib, pkgutil, sys\n"
+             f"for n in {_DISTRIBUTED!r}:\n"
+             "    importlib.import_module(n)\n"
+             "import paddle_tpu_torch\n"
+             "assert paddle_tpu_torch.DataParallel is "
+             "paddle_tpu_torch.distributed.DataParallel\n"
+             "bad = [m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'paddle_tpu')]\n"
+             "assert not bad, bad\n"
+             "names = {m.name for m in pkgutil.walk_packages("
+             "paddle_tpu_torch.__path__, 'paddle_tpu_torch.')}\n"
+             f"missing = set({_DISTRIBUTED[1:]!r}) - names\n"
+             "assert not missing, missing\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, cwd=str(REPO), env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_distributed_exports_the_jax_names_of_its_parts():
+    """``paddle_tpu_torch.distributed`` has every name of the JAX
+    package's ``distributed`` but those of the parts not ported yet
+    (ZeRO sharding, pipelines, ring attention, the parameter server,
+    ``rpc``, ``auto_parallel``); ``fleet`` has ``fleet.init`` and the
+    tensor-parallel layers."""
+    import paddle_tpu.distributed as jdist
+    import paddle_tpu_torch.distributed as tdist
+
+    later = {"group_sharded_parallel", "ring_attention", "ps", "rpc",
+             "auto_parallel"}
+    missing = set(jdist.__all__) - later - set(tdist.__all__)
+    assert not missing, missing
+    assert all(hasattr(tdist, n) for n in tdist.__all__)
+    for n in ("init", "distributed_model", "distributed_optimizer",
+              "get_hybrid_communicate_group", "ColumnParallelLinear",
+              "RowParallelLinear", "VocabParallelEmbedding",
+              "ParallelCrossEntropy", "DistributedStrategy", "recompute"):
+        assert hasattr(tdist.fleet, n), n
+
+
+def test_init_parallel_env_needs_a_card_unless_told_cpu(no_cuda):
+    """Without a card ``init_parallel_env`` (and so ``DataParallel``)
+    raises before it starts any process group."""
+    import torch.distributed as tdist
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device
+
+    saved = device._current
+    device._current = None
+    try:
+        with pytest.raises(RuntimeError):
+            paddle.distributed.init_parallel_env()
+        assert not tdist.is_initialized()
+    finally:
+        device._current = saved

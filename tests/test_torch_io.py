@@ -240,6 +240,11 @@ def test_dataset_classes_match():
 
 
 def test_process_workers_wait_for_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1C item 13"):
-        tio.DataLoader(_Squares(tio).ds, num_workers=2,
-                       worker_mode="process")
+    """Their roadmap item (Queue 1C 13(b)) is done: a process-worker
+    loader is built without a raise (its batches are held in
+    tests/test_torch_io_workers.py), and an unknown mode is refused."""
+    loader = tio.DataLoader(_Squares(tio).ds, num_workers=2,
+                            worker_mode="process")
+    assert (loader.worker_mode, loader.num_workers) == ("process", 2)
+    with pytest.raises(ValueError, match="worker_mode"):
+        tio.DataLoader(_Squares(tio).ds, worker_mode="fiber")
