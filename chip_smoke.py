@@ -319,7 +319,28 @@ Phases, in order; any failure exits non-zero before the result line:
    embeddings (Zipf ids) and of one f32 row under all 4,096 lookups of
    a batch all equal with ``FLAGS_cudnn_deterministic`` on, how many
    differ with it off, and an atomic sum of the one-row case, a control
-   that must differ. Prints each part's seconds.
+   that must differ. (d) gpt13 under ZeRO (``group_sharded_parallel``)
+   at ``os``, ``os_g`` and ``p_g_os`` at world size 1 on NCCL, in (a)'s
+   process group, against (a)'s plain step bit for bit (``os`` and
+   ``os_g`` eager then graphed, ``p_g_os`` eager throughout: its gathers
+   re-allocate the parameters' storage). (e) Two ranks over gloo
+   (``tools/zero_pp_drills.py``): GPT-355M at each ZeRO level equal to
+   ``DataParallel`` bit for bit, a rank's state at most 0.55 of it (and
+   ``p_g_os``'s parameters), the control (no all-gather after the
+   update) differing; the ``os_g`` ranks' checkpoint through
+   ``CheckpointManager`` restored whole and into ``p_g_os`` bit for bit,
+   one more step equal to ``DataParallel``'s, a copy missing a shard
+   file refused; each level's bytes after the backward and peak beside
+   ``DataParallel``'s, ``os_g`` holding fewer than ``os`` after the
+   backward; GPT-355M at pp 2 (4 microbatches from the strategy's
+   ``accumulate_steps``), through the model's own forward and backward
+   (``fleet.distributed_model``, GPipe) and through
+   ``pipeline_1f1b_train``, gradients within their tolerance of one
+   model's, each beside a control outside it (one backward send lost;
+   the loss not divided by the microbatch count), and VPP 2's logits.
+   (f) gpt13's whole train state saved and restored through
+   ``CheckpointManager``, timed, bit for bit (GPT-355M's when the disk
+   or host memory is under twice the state). Prints each part's seconds.
 
 The last two lines are the kernels' JSON record (K1-K3 with their
 launches by path: ``train_gpt13``, ``train_llama``,
@@ -329,8 +350,11 @@ launches by path: ``train_gpt13``, ``train_llama``,
 ``train_gpt13_rc_{off,full,dots,dots_no_batch}``, ``flag_flash_on``,
 ``flag_flash_off``, ``generate_llama``, ``generate_gpt``,
 ``train_fit_resume``, ``train_guard``, ``train_preemption``,
-``train_dp_gpt13``, ``train_dp2_gpt355m``, ``train_tp2_gpt355m`` (the
-two-rank paths summed over the ranks); on a graphed path the eager first
+``train_dp_gpt13``, ``train_dp2_gpt355m``, ``train_tp2_gpt355m``,
+``train_zero_{os,os_g,p_g_os}_gpt13``, ``train_zero_{dp,os,os_g,
+p_g_os}_gpt355m``, ``train_pp_1f1b_gpt355m``,
+``train_pp_model_gpt355m``, ``vpp_forward_gpt355m`` (the two-rank paths
+summed over the ranks); on a graphed path the eager first
 step's launches plus the replayed ones; and ``bert_case``, their times at
 BERT's shape; K4's paths add ``serve_fleet_reload``; K4 and K5 record
 the distributed paths' 0; then the embedding backward kernel, which
@@ -3536,14 +3560,17 @@ def phase_train_chaos(torch, card):
 DP13_EAGER, DP13_GRAPHED = 3, 5   # eager steps, then StaticFunction calls
 
 
-def dp13_run(torch, wrap):
+def dp13_run(torch, wrap, level=None):
     """gpt13's bench step (O2 bf16, no master weights, fused CE, B 8, S
     1024) from ``bench.build``'s state: ``DP13_EAGER`` eager steps, then
     ``DP13_GRAPHED`` calls of ``jit.StaticFunction`` (a warm-up, a
     capture, replays), on the bench's batch. With ``wrap`` the model and
     optimizer go through ``fleet.init`` (dp 1: ``init_parallel_env`` on
-    NCCL in this process), ``fleet.distributed_model`` and
-    ``distributed_optimizer``. Returns the losses, host copies of every
+    NCCL in this process), then ``fleet.distributed_model`` and
+    ``distributed_optimizer``, or with ``level`` ZeRO's
+    ``group_sharded_parallel`` at that level (``p_g_os`` runs all its
+    steps eagerly: its gathers re-allocate the parameters' storage, which
+    a graph cannot replay). Returns the losses, host copies of every
     parameter after the eager steps and after the graphed ones, the step
     times and the launch counts of the run."""
     import numpy as np
@@ -3563,8 +3590,13 @@ def dp13_run(torch, wrap):
         strategy = fleet.DistributedStrategy()
         strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1}
         fleet.init(is_collective=True, strategy=strategy)
-        net = fleet.distributed_model(model)
-        opt = fleet.distributed_optimizer(opt)
+        if level is None:
+            net = fleet.distributed_model(model)
+            opt = fleet.distributed_optimizer(opt)
+        else:
+            from paddle_tpu_torch import distributed as dist
+
+            net, opt = dist.group_sharded_parallel(model, opt, level=level)
     train_fn = bench.make_train_fn(net, opt)
     rng = np.random.default_rng(0)
     ids_np = rng.integers(0, cfg.vocab_size, (B, S))
@@ -3580,18 +3612,24 @@ def dp13_run(torch, wrap):
         losses.append(train_fn(ids, labels).detach())
         torch.cuda.synchronize()
         eager_s.append(time.perf_counter() - t0)
-    after_eager = [p.detach().cpu() for p in model.parameters()]
-    step = jit.StaticFunction(train_fn, observe=[net, opt], warmup=False)
-    args = (paddle.to_tensor(ids_np, place="cuda"),
-            paddle.to_tensor(labels_np, place="cuda"))
+    after_eager = _params_whole(model, net)
+    if level == "p_g_os":
+        step = train_fn
+        args = (ids, labels)
+    else:
+        step = jit.StaticFunction(train_fn, observe=[net, opt],
+                                  warmup=False)
+        args = (paddle.to_tensor(ids_np, place="cuda"),
+                paddle.to_tensor(labels_np, place="cuda"))
     graphed_s = []
     for _ in range(DP13_GRAPHED):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses.append(step(*args)._value.detach())
+        out = step(*args)
+        losses.append(getattr(out, "_value", out).detach())
         torch.cuda.synchronize()
         graphed_s.append(time.perf_counter() - t0)
-    after_graphed = [p.detach().cpu() for p in model.parameters()]
+    after_graphed = _params_whole(model, net)
     launches = {k: fa.kernel_launches[k] + fa.replayed_launches[k]
                 for k in fa.KERNELS}
     rec = {"losses": [float(x) for x in losses], "after_eager": after_eager,
@@ -3604,51 +3642,74 @@ def dp13_run(torch, wrap):
            "adamw_launches": fw.kernel_launches,
            "embedding_grad_launches": eg.launches(),
            "embedding_grad_plain": eg.plain_calls,
-           "compile_counts": step.compile_counts()}
+           "compile_counts": getattr(step, "compile_counts", dict)()}
     if wrap:
         rec["comm"] = net.comm_stats()
+    if level is not None:
+        rec["state_bytes"] = sum(v.numel() * v.element_size()
+                                 for accs in opt._accumulators.values()
+                                 for v in accs.values())
+        rec["resident_param_bytes"] = net.resident_parameter_bytes()
     del step, train_fn, net, model, opt
     return rec
 
 
+def _params_whole(model, net):
+    """Host copies of every parameter; a ``p_g_os`` model's blocks
+    gathered whole (at world size 1, the block is the parameter)."""
+    sharder = getattr(net, "_sharder", None)
+    if sharder is None:
+        return [p.detach().cpu() for p in model.parameters()]
+    return [sharder.shards.get(id(p), p).detach().cpu()
+            for p in model.parameters()]
+
+
 def phase_dp_gpt13(torch, card):
-    """Part 1 of the distributed phase: gpt13 under ``DataParallel`` at
-    world size 1 on NCCL (``dp13_run``) against the plain step from the
-    same state and batch: every loss and every parameter equal bit for
-    bit after the eager steps and after the graphed ones."""
+    """Part 1 of the distributed phase: gpt13 under ``DataParallel``, then
+    under ZeRO at each level, at world size 1 on NCCL (``dp13_run``)
+    against the plain step from the same state and batch: every loss and
+    every parameter equal bit for bit after the eager steps and after the
+    graphed ones."""
     import gc
 
     from paddle_tpu_torch import distributed as dist
-    from paddle_tpu_torch.distributed import parallel
 
     t0 = time.perf_counter()
     plain = dp13_run(torch, False)
     gc.collect()
     torch.cuda.empty_cache()
-    os.environ["MASTER_ADDR"] = "127.0.0.1"
-    os.environ["MASTER_PORT"] = str(parallel._free_port())
     try:
         dp = dp13_run(torch, True)
     except RuntimeError as e:
         fail(f"distributed: gpt13 under DataParallel: {e}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero = {}
+    for level in ZERO_LEVELS:
+        try:
+            zero[level] = dp13_run(torch, True, level)
+        except RuntimeError as e:
+            fail(f"distributed: gpt13 under ZeRO {level}: {e}")
+        gc.collect()
+        torch.cuda.empty_cache()
     backend = dist.get_backend()
     dist.destroy_process_group()
-    for k in ("MASTER_ADDR", "MASTER_PORT"):
-        os.environ.pop(k, None)
     gc.collect()
     torch.cuda.empty_cache()
     if backend != "NCCL":
         fail(f"distributed: gpt13 DataParallel ran on {backend}, not NCCL")
-    if dp["losses"] != plain["losses"]:
-        fail(f"distributed: DataParallel losses {dp['losses']} != the plain "
-             f"step's {plain['losses']}")
-    for when in ("after_eager", "after_graphed"):
-        bad = sum(not torch.equal(a, b)
-                  for a, b in zip(dp[when], plain[when]))
-        if bad or len(dp[when]) != len(plain[when]):
-            fail(f"distributed: {bad} parameters differ {when} from the "
-                 "plain step's")
-    for r in (plain, dp):
+    for name, r in [("DataParallel", dp)] + [(f"ZeRO {lv}", zero[lv])
+                                             for lv in ZERO_LEVELS]:
+        if r["losses"] != plain["losses"]:
+            fail(f"distributed: {name} losses {r['losses']} != the plain "
+                 f"step's {plain['losses']}")
+        for when in ("after_eager", "after_graphed"):
+            bad = sum(not torch.equal(a, b)
+                      for a, b in zip(r[when], plain[when]))
+            if bad or len(r[when]) != len(plain[when]):
+                fail(f"distributed: {name}: {bad} parameters differ {when} "
+                     "from the plain step's")
+    for r in (plain, dp, *zero.values()):
         if not all(v > 0 for v in r["flash_launches"].values()) \
                 or any(r["flash_plain"].values()):
             fail(f"distributed: gpt13 flash counts {r['flash_launches']}, "
@@ -3676,6 +3737,14 @@ def phase_dp_gpt13(torch, card):
            "paged_launches": dp["paged_launches"],
            "adamw_launches": dp["adamw_launches"],
            "embedding_grad_launches": dp["embedding_grad_launches"],
+           "zero": {lv: {k: z[k] for k in (
+               "eager_step_ms", "graphed_step_ms", "flash_launches",
+               "paged_launches", "adamw_launches", "embedding_grad_launches",
+               "compile_counts", "state_bytes", "resident_param_bytes")}
+               | {"all_reduces_per_step": z["comm"]["all_reduces"]
+                  / z["comm"]["reductions"],
+                  "params_compared": len(z["after_graphed"])}
+               for lv, z in zero.items()},
            "seconds": time.perf_counter() - t0}
     log("distributed dp_gpt13: " + json.dumps(rec))
     log(f"distributed dp_gpt13 ({card}): step ms plain eager "
@@ -3685,6 +3754,93 @@ def phase_dp_gpt13(torch, card):
         f"{rec['dp_graphed_step_ms']:.2f}; {rec['buckets']} buckets, "
         f"{rec['all_reduces_per_step']:.0f} all_reduces and "
         f"{rec['bytes_reduced_per_step']:.0f} bytes a step")
+    log(f"distributed zero_gpt13 ({card}): step ms "
+        + ", ".join(f"{lv} eager {z['eager_step_ms']:.2f} "
+                    + ("eager" if lv == "p_g_os" else "graphed")
+                    + f" {z['graphed_step_ms']:.2f}"
+                    for lv, z in rec["zero"].items())
+        + "; losses and all parameters equal to the plain step's")
+    return rec
+
+
+ZERO_LEVELS = ("os", "os_g", "p_g_os")
+
+
+def state_roundtrip(torch, card):
+    """Part 4 of the distributed phase: gpt13's whole train state (its
+    bf16 parameters and AdamW's moments after one step, at world size 1)
+    saved through ``CheckpointManager`` and restored whole on the card,
+    timed, every leaf bit for bit. The free disk under ``TMPDIR`` and the
+    host's available memory are read first; either under twice the
+    state's bytes takes GPT-355M's state instead (O2 with master weights,
+    ``tools/dist_drills.py``), and the record says why."""
+    import gc
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.tools import dist_drills
+
+    cfg, B, S, _ = bench.SETUPS["gpt13"](False)
+    n_params = 1313.7e6   # gpt13's parameters; bf16, two bf16 moments
+    need = 2 * n_params * (2 + 2 * 2)
+    tmp = tempfile.gettempdir()
+    free_disk = shutil.disk_usage(tmp).free
+    with open("/proc/meminfo") as f:
+        avail = int(next(ln for ln in f if ln.startswith("MemAvailable"))
+                    .split()[1]) * 1024
+    rec = {"phase": "state_roundtrip", "card": card, "tmpdir": tmp,
+           "free_disk_bytes": free_disk, "mem_available_bytes": avail,
+           "needed_bytes": need, "model": "gpt13"}
+    if free_disk < need or avail < need:
+        rec["model"] = "gpt355m"
+        rec["reason"] = (f"free disk {free_disk} or available memory "
+                         f"{avail} under twice gpt13's state ({need})")
+        model, opt = dist_drills._decorate(*dist_drills._build(
+            dist_drills.gpt355m_config(False), "cuda"))
+        S = model.config.max_position_embeddings
+    else:
+        model, opt = bench.build(cfg, "cuda", bench.MASTER_WEIGHT["gpt13"])
+    rng = __import__("numpy").random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, model.config.vocab_size,
+                                        (2, S))).cuda()
+    bench.make_train_fn(model, opt)(ids, ids.roll(-1, 1))
+    state = {"model": model.state_dict(), "opt": opt.state_dict()}
+    flat = [v for v in state["model"].values()] + [
+        v for v in state["opt"].values() if hasattr(v, "numel")]
+    rec["state_bytes"] = sum(v.numel() * v.element_size() for v in flat)
+    rec["leaves"] = len(flat)
+    root = tempfile.mkdtemp(prefix="state_roundtrip_")
+    try:
+        mgr = CheckpointManager(root, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(1, state)
+        rec["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, step = mgr.restore()
+        torch.cuda.synchronize()
+        rec["restore_s"] = time.perf_counter() - t0
+        bad = sum(not torch.equal(back["model"][k]._value, v)
+                  for k, v in state["model"].items())
+        bad += sum(not torch.equal(back["opt"][k]._value, v)
+                   for k, v in state["opt"].items() if hasattr(v, "numel"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["differing"] = bad
+    del back, state, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"distributed: {bad} leaves of the restored state differ")
+    rec["save_gb_per_s"] = rec["state_bytes"] / rec["save_s"] / 1e9
+    rec["restore_gb_per_s"] = rec["state_bytes"] / rec["restore_s"] / 1e9
+    log("distributed state_roundtrip: " + json.dumps(rec))
+    log(f"distributed state_roundtrip ({card}): {rec['model']} "
+        f"{rec['state_bytes']} bytes in {rec['leaves']} leaves, save "
+        f"{rec['save_s']:.2f} s, restore {rec['restore_s']:.2f} s, "
+        "bit for bit")
     return rec
 
 
@@ -3863,7 +4019,7 @@ def phase_distributed(torch, card):
     each rank, no child left holding the card); (3) the deterministic
     embedding backward (``phase_embedding_grad``). Prints each part's
     seconds."""
-    from paddle_tpu_torch.tools import dist_drills
+    from paddle_tpu_torch.tools import dist_drills, zero_pp_drills
 
     t0 = time.perf_counter()
     dp13 = phase_dp_gpt13(torch, card)
@@ -3876,9 +4032,36 @@ def phase_distributed(torch, card):
     t2 = time.perf_counter()
     emb = phase_embedding_grad(torch, card)
     t3 = time.perf_counter()
-    log(f"distributed phase ({card}): dp_gpt13 {t1 - t0:.1f} s, two ranks "
-        f"{t2 - t1:.1f} s, embedding_grad {t3 - t2:.1f} s")
-    return {"dp_gpt13": dp13, "drills": drills, "embedding_grad": emb}
+    try:
+        zero_pp = zero_pp_drills.run("cuda", small=False, log=log)
+    except (zero_pp_drills.DrillFailed, RuntimeError) as e:
+        fail(f"distributed: ZeRO and pipeline drills: {e}")
+    log("distributed zero_pp: " + json.dumps(zero_pp, default=str))
+    zp, zz = zero_pp["pp"], zero_pp["zero"]
+    mem = {lv: zz[lv]["memory"] for lv in ("os", "os_g", "p_g_os")}
+    mem["dp"] = zz["dp_memory"]
+    log(f"distributed zero_pp ({card}): two ranks of GPT-355M, ZeRO os / "
+        f"os_g / p_g_os equal to DataParallel bit for bit, state ratio "
+        f"{zz['os']['state_ratio']:.4f}, p_g_os parameters "
+        f"{zz['p_g_os']['param_ratio']:.4f}; rank 0's bytes after the "
+        f"backward / peak, above those before its model: " + ", ".join(
+            f"{k} {v['after_backward']} / {v['peak']}"
+            for k, v in mem.items()) + "; checkpoint save "
+        f"{zz['save_s']:.2f} s, restores bit for bit; pp 2 gradients at "
+        f"most {zp['model']['grads_rel']['max']:.4f} (the model, GPipe), "
+        f"{zp['1F1B']['grads_rel']['max']:.4f} (1F1B) by norm, the "
+        f"controls {zp['model_control']['grads_rel']['max']:.3f} (largest,"
+        f" one send lost) and {zp['control']['grads_rel']['min']:.3f} "
+        f"(smallest, the loss undivided); VPP logits "
+        f"{zp['vpp']['logits_rel_norm']:.4f}")
+    t4 = time.perf_counter()
+    roundtrip = state_roundtrip(torch, card)
+    t5 = time.perf_counter()
+    log(f"distributed phase ({card}): dp_gpt13 and zero_gpt13 {t1 - t0:.1f}"
+        f" s, two ranks {t2 - t1:.1f} s, embedding_grad {t3 - t2:.1f} s, "
+        f"zero_pp {t4 - t3:.1f} s, state_roundtrip {t5 - t4:.1f} s")
+    return {"dp_gpt13": dp13, "drills": drills, "embedding_grad": emb,
+            "zero_pp": zero_pp, "state_roundtrip": roundtrip}
 
 
 def main():
@@ -3939,7 +4122,11 @@ def main():
     distributed = phase_distributed(torch, card)
     dp13 = distributed["dp_gpt13"]
     dist_flash = {"train_dp_gpt13": dp13["flash_launches"],
-                  **distributed["drills"]["flash_launches"]}
+                  **distributed["drills"]["flash_launches"],
+                  **{f"train_zero_{lv}_gpt13": z["flash_launches"]
+                     for lv, z in dp13["zero"].items()}}
+    # the two-rank ZeRO and pipeline paths (summed over the ranks)
+    zero_pp = distributed["zero_pp"]["launches"]
     gen_launches = {f"generate_{m}": rec["launches"]
                     for m, rec in generate.items()}
     head = paged["a_decode_f32q_bf16kv"]
@@ -3969,8 +4156,11 @@ def main():
         | gen_launches
         # the distributed phase's training paths: none expected
         | {"train_dp_gpt13": dp13["paged_launches"]}
+        | {f"train_zero_{lv}_gpt13": z["paged_launches"]
+           for lv, z in dp13["zero"].items()}
         | {path: n["paged_attention"]
-           for path, n in distributed["drills"]["flash_launches"].items()},
+           for path, n in distributed["drills"]["flash_launches"].items()}
+        | {path: n["paged_attention"] for path, n in zero_pp.items()},
         # NaN in one slot's live K, V or scale rows, per phase-3a case:
         # non-finite on that slot's rows only (the kinds held)
         "nan_confined": {name: rec["nan_confined"]
@@ -4011,7 +4201,10 @@ def main():
             # the distributed phase: gpt13 under DataParallel at world
             # size 1 (eager and graphed), GPT-355M data- and
             # tensor-parallel on two ranks (summed over the ranks)
-            | {path: n[kname] for path, n in dist_flash.items()},
+            | {path: n[kname] for path, n in dist_flash.items()}
+            # ZeRO at world 1 (above), the two-rank ZeRO, pipeline (1F1B,
+            # the model's GPipe) and VPP paths, summed over the ranks
+            | {path: n[kname] for path, n in zero_pp.items()},
             "max_abs_err": flash13["max_abs_err"][kname],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -4037,8 +4230,11 @@ def main():
         "launches_by_path": {"adamw_path": adamw_launches,
                              "train_guard": chaos["fused_adamw_launches"],
                              "train_dp_gpt13": dp13["adamw_launches"]}
+        | {f"train_zero_{lv}_gpt13": z["adamw_launches"]
+           for lv, z in dp13["zero"].items()}
         | {path: n["fused_adamw"]
-           for path, n in distributed["drills"]["flash_launches"].items()},
+           for path, n in distributed["drills"]["flash_launches"].items()}
+        | {path: n["fused_adamw"] for path, n in zero_pp.items()},
         "max_abs_err": k5["max_abs_err"],
         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
@@ -4056,8 +4252,11 @@ def main():
         "launches": EMB_BY_PATH["train_gpt13"],
         "launches_by_path": dict(EMB_BY_PATH)
         | {"train_dp_gpt13": dp13["embedding_grad_launches"]}
+        | {f"train_zero_{lv}_gpt13": z["embedding_grad_launches"]
+           for lv, z in dp13["zero"].items()}
         | {path: n["embedding_grad"]
            for path, n in distributed["drills"]["flash_launches"].items()}
+        | {path: n["embedding_grad"] for path, n in zero_pp.items()}
         # the repeats of the distributed phase alone (flag on)
         | {"embedding_repeats": k6["launches"]},
         **{k: k6["kernel"][k] for k in ("max_abs_err", "ms", "plain_ms",

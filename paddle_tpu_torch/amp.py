@@ -265,12 +265,11 @@ class GradScaler:
         returns a 0-d bool: some grad is not finite."""
         inv = 1.0 / self._scale
         found = torch.zeros((), dtype=torch.bool, device=self._scale.device)
-        for param in optimizer._parameter_list:
-            g = getattr(param, "_value", param).grad
-            if g is None:
-                continue
+        for g in optimizer._grads():
             g.mul_(inv.to(g.dtype))
             found = found | ~torch.isfinite(g.float()).all()
+        if optimizer._zero is not None:  # every rank skips alike
+            found = optimizer._zero.any_rank(found)
         return found
 
     def step(self, optimizer) -> None:

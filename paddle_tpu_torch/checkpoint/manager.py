@@ -43,8 +43,22 @@ again before the publish rename (``times=1`` kills the marker,
 live in ``distributed.checkpoint``. Every phase is drilled by
 ``tools/train_chaos.py`` and ``tests/test_torch_checkpoint_manager.py``.
 
-Single process: the JAX module's multi-host shared scratch directory
-waits for the sharded trainer (ROADMAP Queue 1C). Six metrics live in
+Several ranks (a ``torch.distributed`` job of more than one rank):
+every rank writes its blocks (``distributed.checkpoint``: ZeRO's slices,
+a pipeline stage's rows, DTensor blocks; replicated leaves by rank 0)
+into ONE shared scratch directory, ``step_<N>.tmp-shared``, and only
+process 0 commits, as the JAX manager does. At the start of a save
+process 0 removes what a crashed save of the same step left in that
+directory and the ranks meet (``torch.distributed.barrier``), so every
+manifest found there afterwards is this save's. The barrier before the
+commit is the other ranks' manifests: process 0 waits until
+``checkpoint.metadata.json.p<r>`` of every rank r is in the scratch
+directory (each rank writes its own last, after its shards), then writes
+``scalars.json``, the COMMIT marker and renames. Process 0's COMMIT
+digests cover the files it wrote itself, as in the JAX package.
+``process_index`` defaults to the job's rank.
+``restore(shardings=, target=)`` places each leaf as
+``distributed.checkpoint.load_state_dict`` does. Six metrics live in
 this package's registry: ``paddle_tpu_ckpt_save_seconds{mode}``,
 ``paddle_tpu_ckpt_last_committed_step``,
 ``paddle_tpu_ckpt_saves_total{result}``, ``paddle_tpu_ckpt_corrupt_total``,
@@ -155,6 +169,40 @@ def _drain_pending(timeout_s: float) -> None:
             t.join(max(0.0, deadline - time.monotonic()))
 
 
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() \
+        and dist.is_initialized() else 1
+
+
+def _fresh_shared(tmpdir: str, pidx: int) -> None:
+    """The shared scratch made anew for this save: process 0 removes what
+    a crashed save of the same step left there (its manifests among it)
+    and every rank waits for it before writing (module docstring)."""
+    import torch.distributed as dist
+
+    if pidx == 0:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    dist.barrier()  # after it, no rank reaps or clears scratch
+    os.makedirs(tmpdir, exist_ok=True)
+
+
+def _await_manifests(tmpdir: str, world: int,
+                     timeout_s: float = 600.0) -> None:
+    """Process 0's barrier before a commit: every other rank's manifest
+    in the shared scratch directory (module docstring)."""
+    deadline = time.monotonic() + timeout_s
+    names = [f"{dist_ckpt._META}.p{r}" for r in range(1, world)]
+    while not all(os.path.isfile(os.path.join(tmpdir, n)) for n in names):
+        if time.monotonic() > deadline:
+            missing = [n for n in names
+                       if not os.path.isfile(os.path.join(tmpdir, n))]
+            raise TimeoutError(f"checkpoint commit: {missing} not in "
+                               f"{tmpdir} after {timeout_s:.0f}s")
+        time.sleep(0.01)
+
+
 def _file_digest(path: str) -> Tuple[int, int]:
     """(size, crc32) streamed in 1 MiB chunks."""
     size, crc = 0, 0
@@ -242,12 +290,22 @@ class CheckpointManager:
                 f"checkpoint steps are immutable once published")
         self._clean_stale_tmp()
         arrays, scalars = _split_state(state)
-        pidx = self._process_index or 0
+        # several ranks: every one writes into ONE shared scratch name (a
+        # nonce of its own would strand its shards in a directory the
+        # commit never publishes) and process 0 commits
+        world = _world_size()
+        multi = world > 1
+        pidx = (self._process_index if self._process_index is not None
+                else dist_ckpt._process_index())
+        nonce = "shared" if multi else os.urandom(4).hex()
         tmpdir = os.path.join(self.directory,
-                              f"{_step_name(step)}.tmp-{os.urandom(4).hex()}")
+                              f"{_step_name(step)}.tmp-{nonce}")
         with _LIVE_TMP_LOCK:
             _LIVE_TMP.add(tmpdir)
-        os.makedirs(tmpdir)
+        if multi:
+            _fresh_shared(tmpdir, pidx)
+        else:
+            os.makedirs(tmpdir)
         t0 = time.perf_counter()
         mode = "async" if async_save else "sync"
 
@@ -256,6 +314,8 @@ class CheckpointManager:
                 inner.wait()  # re-raises the shard writer's failure
                 if pidx != 0:
                     return  # workers publish shards only; process 0 commits
+                if multi:
+                    _await_manifests(tmpdir, world)
                 digests = dict(inner.digests)
                 digests[_SCALARS_FILE] = self._write_scalars(tmpdir, scalars)
                 with self._commit_lock():
@@ -283,8 +343,7 @@ class CheckpointManager:
             # to end.
             try:
                 inner = dist_ckpt.save_state_dict(
-                    arrays, tmpdir, async_save=True,
-                    process_index=self._process_index)
+                    arrays, tmpdir, async_save=True, process_index=pidx)
             except BaseException:
                 _M_SAVES.labels(result="failed").inc()
                 with _LIVE_TMP_LOCK:
@@ -294,8 +353,7 @@ class CheckpointManager:
 
         try:
             inner = dist_ckpt.save_state_dict(
-                arrays, tmpdir, async_save=False,
-                process_index=self._process_index)
+                arrays, tmpdir, async_save=False, process_index=pidx)
         except BaseException:
             _M_SAVES.labels(result="failed").inc()
             with _LIVE_TMP_LOCK:
@@ -409,10 +467,17 @@ class CheckpointManager:
             return
         with _LIVE_TMP_LOCK:
             live = set(_LIVE_TMP)
+        latest = self.latest_step()
         for name in entries:
             path = os.path.join(self.directory, name)
             if not _TMP_RE.match(name) or path in live:
                 continue
+            if name.endswith(".tmp-shared"):
+                # may be live in another rank: reaped only once a commit
+                # has moved past its step (no rank can still write it)
+                m = _STEP_RE.match(name.split(".tmp-")[0])
+                if latest is None or (m and int(m.group(1)) > latest):
+                    continue
             shutil.rmtree(path, ignore_errors=True)
 
     def _gc(self) -> None:
@@ -463,12 +528,16 @@ class CheckpointManager:
             f"[paddle_tpu_torch.checkpoint] quarantined step {step} "
             f"({reason}) -> {dst}\n")
 
-    def restore(self, step: Optional[int] = None) -> Tuple[Dict, int]:
+    def restore(self, step: Optional[int] = None,
+                shardings: Optional[Dict] = None,
+                target: Optional[Dict] = None) -> Tuple[Dict, int]:
         """Load a committed step (newest by default), verifying checksums.
 
         A step that fails verification is quarantined and the next-newest
         one tried; returns ``(state, step)`` or raises
-        :class:`CheckpointNotFoundError` when nothing valid remains."""
+        :class:`CheckpointNotFoundError` when nothing valid remains.
+        ``shardings``/``target`` place each leaf as
+        ``distributed.checkpoint.load_state_dict`` does."""
         steps = self.all_steps()
         if step is not None:
             if int(step) not in steps:
@@ -484,7 +553,7 @@ class CheckpointManager:
                 self._quarantine(s, reason)
                 fell_back = True
                 continue
-            state = self._load_dir(self.step_path(s))
+            state = self._load_dir(self.step_path(s), shardings, target)
             if fell_back:
                 _M_FALLBACK.inc()
             return state, s
@@ -492,8 +561,9 @@ class CheckpointManager:
             f"no valid committed checkpoint in {self.directory}"
             + (" (newest candidates were quarantined)" if fell_back else ""))
 
-    def _load_dir(self, dirpath: str) -> Dict:
-        loaded = dist_ckpt.load_state_dict(dirpath, device=self.device)
+    def _load_dir(self, dirpath: str, shardings=None, target=None) -> Dict:
+        loaded = dist_ckpt.load_state_dict(dirpath, shardings=shardings,
+                                           target=target, device=self.device)
         flat = _flatten(loaded)
         scalars_path = os.path.join(dirpath, _SCALARS_FILE)
         if os.path.isfile(scalars_path):
@@ -501,11 +571,13 @@ class CheckpointManager:
                 flat.update(json.load(f))
         return _unflatten(flat)
 
-    def restore_or_init(self, default: Any = None) -> RestoreResult:
+    def restore_or_init(self, default: Any = None,
+                        shardings: Optional[Dict] = None,
+                        target: Optional[Dict] = None) -> RestoreResult:
         """One-call auto-resume: the newest valid committed state, or
         ``default`` when the directory holds nothing restorable."""
         try:
-            state, step = self.restore()
+            state, step = self.restore(shardings=shardings, target=target)
         except CheckpointNotFoundError:
             return RestoreResult(default, None, False)
         return RestoreResult(state, step, True)

@@ -11,10 +11,13 @@ the collectives and groups (``collective``, ``communication``),
 ``shard_map_fn`` (``parallel``), the mesh of ranks with real process
 groups per axis (``topology``), the placements on DTensor
 (``sharding_api``), ``spawn``, ``launch``, ``fleet`` with its Megatron
-tensor-parallel layers, and the single-process sharded checkpoint files
-(``checkpoint``). Not ported yet: ZeRO sharding
-(``group_sharded_parallel``), pipelines, ring attention, the parameter
-server, ``rpc`` and ``auto_parallel``.
+tensor-parallel layers and pipelines (``PipelineLayer``,
+``PipelineParallel``, 1F1B and VPP over point-to-point sends), ZeRO
+(``group_sharded_parallel`` at ``os``, ``os_g`` and ``p_g_os``,
+``sharding``), and the sharded checkpoint files that every rank writes
+its blocks into and that load under another layout (``checkpoint``).
+Not ported yet: sequence and expert parallelism, ring attention, the
+parameter server, ``rpc`` and ``auto_parallel``.
 """
 from . import checkpoint  # noqa: F401
 from . import communication  # noqa: F401
@@ -41,6 +44,7 @@ from .sharding_api import (  # noqa: F401
     Partial, PartitionSpec, Placement, ProcessMesh, Replicate, Shard,
     dtensor_from_fn, reshard, shard_layer, shard_tensor,
 )
+from .sharding import group_sharded_parallel  # noqa: F401
 from .spawn import spawn  # noqa: F401
 from .store import TCPStore  # noqa: F401
 from .topology import (  # noqa: F401
@@ -56,7 +60,8 @@ __all__ = [
     "ProcessMesh", "Shard", "Replicate", "Partial", "Placement",
     "PartitionSpec", "shard_tensor", "reshard", "shard_layer",
     "dtensor_from_fn", "CommunicateTopology", "HybridCommunicateGroup",
-    "create_mesh", "get_mesh", "set_mesh", "fleet", "TCPStore", "spawn",
+    "create_mesh", "get_mesh", "set_mesh", "fleet", "group_sharded_parallel",
+    "TCPStore", "spawn",
     "communication", "launch", "io", "checkpoint",
     "ParallelMode", "is_initialized", "is_available",
     "destroy_process_group", "get_backend", "alltoall_single",

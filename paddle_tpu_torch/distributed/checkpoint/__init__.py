@@ -15,10 +15,24 @@ its raw bytes as ``uint8`` (the ``int16`` view's bytes) under the
 manifest dtype ``"bfloat16"``, and read back with
 ``torch.frombuffer(...).view(torch.bfloat16)``, bit for bit.
 
-Single process only: this package writes one shard per leaf (process 0)
-and assembles any shard list it reads; resharding on load (the JAX
-module's ``shardings=``/``target=``) waits for the sharded trainer
-(ROADMAP Queue 1C).
+Several processes write one checkpoint as the JAX package's do: each
+rank writes the blocks it owns, replica 0 of each, with their global
+``index`` (``<key>.p<rank>.s<i>.npy``), then its manifest (rank 0
+``checkpoint.metadata.json``, rank r ``checkpoint.metadata.json.p<r>``).
+A leaf is sharded when it is a :class:`ShardedLeaf` (ZeRO's slices,
+``distributed/sharding.py``; a pipeline stage's rows of a stacked
+``[L, ...]`` parameter, ``fleet/pipeline_schedule.py``) or a DTensor
+(``sharding_api.shard_tensor``, its block and replica from its mesh and
+placements); any other tensor is replicated, written by process 0 alone.
+
+:func:`load_state_dict` merges every manifest and gives each rank the
+block its placement asks for, from ``shardings=`` (flat or nested: a
+``(ProcessMesh or Mesh, [Shard/Replicate, ...])`` pair, a DTensor, or a
+:class:`ShardedLeaf` such as ``sharding.zero_placement``'s) or
+``target=`` (a state dict whose values carry their placement), reading
+only the shard files that overlap that block; a block any part of which
+no shard covers is refused with the JAX package's "holes" message. A
+leaf without a placement comes back whole.
 
 Async saves copy every leaf to host memory before :func:`save_state_dict`
 returns (a tensor on the card with one ``.cpu()``; one on the CPU into a
@@ -48,7 +62,7 @@ from ...tensor import Tensor
 
 __all__ = [
     "save_state_dict", "load_state_dict", "AsyncHandle", "CheckpointError",
-    "wait",
+    "ShardedLeaf", "wait",
 ]
 
 _META = "checkpoint.metadata.json"
@@ -165,14 +179,87 @@ def _safe(key: str) -> str:
     return key.replace(_SEP, "__").replace("/", "_").replace(" ", "_")
 
 
-def _leaf(value):
-    """(torch tensor or numpy array, manifest dtype name) of a leaf."""
+class ShardedLeaf:
+    """This rank's block of a global tensor of shape ``shape``: ``local``
+    holds the block ``index`` (``[[start, stop], ...]`` a dim) and
+    ``replica`` says which copy of it this rank has (0 writes it). With
+    ``local=None`` it is a placement: the block a load should give."""
+
+    def __init__(self, local, shape, index, replica: int = 0):
+        self.local = local
+        self.shape = tuple(int(d) for d in shape)
+        self.index = [[int(a), int(b)] for a, b in index]
+        self.replica = int(replica)
+
+    @property
+    def dtype(self):
+        return getattr(self.local, "dtype", None)
+
+    def __repr__(self):
+        return (f"ShardedLeaf(shape={self.shape}, index={self.index}, "
+                f"replica={self.replica})")
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def _dtensor(value):
+    """``value``'s DTensor (a port Tensor's too), or None."""
+    v = getattr(value, "_value", value)
+    return v if hasattr(v, "to_local") and hasattr(v, "placements") \
+        else None
+
+
+def _dtensor_block(shape, mesh, placements):
+    """(index, replica) of this rank's block of a DTensor of global
+    ``shape`` over ``mesh`` (a ``DeviceMesh``) with torch placements."""
+    from torch.distributed.tensor import Shard as TS
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    local, offset = compute_local_shape_and_global_offset(
+        tuple(shape), mesh, placements)
+    coord = mesh.get_coordinate()
+    replica = 0
+    for i, pl in enumerate(placements):
+        if not isinstance(pl, TS) and coord[i] != 0:
+            replica = 1
+    return [[o, o + n] for o, n in zip(offset, local)], replica
+
+
+def _records(value):
+    """``(shape, dtype name, [(index, data), ...])``: the blocks of a
+    leaf this process writes (module docstring)."""
+    if isinstance(value, ShardedLeaf):
+        data = value.local.detach() if isinstance(value.local, torch.Tensor) \
+            else np.asarray(value.local)
+        dtype = _dtype_name(data) if isinstance(data, torch.Tensor) \
+            else str(data.dtype)
+        return value.shape, dtype, ([(value.index, data)]
+                                    if value.replica == 0 else [])
+    dt = _dtensor(value)
+    if dt is not None:
+        index, replica = _dtensor_block(dt.shape, dt.device_mesh,
+                                        dt.placements)
+        local = dt.to_local().detach()
+        return (tuple(dt.shape), _dtype_name(local),
+                [(index, local)] if replica == 0 else [])
     value = getattr(value, "_value", value)
     if isinstance(value, torch.Tensor):
-        name = str(value.dtype).replace("torch.", "")
-        return value.detach(), ("bool" if name == "bool" else name)
-    arr = np.asarray(value)
-    return arr, str(arr.dtype)
+        data, dtype = value.detach(), _dtype_name(value)
+    else:
+        data = np.asarray(value)
+        dtype = str(data.dtype)
+    return tuple(data.shape), dtype, [([[0, int(d)] for d in data.shape],
+                                       data)]
+
+
+def _process_index() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
 
 
 def _host(value, snapshot: bool) -> np.ndarray:
@@ -197,21 +284,26 @@ def _host(value, snapshot: bool) -> np.ndarray:
 
 def save_state_dict(state_dict: Dict, path: str, async_save: bool = False,
                     process_index: Optional[int] = None) -> "AsyncHandle":
-    """Persist a (nested) dict of Tensors, torch tensors and arrays, one
-    file per leaf, the manifest last (module docstring)."""
+    """Persist a (nested) dict of Tensors, torch tensors, arrays,
+    :class:`ShardedLeaf`s and DTensors: this process's blocks (module
+    docstring), one file each, then its manifest. ``process_index``
+    defaults to the rank in the ``torch.distributed`` job, else 0."""
     os.makedirs(path, exist_ok=True)
-    pidx = 0 if process_index is None else int(process_index)
+    pidx = _process_index() if process_index is None else int(process_index)
     flat = {k: v for k, v in _flatten(state_dict).items() if v is not None}
     meta: Dict[str, Any] = {"leaves": {}, "format": 1}
-    writes = []  # (file path, leaf value)
+    writes = []  # (file path, block value)
     for key, value in flat.items():
-        value, dtype = _leaf(value)
-        fname = f"{_safe(key)}.p{pidx}.s0.npy"
-        meta["leaves"][key] = {
-            "shape": list(value.shape), "dtype": dtype,
-            "shards": [{"file": fname,
-                        "index": [[0, int(d)] for d in value.shape]}]}
-        writes.append((os.path.join(path, fname), value))
+        shape, dtype, blocks = _records(value)
+        if not isinstance(value, ShardedLeaf) and _dtensor(value) is None \
+                and pidx != 0:
+            blocks = []  # a replicated leaf: process 0 writes it
+        entry = {"shape": list(shape), "dtype": dtype, "shards": []}
+        for i, (index, data) in enumerate(blocks):
+            fname = f"{_safe(key)}.p{pidx}.s{i}.npy"
+            entry["shards"].append({"file": fname, "index": index})
+            writes.append((os.path.join(path, fname), data))
+        meta["leaves"][key] = entry
     manifest = os.path.join(path, _META if pidx == 0 else f"{_META}.p{pidx}")
 
     if async_save:
@@ -263,51 +355,122 @@ _TORCH_DTYPES = {
 }
 
 
-def _decode(arr: np.ndarray, dtype: str, shape) -> torch.Tensor:
-    """A shard file's array as a torch tensor of the manifest's dtype:
-    bf16 (or any dtype written as raw bytes) from its ``uint8`` bytes."""
+def _read(path: str, fname: str, dtype: str, index, want):
+    """Rows ``want`` (slices, relative to the shard) of one shard file as
+    a CPU tensor of ``dtype``; memory-mapped, so only they are read. bf16
+    (or any dtype written as raw bytes) is decoded from its ``uint8``
+    bytes."""
+    arr = np.load(os.path.join(path, fname), mmap_mode="r",
+                  allow_pickle=False)
+    shape = tuple(b - a for a, b in index)
     if arr.dtype == np.uint8 and dtype != "uint8":
-        raw = torch.from_numpy(np.ascontiguousarray(arr).reshape(-1))
-        return raw.view(_TORCH_DTYPES[dtype]).reshape(tuple(shape))
-    return torch.from_numpy(np.ascontiguousarray(arr))
+        width = torch.empty((), dtype=_TORCH_DTYPES[dtype]).element_size()
+        arr = arr.reshape(-1).view({1: np.uint8, 2: np.int16,
+                                    4: np.int32, 8: np.int64}[width])
+        part = np.array(arr.reshape(shape)[want])  # a copy; 0-d stays 0-d
+        return torch.from_numpy(part).view(_TORCH_DTYPES[dtype])
+    return torch.from_numpy(np.array(arr.reshape(shape)[want]))
 
 
-def _load_global(path: str, key: str, entry: Dict, metas: list,
-                 device) -> torch.Tensor:
+def _overlap(a, b):
+    """The intersection of two index boxes, or None."""
+    box = [[max(x0, y0), min(x1, y1)] for (x0, x1), (y0, y1) in zip(a, b)]
+    return box if all(lo < hi for lo, hi in box) or not box else None
+
+
+def _volume(box) -> int:
+    return int(np.prod([hi - lo for lo, hi in box])) if box else 1
+
+
+def _load_block(path: str, key: str, entry: Dict, metas: list,
+                block) -> torch.Tensor:
+    """The ``block`` (index box; the whole leaf when None) of a leaf, on
+    the CPU, from the shard files that overlap it (every manifest's);
+    refuses a block some part of which no shard covers."""
     dtype, shape = entry["dtype"], tuple(entry["shape"])
+    block = [[0, d] for d in shape] if block is None else block
     shards = list(entry["shards"])
     for m in metas:
         other = m.get("leaves", {}).get(key)
         if other:
             shards += other["shards"]
-    seen, parts = set(), []
+    parts, seen = [], set()
     for sh in shards:
-        if sh["file"] in seen:
-            continue
-        seen.add(sh["file"])
-        arr = np.load(os.path.join(path, sh["file"]), allow_pickle=False)
-        index = [tuple(ab) for ab in sh["index"]]
-        parts.append((index, _decode(arr, dtype,
-                                     [b - a for a, b in index])))
-    if len(parts) == 1 and all(a == 0 and b == d for (a, b), d in
-                               zip(parts[0][0], shape)):
-        return parts[0][1].reshape(shape).to(device)
-    out = torch.zeros(shape, dtype=_TORCH_DTYPES[dtype])
-    filled = torch.zeros(shape, dtype=torch.bool)
-    for index, part in parts:
-        idx = tuple(slice(a, b) for a, b in index)
-        out[idx] = part
-        filled[idx] = True
-    if shape and not bool(filled.all()):
+        box = _overlap(sh["index"], block)
+        key_box = json.dumps(sh["index"])
+        if box is None or key_box in seen:
+            continue  # not this rank's, or a copy of a block already read
+        seen.add(key_box)
+        parts.append((sh, box))
+    bshape = tuple(b - a for a, b in block)
+    covered = sum(_volume(box) for _, box in parts)
+    disjoint = all(_overlap(x, y) is None for i, (_, x) in enumerate(parts)
+                   for _, y in parts[i + 1:])
+    if len(parts) == 1 and parts[0][1] == block == parts[0][0]["index"]:
+        sh = parts[0][0]
+        return _read(path, sh["file"], dtype, sh["index"],
+                     tuple(slice(None) for _ in shape))
+    out = torch.zeros(bshape, dtype=_TORCH_DTYPES[dtype])
+    filled = None if disjoint else torch.zeros(bshape, dtype=torch.bool)
+    for sh, box in parts:
+        src = tuple(slice(lo - a, hi - a) for (lo, hi), (a, _)
+                    in zip(box, sh["index"]))
+        dst = tuple(slice(lo - a, hi - a) for (lo, hi), (a, _)
+                    in zip(box, block))
+        out[dst] = _read(path, sh["file"], dtype, sh["index"], src)
+        if filled is not None:
+            filled[dst] = True
+    holes = (covered != _volume(block)) if disjoint \
+        else not bool(filled.all())
+    if shape and holes:
         raise ValueError(
             f"checkpoint leaf '{key}' is missing shards (holes in the "
             f"global array): was a multi-host save only partially copied?")
-    return out.to(device)
+    return out
 
 
-def load_state_dict(path: str, device=None) -> Dict:
-    """Reassemble every leaf as a Tensor on ``device`` (the card unless
-    told otherwise); nested keys come back nested."""
+def _torch_placements(placements, mesh, ndim: int):
+    from .. import sharding_api
+
+    pm = sharding_api._process_mesh(mesh)
+    return pm.device_mesh, sharding_api._torch_placements(
+        placements, None, pm, ndim)
+
+
+def _placement(place, shape):
+    """``(block index or None, wrap)``: what a placement asks of a leaf
+    of global ``shape`` and how the block is handed back."""
+    if place is None:
+        return None, lambda t: Tensor(t, stop_gradient=True)
+    if isinstance(place, ShardedLeaf):
+        return place.index, lambda t: ShardedLeaf(t, shape, place.index,
+                                                  place.replica)
+    dt = _dtensor(place)
+    if dt is not None:
+        mesh, tps = dt.device_mesh, dt.placements
+    elif isinstance(place, (tuple, list)) and len(place) == 2:
+        mesh, tps = _torch_placements(place[1], place[0], len(shape))
+    else:
+        raise TypeError(f"unknown placement {place!r}: a (mesh, "
+                        "placements) pair, a DTensor or a ShardedLeaf")
+    index, _ = _dtensor_block(shape, mesh, tps)
+
+    def wrap(t):
+        from torch.distributed.tensor import DTensor
+
+        return Tensor._wrap(DTensor.from_local(
+            t, mesh, tps, run_check=False, shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride()))
+
+    return index, wrap
+
+
+def load_state_dict(path: str, shardings: Optional[Dict] = None,
+                    target: Optional[Dict] = None, device=None) -> Dict:
+    """Every leaf of the checkpoint at ``path``, the block its placement
+    asks for (``shardings`` or ``target``, module docstring) on
+    ``device`` (the card unless told otherwise); nested keys come back
+    nested."""
     dev = resolve_device(device)
     with open(os.path.join(path, _META)) as f:
         meta = json.load(f)
@@ -316,9 +479,15 @@ def load_state_dict(path: str, device=None) -> Dict:
         if fname.startswith(_META + ".p"):
             with open(os.path.join(path, fname)) as f:
                 other_metas.append(json.load(f))
-    out_flat = {key: Tensor(_load_global(path, key, entry, other_metas, dev),
-                            stop_gradient=True)
-                for key, entry in meta["leaves"].items()}
+    places = _flatten(shardings) if shardings else {}
+    if not shardings and target is not None:
+        places = {k: v for k, v in _flatten(target).items()
+                  if isinstance(v, ShardedLeaf) or _dtensor(v) is not None}
+    out_flat = {}
+    for key, entry in meta["leaves"].items():
+        index, wrap = _placement(places.get(key), tuple(entry["shape"]))
+        out_flat[key] = wrap(_load_block(path, key, entry, other_metas,
+                                         index).to(dev))
     return _unflatten(out_flat)
 
 

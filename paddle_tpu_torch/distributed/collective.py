@@ -357,7 +357,9 @@ def batch_isend_irecv(p2p_op_list):
     """One isend and one irecv per rank, their peers offsets along the
     group (send to ``+k``, receive from ``-k``): a permutation, run as one
     ``torch.distributed.batch_isend_irecv``. The received value is
-    written into the irecv's tensor; returns ``[that tensor]``."""
+    written into the irecv's tensor, whose shape and dtype are those of
+    what its peer sends (the pipeline's stages exchange activations of
+    other shapes than their own); returns ``[that tensor]``."""
     sends = [o for o in p2p_op_list if o.op is isend]
     recvs = [o for o in p2p_op_list if o.op is irecv]
     if len(sends) != 1 or len(recvs) != 1:
@@ -384,7 +386,8 @@ def batch_isend_irecv(p2p_op_list):
         frm = _global(group, (me - send_op.peer) % n)
         staged = _staged(pg, x)
         out = x.cpu() if staged else x.contiguous()
-        buf = torch.empty_like(out)
+        buf = torch.empty(tuple(dst_t.shape), dtype=dst_t.dtype,
+                          device="cpu" if staged else dst_t.device)
         reqs = dist.batch_isend_irecv([
             dist.P2POp(dist.isend, out, to, group=pg),
             dist.P2POp(dist.irecv, buf, frm, group=pg)])

@@ -1,16 +1,21 @@
 """``paddle.distributed.fleet`` (``paddle_tpu/distributed/fleet``): the
-distributed-training facade and its tensor-parallel layers, and
+distributed-training facade, its tensor-parallel layers, pipelines and
 ``recompute``.
 
 ``fleet.init`` starts the process group (``init_parallel_env``
 rendezvous only) and builds the hybrid mesh from the strategy's
 ``hybrid_configs`` over every rank of the job, degree -1 or 1 for ``dp``
 taking the ranks the others leave, as in the JAX package;
-``distributed_model`` wraps a model in ``DataParallel`` over the mesh's
-``dp`` group; ``distributed_optimizer`` returns the optimizer as it is
-(the gradients it reads are averaged already). Pipeline parallelism,
-ZeRO sharding, the role makers and the rest of the JAX package's
-``fleet`` are not ported yet.
+``distributed_model`` returns ``PipelineParallel`` for a
+``PipelineLayer`` and wraps any other model in ``DataParallel`` over the
+mesh's ``dp`` group (over its ``dp`` and ``sharding`` groups when the
+``sharding`` degree is above 1), first passing ``accumulate_steps`` to a
+model config's unset ``pp_num_microbatches``; ``distributed_optimizer`` shards
+the optimizer's state (ZeRO ``os``, ``distributed/sharding.py``) when
+``strategy.sharding`` is set and otherwise returns it as it is (the
+gradients it reads are averaged already). The pipeline modules are
+``pp_layers``, ``pipeline_schedule`` and ``pipeline_parallel``. The role
+makers and the rest of the JAX package's ``fleet`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,14 +27,20 @@ from ..parallel import DataParallel, init_parallel_env
 from ..topology import CommunicateTopology, HybridCommunicateGroup
 from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,
                         RowParallelLinear, VocabParallelEmbedding)
+from .pipeline_parallel import PipelineParallel
+from .pipeline_schedule import (StackedPipelineBlocks, pipeline_1f1b_train,
+                                pipeline_apply)
+from .pp_layers import LayerDesc, PipelineLayer, SharedLayerDesc
 from .recompute import recompute
 
 __all__ = [
     "init", "fleet", "Fleet", "DistributedStrategy", "distributed_model",
     "distributed_optimizer", "get_hybrid_communicate_group",
     "ColumnParallelLinear", "RowParallelLinear", "VocabParallelEmbedding",
-    "ParallelCrossEntropy", "recompute", "worker_index", "worker_num",
-    "CommunicateTopology", "HybridCommunicateGroup",
+    "ParallelCrossEntropy", "PipelineLayer", "LayerDesc",
+    "SharedLayerDesc", "PipelineParallel", "StackedPipelineBlocks",
+    "pipeline_apply", "pipeline_1f1b_train", "recompute", "worker_index",
+    "worker_num", "CommunicateTopology", "HybridCommunicateGroup",
 ]
 
 
@@ -129,19 +140,47 @@ class Fleet:
         barrier()
 
     def distributed_model(self, model):
-        """reference: fleet/model.py:30: ``DataParallel`` over the mesh's
-        ``dp`` group (``find_unused_parameters`` from the strategy)."""
+        """reference: fleet/model.py:30: ``PipelineParallel`` for a
+        ``PipelineLayer``, else ``DataParallel`` over the mesh's ``dp``
+        group (``find_unused_parameters`` from the strategy), or, when
+        the ``sharding`` degree is above 1, over its ``sharding`` and
+        ``dp`` groups (``sharding.GroupShardedModel`` at ``os``: the
+        ranks of both axes see different data); a model config's unset
+        ``pp_num_microbatches`` takes the strategy's
+        ``accumulate_steps``."""
         if not self._is_initialized:
             raise RuntimeError("call fleet.init() first")
-        return DataParallel(
-            model, group=self._hcg.get_data_parallel_group(),
-            find_unused_parameters=bool(getattr(
-                self._strategy, "find_unused_parameters", False)))
+        hc = getattr(self._strategy, "hybrid_configs", {}) \
+            if self._strategy else {}
+        acc = int(hc.get("accumulate_steps", 1))
+        cfg = getattr(model, "config", None)
+        if acc > 1 and cfg is not None \
+                and hasattr(cfg, "pp_num_microbatches") \
+                and cfg.pp_num_microbatches is None:
+            cfg.pp_num_microbatches = acc
+        if isinstance(model, PipelineLayer):
+            return PipelineParallel(model, hcg=self._hcg,
+                                    strategy=self._strategy)
+        unused = bool(getattr(self._strategy, "find_unused_parameters",
+                              False))
+        if self._hcg.get_sharding_parallel_world_size() > 1:
+            from ..sharding import GroupShardedModel
+
+            return GroupShardedModel(model, "os",
+                                     find_unused_parameters=unused)
+        return DataParallel(model, group=self._hcg.get_data_parallel_group(),
+                            find_unused_parameters=unused)
 
     def distributed_optimizer(self, optimizer, strategy=None):
-        """reference: fleet.py:1058: the optimizer as it is."""
+        """reference: fleet.py:1058: the optimizer, its state sharded
+        over the mesh's ``sharding`` (else ``dp``) group when
+        ``strategy.sharding`` is set."""
         if strategy is not None:
             self._strategy = strategy
+        if self._strategy is not None and self._strategy.sharding:
+            from ..sharding import shard_optimizer_state
+
+            shard_optimizer_state(optimizer)
         return optimizer
 
 

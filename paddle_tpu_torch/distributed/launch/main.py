@@ -14,7 +14,9 @@ Env contract written for every worker (consumed by
 - ``PADDLE_TRAINER_ENDPOINTS`` comma list of worker endpoints
 - ``PADDLE_CURRENT_ENDPOINT``  this worker's endpoint
 - ``MASTER_ADDR`` / ``MASTER_PORT`` the rendezvous address
-  (``init_parallel_env``'s ``torch.distributed`` store)
+  (``init_parallel_env``'s ``torch.distributed`` store); without
+  ``--master`` the launcher serves the store itself, bound on a port the
+  OS picks, one a job attempt, and sets ``PADDLE_MASTER_HOSTED=1``
 
 A worker that fails ends the job: the others are terminated and the
 launcher exits with its code (``--max_restarts`` relaunches the job that
@@ -87,7 +89,7 @@ class _Worker:
 
 
 def _spawn_workers(args, master: str, node_rank: int, nnodes: int,
-                   nproc: int) -> List[_Worker]:
+                   nproc: int, hosted: bool = False) -> List[_Worker]:
     world = nnodes * nproc
     host = master.split(":")[0] if nnodes == 1 else socket.gethostname()
     # endpoint list covers THIS NODE's workers only: peer addresses on other
@@ -110,6 +112,10 @@ def _spawn_workers(args, master: str, node_rank: int, nnodes: int,
             "MASTER_ADDR": master.split(":")[0],
             "MASTER_PORT": master.split(":")[1],
         })
+        if hosted:  # the launcher serves the rendezvous store
+            env["PADDLE_MASTER_HOSTED"] = "1"
+        else:
+            env.pop("PADDLE_MASTER_HOSTED", None)
         log_path = os.path.join(args.log_dir, f"workerlog.{rank}")
         if rank == 0:
             # rank 0 streams to the console (reference behavior)
@@ -310,16 +316,25 @@ def launch(argv: Optional[List[str]] = None) -> int:
         raise SystemExit(
             "--master host:port is required for multi-node jobs: a per-node "
             "default coordinator address can never rendezvous")
-    master = args.master or f"127.0.0.1:{_free_port()}"
-
     attempt = 0
     while True:
         t0 = time.time()
+        store, master = None, args.master
+        if master is None:
+            # each attempt's rendezvous server, on a port the OS picks as
+            # it binds (a port chosen first could be taken before a
+            # worker binds it), held until the attempt ends
+            from ..parallel import host_store
+
+            store = host_store(nproc)
+            master = f"127.0.0.1:{store.port}"
         print(f"[launch] nnodes={nnodes} nproc_per_node={nproc} "
               f"master={master} node_rank={args.rank} "
               f"(attempt {attempt + 1})", file=sys.stderr, flush=True)
-        workers = _spawn_workers(args, master, args.rank, nnodes, nproc)
+        workers = _spawn_workers(args, master, args.rank, nnodes, nproc,
+                                 hosted=store is not None)
         rc = _supervise(workers)
+        del store
         if rc == 0:
             print(f"[launch] job finished in {time.time() - t0:.1f}s",
                   file=sys.stderr, flush=True)

@@ -13,6 +13,13 @@ already the global batch's mean. The port runs one process per rank:
   card and ``gloo`` when it is the CPU, runs one collective so the
   communicator exists before any CUDA-graph capture, and installs a
   ``dp`` mesh over every rank (``mesh_axes={}``: rendezvous only).
+  The rendezvous store is never bound on a port chosen beforehand (a
+  free port looked up, closed and bound later can be taken in between
+  by another job): ``spawn`` and ``launch`` host it on a port the OS
+  gives their own server (:func:`host_store`, port 0) and tell the
+  ranks so (``PADDLE_MASTER_HOSTED=1``: every rank connects as a
+  client), and a one-rank job without ``MASTER_PORT`` hosts its own the
+  same way.
 - A rank's loss is the mean over its own rows, so :class:`DataParallel`
   **averages** the gradients across the group, as the reference's
   ``EagerReducer`` does: an update from N equal shards is then the full
@@ -41,7 +48,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
-import socket
+import weakref
 from typing import Dict, List, Optional
 
 import torch
@@ -59,10 +66,17 @@ def _dist():
     return dist
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("", 0))
-        return s.getsockname()[1]
+HOSTED = "PADDLE_MASTER_HOSTED"   # "1": the launcher serves the store
+_TIMEOUT = datetime.timedelta(seconds=600)
+
+
+def host_store(world: int):
+    """A ``torch.distributed.TCPStore`` server on a port the OS picks as
+    it binds (port 0): nothing can take the port between the choice and
+    the bind. Its ``port`` is the job's ``MASTER_PORT``; the caller keeps
+    it alive until every rank has joined."""
+    return _dist().TCPStore("127.0.0.1", 0, world, is_master=True,
+                            timeout=_TIMEOUT, wait_for_workers=False)
 
 
 def _master(world: int):
@@ -72,14 +86,25 @@ def _master(world: int):
     if (addr is None or port is None) and ep:
         a, p = ep.rsplit(":", 1)
         addr, port = addr or a, port or p
+    if port is None and world > 1:
+        raise RuntimeError(
+            "init_parallel_env: a job of several ranks needs "
+            "MASTER_ADDR/MASTER_PORT or PADDLE_MASTER_ENDPOINT "
+            "(distributed.launch and distributed.spawn set them)")
+    return addr or "127.0.0.1", None if port is None else int(port)
+
+
+def _rendezvous(rank: int, world: int) -> dict:
+    """``init_process_group``'s rendezvous arguments (module docstring):
+    a client of the launcher's store, a store of this one-rank job's
+    own, or ``tcp://`` at the given address, whose rank 0 binds it."""
+    addr, port = _master(world)
     if port is None:
-        if world > 1:
-            raise RuntimeError(
-                "init_parallel_env: a job of several ranks needs "
-                "MASTER_ADDR/MASTER_PORT or PADDLE_MASTER_ENDPOINT "
-                "(distributed.launch and distributed.spawn set them)")
-        port = _free_port()
-    return addr or "127.0.0.1", int(port)
+        return {"store": host_store(1)}
+    if os.environ.get(HOSTED) == "1":
+        return {"store": _dist().TCPStore(addr, port, world,
+                                          is_master=False, timeout=_TIMEOUT)}
+    return {"init_method": f"tcp://{addr}:{port}"}
 
 
 def init_parallel_env(mesh_axes: Optional[dict] = None,
@@ -95,7 +120,6 @@ def init_parallel_env(mesh_axes: Optional[dict] = None,
 
         rank = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
         world = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
-        addr, port = _master(world)
         dev = default_device()
         backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
         if backend == "nccl":
@@ -103,9 +127,9 @@ def init_parallel_env(mesh_axes: Optional[dict] = None,
                 raise RuntimeError("init_parallel_env: nccl needs the card")
             local = int(os.environ.get("PADDLE_LOCAL_RANK", rank))
             torch.cuda.set_device(local % torch.cuda.device_count())
-        dist.init_process_group(
-            backend, init_method=f"tcp://{addr}:{port}", rank=rank,
-            world_size=world, timeout=datetime.timedelta(seconds=600))
+        dist.init_process_group(backend, rank=rank, world_size=world,
+                                timeout=_TIMEOUT,
+                                **_rendezvous(rank, world))
         # the communicator is made by a group's first collective, which
         # must not fall inside a CUDA-graph capture
         x = torch.ones(1, device=torch.device("cuda") if backend == "nccl"
@@ -184,15 +208,35 @@ def _reachable(outputs, params: Dict[int, torch.Tensor]) -> set:
     return used
 
 
+def _weak_grad_hooks(owner, method: str, params) -> list:
+    """Post-accumulate-grad hooks on ``params`` that call
+    ``owner.<method>(param)`` through a weak reference, removed when
+    ``owner`` goes. A hook a parameter holds from C++ is a reference
+    Python's collector cannot see: one holding ``owner`` (whose
+    parameters hold the hook) would keep the parameters and their
+    gradients alive after the wrapper is gone."""
+    ref = weakref.ref(owner)
+
+    def hook(p):
+        o = ref()
+        if o is not None:
+            getattr(o, method)(p)
+
+    handles = [p.register_post_accumulate_grad_hook(hook) for p in params]
+    weakref.finalize(owner, lambda hs=handles: [h.remove() for h in hs])
+    return handles
+
+
 class _Reducer:
     """The gradient averaging of :class:`DataParallel` (module
     docstring)."""
 
     def __init__(self, params: List[torch.Tensor], group,
                  bucket_mb: float, last_bucket_mb: float,
-                 find_unused: bool):
+                 find_unused: bool, outer=None):
         self.params = [p for p in params if p.requires_grad]
         self.group = group
+        self.outer = outer  # a second group summed over after ``group``
         self.find_unused = find_unused
         mb = 1024 * 1024
         self.buckets = _buckets(self.params, (last_bucket_mb * mb,
@@ -206,8 +250,7 @@ class _Reducer:
         self.reductions = 0
         self.all_reduces = 0
         self.bytes_reduced = 0
-        self._hooks = [p.register_post_accumulate_grad_hook(self._on_ready)
-                       for p in self.params]
+        self._hooks = _weak_grad_hooks(self, "_on_ready", self.params)
 
     def bucket_bytes(self) -> List[int]:
         return [sum(self.params[i].numel() * self.params[i].element_size()
@@ -251,13 +294,25 @@ class _Reducer:
                 collective._all_reduce_into(flat, "sum", pg, n)
                 self.all_reduces += 1
                 self.bytes_reduced += flat.numel() * flat.element_size()
-            flat.div_(n)
+            flat.div_(n * self._outer_sum(flat))
             off = 0
             for g in grads:
                 k = g.numel()
                 g.copy_(flat[off:off + k].view_as(g))
                 off += k
         self.reductions += 1
+
+    def _outer_sum(self, flat: torch.Tensor) -> int:
+        """``flat`` summed over ``outer`` too (ZeRO over the mesh's
+        ``sharding`` axis beside a ``dp`` axis); ``outer``'s size."""
+        if self.outer is None:
+            return 1
+        pg, n, trivial = collective._resolve(self.outer)
+        if not trivial:
+            collective._all_reduce_into(flat, "sum", pg, n)
+            self.all_reduces += 1
+            self.bytes_reduced += flat.numel() * flat.element_size()
+        return n
 
 
 def _torch_params(layers) -> List[torch.Tensor]:
@@ -298,10 +353,16 @@ class DataParallel(Layer):
         src = group.ranks[0]
         for t in _torch_params(layers) + _torch_buffers(layers):
             collective.broadcast(t, src=src, group=group)
-        self._reducer = _Reducer(_torch_params(layers), group,
-                                 comm_buffer_size_MB,
-                                 last_comm_buffer_size_MB,
-                                 find_unused_parameters)
+        self._reducer = self._make_reducer(_torch_params(layers), group,
+                                           comm_buffer_size_MB,
+                                           last_comm_buffer_size_MB,
+                                           find_unused_parameters)
+
+    def _make_reducer(self, params, group, bucket_mb, last_bucket_mb,
+                      find_unused):
+        """The gradient reduction (ZeRO's wrapper reduce-scatters)."""
+        return _Reducer(params, group, bucket_mb, last_bucket_mb,
+                        find_unused)
 
     def forward(self, *inputs, **kwargs):
         out = self._layers(*inputs, **kwargs)

@@ -6,6 +6,10 @@ the launch contract in its environment (``PADDLE_TRAINER_ID``,
 ``PADDLE_TRAINERS_NUM``, ``PADDLE_MASTER_ENDPOINT``,
 ``PADDLE_CURRENT_ENDPOINT``, ``PADDLE_TRAINER_ENDPOINTS``), so
 ``init_parallel_env`` and ``TCPStore`` bootstrap as under ``launch``.
+Unless ``master`` is given, the parent serves the job's rendezvous
+store on a port the OS picks as it binds (``parallel.host_store``) and
+holds it until the join, so two jobs started at once never race for a
+port.
 :class:`MultiprocessContext` joins them: the first worker to fail ends
 the others, and its traceback is raised in the parent. Workers run on the
 card, rank ``r`` on ``cuda:r % device_count``, like every entry point of
@@ -53,8 +57,11 @@ def _worker(func, args, rank: int, env: dict, device: str,
 class MultiprocessContext:
     """Join handle for spawned workers (reference: spawn.py:360)."""
 
-    def __init__(self, processes, error_queues, return_queues):
+    def __init__(self, processes, error_queues, return_queues,
+                 store=None):
         self.processes = processes
+        # the job's rendezvous server, when the parent hosts it
+        self.store = store
         self.error_queues = error_queues
         self.return_queues = return_queues
         self._results: dict = {}
@@ -95,6 +102,7 @@ class MultiprocessContext:
                     + "\n".join(msgs))
             if all(c == 0 for c in codes):
                 self._drain()
+                self.store = None
                 return True
             if timeout is not None and time.monotonic() - t0 > timeout:
                 self._end()
@@ -103,6 +111,7 @@ class MultiprocessContext:
             time.sleep(0.05)
 
     def _end(self) -> None:
+        self.store = None
         for p in self.processes:
             if p.is_alive():
                 p.terminate()
@@ -129,7 +138,13 @@ def spawn(func, args: Tuple = (), nprocs: int = 1, join: bool = True,
 
     if nprocs < 1:
         raise ValueError("nprocs must be >= 1")
-    master = options.get("master") or f"127.0.0.1:{_free_port()}"
+    store = None
+    master = options.get("master")
+    if master is None:
+        from .parallel import host_store
+
+        store = host_store(nprocs)
+        master = f"127.0.0.1:{store.port}"
     if options.get("backend") == "cpu":
         devices = ["cpu"] * nprocs
     elif torch.cuda.is_available():
@@ -157,6 +172,8 @@ def spawn(func, args: Tuple = (), nprocs: int = 1, join: bool = True,
             "PADDLE_TRAINER_ENDPOINTS": ",".join(endpoints),
             "PADDLE_WORKER_ENDPOINT": endpoints[rank],
         }
+        if store is not None:
+            env["PADDLE_MASTER_HOSTED"] = "1"
         p = ctx.Process(target=_worker,
                         args=(func, args, rank, env, devices[rank],
                               error_queue, return_queue),
@@ -164,7 +181,8 @@ def spawn(func, args: Tuple = (), nprocs: int = 1, join: bool = True,
         p.start()
         processes.append(p)
 
-    context = MultiprocessContext(processes, error_queue, return_queue)
+    context = MultiprocessContext(processes, error_queue, return_queue,
+                                  store)
     if join:
         context.join()
     return context

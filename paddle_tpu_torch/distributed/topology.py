@@ -322,7 +322,28 @@ class HybridCommunicateGroup:
         return self._coord("mp")
 
     def get_stage_id(self):
+        """This rank's pipeline stage: its ``pp`` coordinate (the
+        reference's per-rank answer; the JAX package's single controller
+        answers 0)."""
         return self._coord("pp")
+
+    def is_first_stage(self) -> bool:
+        return self.get_stage_id() == 0
+
+    def is_last_stage(self) -> bool:
+        return self.get_stage_id() == self.get_pipe_parallel_world_size() - 1
+
+    def _get_p2p_next_rank(self) -> int:
+        """The global rank of the next stage in this rank's ``pp`` group
+        (the first stage's after the last one's)."""
+        ranks = self._group("pp").ranks
+        return ranks[(self.get_stage_id() + 1) % len(ranks)]
+
+    def _get_p2p_prev_rank(self) -> int:
+        """The global rank of the previous stage (the last stage's before
+        the first one's)."""
+        ranks = self._group("pp").ranks
+        return ranks[(self.get_stage_id() - 1) % len(ranks)]
 
     def topology(self):
         return self._axes

@@ -29,6 +29,15 @@ weight's ``shard_pieces`` split alike, so a rank's QKV block is its
 heads' q, k and v), and :func:`reference_state_dict` gathers the blocks
 back over the ``mp`` group (a collective call: every rank of the group
 makes it) into whole weights.
+
+A pipelined model (``pp`` above 1, ``models/gpt.py``'s
+``GPTStackedBlocks``) holds this stage's rows of each stacked
+``[L, ...]`` parameter under the JAX package's stacked names: loading
+takes those rows of the JAX model's stacked array (in its
+``layer_order``), each Linear's ``[L, in, out]`` transposed to
+``[L, out, in]``, and :func:`reference_state_dict` gathers the rows back
+over the ``pp`` group. :func:`stack_reference` stacks a dense model's
+per-layer arrays into that layout.
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ from torch import nn
 from ..nn.layer_base import Layer
 
 __all__ = ["load_reference_state_dict", "reference_state_dict",
-           "split_shard", "gather_shard"]
+           "split_shard", "gather_shard", "stack_reference"]
 
 
 def _shards(model: nn.Module) -> Dict[str, nn.Module]:
@@ -56,6 +65,47 @@ def _shards(model: nn.Module) -> Dict[str, nn.Module]:
             if pname == "bias" and dim == 1:
                 continue
             out[f"{name}.{pname}" if name else pname] = m
+    return out
+
+
+def _stacks(model: nn.Module) -> Dict[str, tuple]:
+    """Stacked parameter name -> (its stack module, whether the block's
+    parameter is a Linear weight)."""
+    from ..distributed.fleet.pipeline_schedule import _StackRuntime
+
+    out = {}
+    for name, m in model.named_modules():
+        if not isinstance(m, _StackRuntime):
+            continue
+        mods = dict(m.template.named_modules())
+        for n in m._names:
+            owner, _, leaf = n.rpartition(".")
+            lin = leaf == "weight" and isinstance(mods.get(owner), nn.Linear)
+            key = f"s_{n.replace('.', '__')}"
+            out[f"{name}.{key}" if name else key] = (m, lin)
+    return out
+
+
+def stack_reference(ref: Dict, num_layers: int, layer_order=None,
+                    prefix: str = "gpt.layers") -> Dict:
+    """A dense model's reference state dict with its ``prefix.<i>.<name>``
+    arrays stacked into the JAX package's ``prefix.s_<name>`` ``[L, ...]``
+    arrays, rows in ``layer_order`` (default 0..L-1)."""
+    order = list(range(num_layers)) if layer_order is None else layer_order
+    out, names = {}, []
+    for k in ref:
+        if k.startswith(prefix + "."):
+            i, _, n = k[len(prefix) + 1:].partition(".")
+            if i.isdigit() and int(i) == 0:
+                names.append(n)
+        else:
+            out[k] = ref[k]
+    for n in names:
+        rows = [ref[f"{prefix}.{i}.{n}"] for i in order]
+        rows = [getattr(r, "_value", r) for r in rows]
+        out[f"{prefix}.s_{n.replace('.', '__')}"] = (
+            torch.stack(rows) if isinstance(rows[0], torch.Tensor)
+            else np.stack([np.asarray(r) for r in rows]))
     return out
 
 
@@ -100,6 +150,7 @@ def load_reference_state_dict(model: nn.Module,
               if isinstance(m, nn.Linear)}
     params = dict(model.named_parameters())
     shards = _shards(model)
+    stacks = _stacks(model)
     missing = sorted(set(params) - set(ref))
     unexpected = sorted(set(ref) - set(params))
     if missing or unexpected:
@@ -122,6 +173,12 @@ def load_reference_state_dict(model: nn.Module,
             dim = m.shard_dim if src.dim() > 1 else 0
             src = split_shard(src, dim, m.shard_pieces, m.group.rank,
                               m.group.nranks)
+        if key in stacks:  # this stage's rows, a Linear's transposed
+            stack, lin = stacks[key]
+            src = src if isinstance(src, torch.Tensor) else _to_torch(src)
+            lo = stack._stage * stack.local_layers
+            src = src[lo:lo + stack.local_layers]
+            src = src.transpose(-1, -2) if lin else src
         if tuple(src.shape) != tuple(p.shape):
             raise ValueError(
                 f"{key}: reference shape {shape} does not fit "
@@ -144,6 +201,7 @@ def reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     linear = {f"{name}.weight" for name, m in model.named_modules()
               if isinstance(m, nn.Linear)}
     shards = _shards(model)
+    stacks = _stacks(model)
     out = {}
     for k, p in model.named_parameters():
         v = p.detach()
@@ -151,6 +209,12 @@ def reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
         if m is not None:
             v = gather_shard(v, m.shard_dim if v.dim() > 1 else 0,
                              m.shard_pieces, m.group)
+        if k in stacks:  # every stage's rows, in the JAX layout
+            stack, lin = stacks[k]
+            if stack._group is not None:
+                v = gather_shard(v, 0, 1, stack._group)
+            out[k] = (v.transpose(-1, -2) if lin else v).contiguous()
+            continue
         out[k] = v.t().contiguous() if k in linear else v.clone()
     return out
 

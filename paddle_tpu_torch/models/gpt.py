@@ -37,7 +37,21 @@ projections and embeddings, ``0.02 / sqrt(2 * layers)`` for ``out_proj``
 and ``fc2``, zero biases, unit norms); the paged step's grid is
 flattened to ``[T, H]`` (the JAX step's ``[B, 1, H]``) and the KV pools
 are written in place. The head is always tied (``tie_word_embeddings``
-is the JAX default). Pipeline and sequence parallelism are not ported.
+is the JAX default). Sequence parallelism is not ported.
+
+Pipeline parallelism (``paddle_tpu/models/gpt.py:388-405``, ``:423-461``):
+when the current mesh's ``pp`` degree is above 1 at construction, the
+blocks are a :class:`GPTStackedBlocks` trunk, this stage's rows of each
+stacked ``[L, ...]`` parameter (``gpt.layers.s_attn__qkv_proj__weight``,
+the JAX package's names; a Linear's rows ``[out, in]``), run through
+``fleet/pipeline_schedule.py``'s GPipe over ``pp_num_microbatches``
+(default the ``pp`` degree): every stage runs the embeddings, the final
+LayerNorm and the tied head on the whole batch, so every stage returns
+the same logits and loss, and the blocks' K1-K3 run inside each stage.
+Dropout must be 0 there, as in the JAX package; ``pp`` with ``mp`` above
+1, the KV-cache and the paged forward are refused. ``models/convert.py``
+carries the JAX package's stacked parameters (and ``stack_reference``
+a dense model's) to the stages.
 
 Tensor parallelism (``paddle_tpu/models/gpt.py:121-135``, ``:297-310``,
 ``:374-380``, ``:529``, ``:548``): when the current mesh's ``mp`` degree
@@ -77,8 +91,10 @@ from ..ops.fused_loss import fused_linear_cross_entropy
 from ..ops.paged_attention import ragged_paged_attention
 from ..quantization.observers import quantize_kv
 from ..tensor import facade_io
+from ..distributed import topology
 from ..distributed.fleet.mp_layers import (c_identity,
                                              parallel_cross_entropy)
+from ..distributed.fleet.pipeline_schedule import _StackRuntime
 from ._modules import (ColumnParallelLinear, Embedding, LayerNorm, Linear,
                        RowParallelLinear, VocabParallelEmbedding,
                        cached_attention, mp_size)
@@ -109,6 +125,8 @@ class GPTConfig:
     # fused chunked linear + CE (ops/fused_loss.py): forward(labels=...)
     # then returns (None, loss), never forming the [B*S, V] logits
     fused_loss: bool = False
+    # pp > 1: microbatches of the pipelined trunk (default: the pp degree)
+    pp_num_microbatches: Optional[int] = None
 
     def __post_init__(self):
         if self.intermediate_size is None:
@@ -293,6 +311,36 @@ class GPTDecoderLayer(nn.Module):
                                 layer_idx=layer_idx))
 
 
+class GPTStackedBlocks(_StackRuntime, nn.Module):
+    """The decoder blocks under ``pp`` above 1: this stage's rows of each
+    stacked parameter, ``s_<name with . as __>`` (module docstring); a
+    block runs as a template ``GPTDecoderLayer`` (on the meta device)
+    with a row's values. ``vpp`` above 1 (a trunk built on its own; the
+    model's is 1, as in the JAX package) runs the interleaved schedule."""
+
+    def __init__(self, config: GPTConfig, vpp: int = 1):
+        nn.Module.__init__(self)
+        self._init_stack(config.num_layers, vpp)
+        with torch.device("meta"):
+            template = GPTDecoderLayer(config)
+        object.__setattr__(self, "template", template)
+        self._names = [n for n, _ in template.named_parameters()]
+        for n, p in template.named_parameters():
+            self.register_parameter(
+                "s_" + n.replace(".", "__"),
+                nn.Parameter(torch.empty((self.local_layers,) + p.shape,
+                                         dtype=p.dtype)))
+
+    @property
+    def stacked(self):
+        return [getattr(self, "s_" + n.replace(".", "__"))
+                for n in self._names]
+
+    def _run_block(self, vals, x):
+        return torch.func.functional_call(
+            self.template, dict(zip(self._names, vals)), (x,))
+
+
 class GPTModel(nn.Module):
     """Embeddings -> decoder blocks -> final LayerNorm."""
 
@@ -305,8 +353,19 @@ class GPTModel(nn.Module):
             Embedding(config.vocab_size, config.hidden_size))
         self.position_embeddings = Embedding(config.max_position_embeddings,
                                              config.hidden_size)
-        self.layers = nn.ModuleList([GPTDecoderLayer(config)
-                                     for _ in range(config.num_layers)])
+        self._pp = topology.axis_size("pp")
+        if self._pp > 1:
+            if config.hidden_dropout_prob or config.attention_dropout_prob:
+                raise ValueError(
+                    "pp>1 runs the stacked blocks through the pipeline "
+                    "schedule, whose dropout is not ported; set dropout "
+                    "probs to 0")
+            if mp_size() > 1:
+                raise NotImplementedError("GPT with both pp and mp above 1")
+            self.layers = GPTStackedBlocks(config)
+        else:
+            self.layers = nn.ModuleList([GPTDecoderLayer(config)
+                                         for _ in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size,
                               eps=config.layer_norm_epsilon)
         self.drop_p = config.hidden_dropout_prob
@@ -320,6 +379,10 @@ class GPTModel(nn.Module):
         ``(hidden, caches)``, the caches written in place."""
         B, S = input_ids.shape
         cfg = self.config
+        if caches is not None and self._pp > 1:
+            raise NotImplementedError(
+                "KV-cache decode requires pp=1 (generation is a "
+                "single-program path; pipeline decode is out of scope)")
         if caches is not None:
             pos = (cur_len + torch.arange(S, device=input_ids.device)
                    ).expand(B, S)
@@ -338,6 +401,17 @@ class GPTModel(nn.Module):
         x = _add(self.embeddings(input_ids),
                  self.position_embeddings(position_ids))
         x = F.dropout(x, self.drop_p, training=self.training)
+        if self._pp > 1:
+            if cfg.recompute:
+                import warnings
+
+                warnings.warn(
+                    "GPTConfig.recompute is subsumed under pp>1: the "
+                    "pipeline schedule already recomputes each stage's "
+                    "blocks in its backward; the flag adds nothing",
+                    stacklevel=2)
+            return self.ln_f(self.layers(
+                x, num_microbatches=cfg.pp_num_microbatches or self._pp))
         for layer in self.layers:
             x = (recompute(layer, x, policy=cfg.recompute_policy)
                  if cfg.recompute else layer(x))
@@ -352,6 +426,10 @@ class GPTModel(nn.Module):
         ``(k_pool, v_pool, k_scale, v_scale)`` for int8 pages, written in
         place; ``adapters`` an ``AdapterRows`` or None. Returns the final
         LayerNorm's hidden states ``[T, H]``."""
+        if self._pp > 1:
+            raise NotImplementedError(
+                "paged decode requires pp=1 (same single-program scope as "
+                "KV-cache decode)")
         x = _add(self.embeddings(input_ids.to(torch.int64)),
                  self.position_embeddings(positions.to(torch.int64)))
         for li, (layer, (kp, vp, *scales)) in enumerate(
@@ -396,6 +474,8 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         std = cfg.initializer_range
         proj_std = std / math.sqrt(2 * cfg.num_layers)
         for name, p in self.named_parameters():
+            # a stacked block parameter by its block's name
+            name = name.replace(".s_", ".").replace("__", ".")
             if name.endswith("bias"):
                 p.zero_()
             elif ".ln" in name:

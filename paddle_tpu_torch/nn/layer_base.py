@@ -299,14 +299,29 @@ class Layer:
         cell's dtype (numpy arrays welcome, bf16 ones by bit pattern).
         Returns ``(missing_keys, unexpected_keys)``; a shape mismatch
         raises ``ValueError``."""
+        from ..distributed.checkpoint import ShardedLeaf
+
         own = self.state_dict()
         missing, matched = [], set()
         for name, target in own.items():
             if name not in state_dict:
                 missing.append(name)
                 continue
-            dst = target._value
-            src = _source_value(state_dict[name], dst.device)
+            src = state_dict[name]
+            if isinstance(target, ShardedLeaf):
+                # this rank's block of a global leaf (a pipeline stage's
+                # rows): from a block at that index, or the whole leaf
+                if isinstance(src, ShardedLeaf):
+                    if src.index != target.index:
+                        raise ValueError(f"{name}: block {src.index} is not "
+                                         f"this rank's {target.index}")
+                    src = src.local
+                elif tuple(getattr(src, "shape", ())) == target.shape:
+                    src = src[tuple(slice(a, b) for a, b in target.index)]
+                dst = target.local
+            else:
+                dst = target._value
+            src = _source_value(src, dst.device)
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"shape mismatch for {name}: got "
                                  f"{tuple(src.shape)}, expected "

@@ -37,6 +37,13 @@ being captured counts nothing, as a traced JAX step counts nothing.
 Parameters may be torch parameters or facade ``Parameter``s
 (``tensor.py``), whose torch value the step writes in place (the cell
 keeps its storage, as a module's parameter does).
+
+Under ZeRO (``distributed/sharding.py`` sets ``_zero``) the step updates
+this rank's block of each parameter alone: the block is a view of the
+parameter (``os``, ``os_g``) or a shard of its own (``p_g_os``), its
+state is made from the block (so it is the block's size), its gradient
+is that block of the averaged one, and ``_zero.after_step`` gathers the
+updated blocks; ``state_dict`` gives the blocks with their global index.
 """
 from __future__ import annotations
 
@@ -127,6 +134,8 @@ class Optimizer:
         self._current_idx = -1
         self._current_param = None
         self._global_step = 0
+        # ZeRO's per-rank state (distributed/sharding.py), or None
+        self._zero = None
 
     # -------------------------------------------------------------- lr
     def get_lr(self) -> float:
@@ -185,6 +194,8 @@ class Optimizer:
             p = _value(param)
             if not p.requires_grad or not getattr(param, "trainable", True):
                 continue
+            if self._zero is not None:
+                p = self._zero.local(idx)
             accs = self._get_accumulators(idx, p)
             if (self._multi_precision and p.dtype in _LOW
                     and "@master" not in accs):
@@ -206,6 +217,8 @@ class Optimizer:
         return self._group_wd.get(idx, self.regularization)
 
     def _collect_params_grads(self) -> List[Tuple[int, object, torch.Tensor]]:
+        if self._zero is not None:  # this rank's blocks
+            return self._zero.triples()
         out = []
         for idx, param in enumerate(self._parameter_list):
             p = _value(param)
@@ -224,9 +237,13 @@ class Optimizer:
         place)."""
         triples = self._collect_params_grads()
         if self._grad_clip is not None and triples:
-            clipped = self._grad_clip([(param, g) for _, param, g in triples])
-            triples = [(idx, param, g) for (idx, param, _), (_, g)
-                       in zip(triples, clipped)]
+            if self._zero is not None:
+                triples = self._zero.clip(self._grad_clip, triples)
+            else:
+                clipped = self._grad_clip([(param, g)
+                                           for _, param, g in triples])
+                triples = [(idx, param, g) for (idx, param, _), (_, g)
+                           in zip(triples, clipped)]
         found_inf = self._found_inf
         base_lr: Dict[torch.device, torch.Tensor] = {}
         for idx, param, g in triples:
@@ -271,6 +288,8 @@ class Optimizer:
                 accs["@master"].copy_(new_val)
             p.copy_(new_val)  # the down-cast, under master weights
         self._current_idx, self._current_param = -1, None
+        if self._zero is not None:
+            self._zero.after_step()
         if found_inf is not None and self._found_inf_origin == "amp" \
                 and not _capturing(found_inf.device) and bool(found_inf):
             from ..metrics import get_registry
@@ -298,10 +317,20 @@ class Optimizer:
         return None, [(param, g) for _, param, g
                       in self._collect_params_grads()]
 
+    def _grads(self) -> List[torch.Tensor]:
+        """The gradients the next step reads (under ZeRO, this rank's
+        blocks)."""
+        if self._zero is not None:
+            return [g for _, _, g in self._zero.triples()]
+        return [_value(p).grad for p in self._parameter_list
+                if _value(p).grad is not None]
+
     @torch.no_grad()
     def clear_grad(self, set_to_zero: bool = False) -> None:
         """Every parameter's grad to None (zeroed in place with
         ``set_to_zero``)."""
+        if self._zero is not None:
+            self._zero.clear()
         for param in self._parameter_list:
             p = _value(param)
             if set_to_zero and p.grad is not None:
@@ -321,6 +350,8 @@ class Optimizer:
             f"pos:{idx}.{name}": val.detach().clone()
             for idx, accs in self._accumulators.items()
             for name, val in accs.items()}
+        if self._zero is not None:  # the blocks with their global index
+            sd = self._zero.sharded_state(sd)
         if isinstance(self._learning_rate, LRScheduler):
             sd["LR_Scheduler"] = self._learning_rate.state_dict()
         sd["@global_step"] = self._global_step
@@ -344,6 +375,8 @@ class Optimizer:
                 raise KeyError(
                     f"optimizer state refers to parameter index {idx} but "
                     f"this optimizer has {len(self._parameter_list)}")
+            if self._zero is not None:  # this rank's block of it
+                val = self._zero.local_state(idx, val)
             val = getattr(val, "_value", val)
             dev = _value(self._parameter_list[idx]).device
             accs = self._accumulators.setdefault(idx, {})
