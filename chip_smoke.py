@@ -340,7 +340,22 @@ Phases, in order; any failure exits non-zero before the result line:
    the loss not divided by the microbatch count), and VPP 2's logits.
    (f) gpt13's whole train state saved and restored through
    ``CheckpointManager``, timed, bit for bit (GPT-355M's when the disk
-   or host memory is under twice the state). Prints each part's seconds.
+   or host memory is under twice the state). (g) Sequence and expert
+   parallelism (``tools/sep_moe_drills.py``): ring attention's block
+   loop at P 4 at Llama-0.76B's attention shape (S 8192, bf16, causal
+   and not) against K1-K3 over the whole sequence and their plain
+   versions, the unweighted merge a control outside the limit, timed
+   beside the one-call kernels; two gloo ranks of Llama-0.76B at ``sep``
+   2 through ``fleet.distributed_model`` (B 1, S 8192), its loss and
+   every leaf's gradient against one model's full-sequence ones, each
+   rank's K1-K3 launches, the step's seconds and the bytes sent around
+   the ring, beside two controls (no block from the other rank, RoPE at
+   local positions); two gloo ranks of ``MoELayer`` at GPT-355M's width
+   (8 experts, 4 a rank, 8 x 1024 tokens), naive and gshard top-2, its
+   output, loss and gradients against the local path and the MoE clip's
+   factor against the local clip's, beside two controls (no ``1 / ep``
+   on the expert gradients, gshard's capacity counted per rank), timed
+   beside the local path. Prints each part's seconds.
 
 The last two lines are the kernels' JSON record (K1-K3 with their
 launches by path: ``train_gpt13``, ``train_llama``,
@@ -353,8 +368,9 @@ launches by path: ``train_gpt13``, ``train_llama``,
 ``train_dp_gpt13``, ``train_dp2_gpt355m``, ``train_tp2_gpt355m``,
 ``train_zero_{os,os_g,p_g_os}_gpt13``, ``train_zero_{dp,os,os_g,
 p_g_os}_gpt355m``, ``train_pp_1f1b_gpt355m``,
-``train_pp_model_gpt355m``, ``vpp_forward_gpt355m`` (the two-rank paths
-summed over the ranks); on a graphed path the eager first
+``train_pp_model_gpt355m``, ``vpp_forward_gpt355m``,
+``train_sep2_llama076b`` (the two-rank paths summed over the ranks); on
+a graphed path the eager first
 step's launches plus the replayed ones; and ``bert_case``, their times at
 BERT's shape; K4's paths add ``serve_fleet_reload``; K4 and K5 record
 the distributed paths' 0; then the embedding backward kernel, which
@@ -4019,7 +4035,8 @@ def phase_distributed(torch, card):
     each rank, no child left holding the card); (3) the deterministic
     embedding backward (``phase_embedding_grad``). Prints each part's
     seconds."""
-    from paddle_tpu_torch.tools import dist_drills, zero_pp_drills
+    from paddle_tpu_torch.tools import (dist_drills, sep_moe_drills,
+                                        zero_pp_drills)
 
     t0 = time.perf_counter()
     dp13 = phase_dp_gpt13(torch, card)
@@ -4055,13 +4072,53 @@ def phase_distributed(torch, card):
         f"(smallest, the loss undivided); VPP logits "
         f"{zp['vpp']['logits_rel_norm']:.4f}")
     t4 = time.perf_counter()
-    roundtrip = state_roundtrip(torch, card)
+    torch.cuda.empty_cache()
+    try:
+        sep_moe = sep_moe_drills.run("cuda", small=False, log=log)
+    except (sep_moe_drills.DrillFailed, RuntimeError) as e:
+        fail(f"distributed: sequence and expert parallel drills: {e}")
+    for part in ("ring", "sep", "moe"):
+        log(f"distributed sep_moe {part}: "
+            + json.dumps(sep_moe[part], default=str))
+    log_sep_moe(card, sep_moe)
     t5 = time.perf_counter()
+    torch.cuda.empty_cache()
+    roundtrip = state_roundtrip(torch, card)
+    t6 = time.perf_counter()
     log(f"distributed phase ({card}): dp_gpt13 and zero_gpt13 {t1 - t0:.1f}"
         f" s, two ranks {t2 - t1:.1f} s, embedding_grad {t3 - t2:.1f} s, "
-        f"zero_pp {t4 - t3:.1f} s, state_roundtrip {t5 - t4:.1f} s")
+        f"zero_pp {t4 - t3:.1f} s, sep_moe {t5 - t4:.1f} s, "
+        f"state_roundtrip {t6 - t5:.1f} s")
     return {"dp_gpt13": dp13, "drills": drills, "embedding_grad": emb,
-            "zero_pp": zero_pp, "state_roundtrip": roundtrip}
+            "zero_pp": zero_pp, "sep_moe": sep_moe,
+            "state_roundtrip": roundtrip}
+
+
+def log_sep_moe(card, r):
+    """One line of the sequence- and expert-parallel drills' readings."""
+    ring, sep, moe = r["ring"], r["sep"], r["moe"][0]
+    rc, rf = ring["causal"], ring["full"]
+    log(f"distributed sep_moe ({card}): ring P 4 at S 8192 bf16, causal / "
+        f"full: worst rel to one call {max(rc['rel_one_call'].values()):.5f}"
+        f" / {max(rf['rel_one_call'].values()):.5f}, to plain "
+        f"{max(rc['rel_plain'].values()):.5f} / "
+        f"{max(rf['rel_plain'].values()):.5f}, control "
+        f"{rc['control_rel_one_call']:.4f} / "
+        f"{rf['control_rel_one_call']:.4f}; ring fwd+bwd "
+        f"{1e3 * (rc['ring_fwd_s'] + rc['ring_bwd_s']):.2f} / "
+        f"{1e3 * (rf['ring_fwd_s'] + rf['ring_bwd_s']):.2f} ms against one "
+        f"call {1e3 * (rc['one_call_fwd_s'] + rc['one_call_bwd_s']):.2f} / "
+        f"{1e3 * (rf['one_call_fwd_s'] + rf['one_call_bwd_s']):.2f} ms; "
+        f"Llama-0.76B sep 2: loss {sep['sep']['loss']:.6f} against "
+        f"{sep['dense_loss']:.6f}, gradients at most "
+        f"{sep['sep']['grads_rel']['max']:.4f} by norm, controls "
+        f"{sep['control_no_hop']['grads_rel']['max']:.3f} (no hop) and "
+        f"{sep['control_local_rope']['grads_rel']['max']:.3f} (local RoPE); "
+        f"step {sep['sep']['seconds']:.2f} s, ring "
+        f"{sep['sep']['hop_bytes'] / 1e9:.3f} GB a rank; MoE ep 2 gshard: "
+        f"worst {max(moe['gshard']['ep']['out_rel'], moe['gshard']['ep']['grads_rel']['max']):.2e}"
+        f", fwd+bwd {1e3 * moe['gshard']['ep_s']:.1f} ms against local "
+        f"{1e3 * moe['gshard']['local_s']:.1f} ms")
 
 
 def main():
@@ -4125,8 +4182,10 @@ def main():
                   **distributed["drills"]["flash_launches"],
                   **{f"train_zero_{lv}_gpt13": z["flash_launches"]
                      for lv, z in dp13["zero"].items()}}
-    # the two-rank ZeRO and pipeline paths (summed over the ranks)
-    zero_pp = distributed["zero_pp"]["launches"]
+    # the two-rank ZeRO, pipeline and sequence-parallel paths (summed
+    # over the ranks)
+    zero_pp = distributed["zero_pp"]["launches"] \
+        | distributed["sep_moe"]["launches"]
     gen_launches = {f"generate_{m}": rec["launches"]
                     for m, rec in generate.items()}
     head = paged["a_decode_f32q_bf16kv"]

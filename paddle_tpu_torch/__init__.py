@@ -45,16 +45,19 @@ router's rolling weight reload (``serving.Router.reload``); process
 groups, the collectives, ``DataParallel``, the mesh, the placements and
 the tensor-parallel layers on ``torch.distributed`` (``distributed``),
 with GPT's and Llama's tensor-parallel paths, ``spawn`` and ``launch``,
-and the DataLoader's process workers.
+and the DataLoader's process workers; ZeRO, the sharded checkpoint
+across ranks and pipelines; sequence parallelism (ring attention over
+the mesh's ``sep`` axis, with Llama's and GPT's ``sep`` paths) and
+expert parallelism (``incubate.distributed.models.moe``).
 
 Every entry point runs on ``cuda`` unless given ``device="cpu"`` or told
 ``set_device("cpu")`` (:mod:`.device`); kernels are built from ``csrc/``
 with ``nvcc`` at first use (:mod:`.ops._build`). Not ported yet, of the
 JAX package's namespace: ``jit.save``/``jit.load``, ``static``,
-``distributed``'s ZeRO sharding, pipelines, ring attention, parameter
-server, ``rpc`` and ``auto_parallel``, ``hapi.summary``, ``vision``
-beyond the ResNet models, ``incubate``, ``distribution``, ``fft``,
-``signal``, ``sparse`` and the ``*Place`` classes.
+``distributed``'s parameter server, ``rpc`` and ``auto_parallel``,
+``hapi.summary``, ``vision`` beyond the ResNet models, ``incubate``
+beyond its MoE, ``distribution``, ``fft``, ``signal``, ``sparse`` and the
+``*Place`` classes.
 """
 from .device import default_device, get_device, resolve_device, set_device
 from . import dtypes  # noqa: E402
@@ -83,6 +86,7 @@ from . import callbacks, hapi  # noqa: E402
 from .hapi import Model  # noqa: E402
 from . import distributed  # noqa: E402
 from .distributed import DataParallel  # noqa: E402
+from . import incubate  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -98,5 +102,5 @@ __all__ = (["default_device", "resolve_device", "set_device", "get_device",
             "amp", "jit", "linalg", "models", "nn", "optimizer", "vision",
             "set_flags", "get_flags", "save", "load", "checkpoint", "io",
             "metric", "callbacks", "hapi", "Model", "distributed",
-            "DataParallel"]
+            "DataParallel", "incubate"]
            + [n for n in ops.__all__ if n not in ("to_tensor",)])

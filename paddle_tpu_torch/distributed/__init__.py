@@ -14,10 +14,12 @@ groups per axis (``topology``), the placements on DTensor
 tensor-parallel layers and pipelines (``PipelineLayer``,
 ``PipelineParallel``, 1F1B and VPP over point-to-point sends), ZeRO
 (``group_sharded_parallel`` at ``os``, ``os_g`` and ``p_g_os``,
-``sharding``), and the sharded checkpoint files that every rank writes
-its blocks into and that load under another layout (``checkpoint``).
-Not ported yet: sequence and expert parallelism, ring attention, the
-parameter server, ``rpc`` and ``auto_parallel``.
+``sharding``), the sharded checkpoint files that every rank writes
+its blocks into and that load under another layout (``checkpoint``),
+and sequence parallelism: ring attention over the ``sep`` axis
+(``ring_attention``). Expert parallelism is
+``incubate.distributed.models.moe``. Not ported yet: the parameter
+server, ``rpc`` and ``auto_parallel``.
 """
 from . import checkpoint  # noqa: F401
 from . import communication  # noqa: F401
@@ -40,6 +42,7 @@ from .misc import (  # noqa: F401
 from .parallel import (  # noqa: F401
     DataParallel, init_parallel_env, scale_loss, shard_map_fn,
 )
+from .ring_attention import ring_attention  # noqa: F401
 from .sharding_api import (  # noqa: F401
     Partial, PartitionSpec, Placement, ProcessMesh, Replicate, Shard,
     dtensor_from_fn, reshard, shard_layer, shard_tensor,
@@ -70,5 +73,5 @@ __all__ = [
     "QueueDataset", "InMemoryDataset", "CountFilterEntry",
     "ShowClickEntry", "ProbabilityEntry",
     "reduce_scatter", "gather", "P2POp", "batch_isend_irecv", "isend",
-    "irecv", "send", "recv", "all_gather_object",
+    "irecv", "send", "recv", "all_gather_object", "ring_attention",
 ]

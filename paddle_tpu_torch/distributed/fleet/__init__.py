@@ -9,8 +9,11 @@ taking the ranks the others leave, as in the JAX package;
 ``distributed_model`` returns ``PipelineParallel`` for a
 ``PipelineLayer`` and wraps any other model in ``DataParallel`` over the
 mesh's ``dp`` group (over its ``dp`` and ``sharding`` groups when the
-``sharding`` degree is above 1), first passing ``accumulate_steps`` to a
-model config's unset ``pp_num_microbatches``; ``distributed_optimizer`` shards
+``sharding`` degree is above 1; averaged over ``dp`` and summed over
+``sep`` when the ``sep`` degree is above 1, as the ranks of one ``sep``
+group hold shares of one loss's gradient, ``distributed/
+ring_attention.py``), first passing ``accumulate_steps`` to a model
+config's unset ``pp_num_microbatches``; ``distributed_optimizer`` shards
 the optimizer's state (ZeRO ``os``, ``distributed/sharding.py``) when
 ``strategy.sharding`` is set and otherwise returns it as it is (the
 gradients it reads are averaged already). The pipeline modules are
@@ -23,7 +26,10 @@ from typing import Optional
 
 from .. import topology
 from ..env import get_rank, get_world_size
-from ..parallel import DataParallel, init_parallel_env
+from .. import collective
+from ..parallel import DataParallel, _Reducer, _torch_buffers, \
+    _torch_params, init_parallel_env
+from ..ring_attention import refuse_beside_sep
 from ..topology import CommunicateTopology, HybridCommunicateGroup
 from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,
                         RowParallelLinear, VocabParallelEmbedding)
@@ -72,6 +78,23 @@ class DistributedStrategy:
 
     def __repr__(self):
         return f"DistributedStrategy(hybrid={self.hybrid_configs})"
+
+
+class _SepDataParallel(DataParallel):
+    """``DataParallel`` over the mesh's ``dp`` group whose gradients are
+    also summed over its ``sep`` group (module docstring); the weights
+    start from the ``sep`` group's first rank's too."""
+
+    def __init__(self, layers, sep, **kwargs):
+        object.__setattr__(self, "_sep", sep)
+        super().__init__(layers, **kwargs)
+        for t in _torch_params(layers) + _torch_buffers(layers):
+            collective.broadcast(t, src=sep.ranks[0], group=sep)
+
+    def _make_reducer(self, params, group, bucket_mb, last_bucket_mb,
+                      find_unused):
+        return _Reducer(params, group, bucket_mb, last_bucket_mb,
+                        find_unused, outer=self._sep, outer_mean=False)
 
 
 class Fleet:
@@ -145,9 +168,10 @@ class Fleet:
         group (``find_unused_parameters`` from the strategy), or, when
         the ``sharding`` degree is above 1, over its ``sharding`` and
         ``dp`` groups (``sharding.GroupShardedModel`` at ``os``: the
-        ranks of both axes see different data); a model config's unset
-        ``pp_num_microbatches`` takes the strategy's
-        ``accumulate_steps``."""
+        ranks of both axes see different data), or when the ``sep``
+        degree is above 1 averaged over ``dp`` and summed over ``sep``;
+        a model config's unset ``pp_num_microbatches`` takes the
+        strategy's ``accumulate_steps``."""
         if not self._is_initialized:
             raise RuntimeError("call fleet.init() first")
         hc = getattr(self._strategy, "hybrid_configs", {}) \
@@ -163,6 +187,12 @@ class Fleet:
                                     strategy=self._strategy)
         unused = bool(getattr(self._strategy, "find_unused_parameters",
                               False))
+        if self._hcg.get_sep_parallel_world_size() > 1:
+            refuse_beside_sep()
+            return _SepDataParallel(
+                model, self._hcg.get_sep_parallel_group(),
+                group=self._hcg.get_data_parallel_group(),
+                find_unused_parameters=unused)
         if self._hcg.get_sharding_parallel_world_size() > 1:
             from ..sharding import GroupShardedModel
 

@@ -233,10 +233,13 @@ class _Reducer:
 
     def __init__(self, params: List[torch.Tensor], group,
                  bucket_mb: float, last_bucket_mb: float,
-                 find_unused: bool, outer=None):
+                 find_unused: bool, outer=None, outer_mean: bool = True):
         self.params = [p for p in params if p.requires_grad]
         self.group = group
         self.outer = outer  # a second group summed over after ``group``
+        # averaged over ``outer`` too, or (sequence parallelism, whose
+        # ranks' gradients are shares of one loss's) only summed
+        self.outer_mean = outer_mean
         self.find_unused = find_unused
         mb = 1024 * 1024
         self.buckets = _buckets(self.params, (last_bucket_mb * mb,
@@ -304,7 +307,9 @@ class _Reducer:
 
     def _outer_sum(self, flat: torch.Tensor) -> int:
         """``flat`` summed over ``outer`` too (ZeRO over the mesh's
-        ``sharding`` axis beside a ``dp`` axis); ``outer``'s size."""
+        ``sharding`` axis beside a ``dp`` axis, or its ``sep`` axis); the
+        divisor that adds: ``outer``'s size, or 1 when ``outer_mean`` is
+        off."""
         if self.outer is None:
             return 1
         pg, n, trivial = collective._resolve(self.outer)
@@ -312,13 +317,16 @@ class _Reducer:
             collective._all_reduce_into(flat, "sum", pg, n)
             self.all_reduces += 1
             self.bytes_reduced += flat.numel() * flat.element_size()
-        return n
+        return n if self.outer_mean else 1
 
 
 def _torch_params(layers) -> List[torch.Tensor]:
-    if isinstance(layers, Layer):
-        return [p._value for p in layers.parameters()]
-    return list(layers.parameters())
+    """The parameters every rank of the group holds a copy of: those
+    marked ``no_sync`` (an expert-parallel MoE layer's own experts) are
+    this rank's alone, neither broadcast nor averaged."""
+    params = ([p._value for p in layers.parameters()]
+              if isinstance(layers, Layer) else list(layers.parameters()))
+    return [p for p in params if not getattr(p, "no_sync", False)]
 
 
 def _torch_buffers(layers) -> List[torch.Tensor]:

@@ -1,7 +1,7 @@
 """The ``torch.nn`` layers that the port's GPT and Llama models are built
 from, ``rms_norm`` (the JAX package's ``nn.RMSNorm`` formula, not a
-Paddle functional) and ``cached_attention`` (the KV-cache attention of
-both models).
+Paddle functional), ``cached_attention`` (the KV-cache attention of
+both models) and the sequence split of their ``sep`` paths.
 
 These are not Paddle's API: the models are ``torch.nn.Module``s whose
 ``Linear`` weight is ``[out, in]`` (``torch.nn.Linear``'s storage; the
@@ -17,13 +17,17 @@ import torch
 from torch import nn
 
 from ..amp import cast_inputs
-from ..distributed import topology
+from ..distributed import collective, topology
+from ..distributed.ring_attention import (gather_sequence,
+                                          refuse_beside_sep, split_sequence)
+from ..distributed.ring_attention import sep_group as _sep_group
 from ..distributed.fleet import mp_layers
 from ..nn import functional as F
 
 __all__ = ["Linear", "Embedding", "LayerNorm", "RMSNorm", "rms_norm",
            "cached_attention", "ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding", "mp_size"]
+           "VocabParallelEmbedding", "mp_size", "sep_group", "sep_chunk",
+           "sep_logits", "sep_mean_loss"]
 
 
 def rms_norm(x, weight, epsilon: float = 1e-6):
@@ -163,3 +167,41 @@ class VocabParallelEmbedding(Embedding):
     def forward(self, ids):
         return mp_layers.vocab_parallel_embedding(ids, self.weight,
                                                   self.group)
+
+
+# ------------------------------------------------ sequence parallelism
+# Both models' ``sep`` paths (``distributed/ring_attention.py``): every
+# rank takes the whole batch and runs its chunk of the sequence.
+
+
+def sep_group(config):
+    """The current mesh's ``sep`` group when ``config.sequence_parallel``
+    and its degree is above 1, else None. ``sep`` beside ``mp``, ``pp``
+    or ``sharding`` above 1 is not ported."""
+    group = _sep_group(getattr(config, "sequence_parallel", False))
+    if group is not None:
+        refuse_beside_sep()
+    return group
+
+
+def sep_chunk(x, group):
+    """This rank's chunk of ``x`` along the sequence (dim 1); ``x`` as it
+    is without a group."""
+    return x if group is None else split_sequence(x, group)
+
+
+def sep_logits(logits, group):
+    """The chunks' logits gathered to the whole sequence."""
+    return gather_sequence(logits, group)
+
+
+def sep_mean_loss(mean, labels, group, ignore_index: int = -100):
+    """The whole sequence's mean loss from this chunk's ``mean`` over its
+    ``labels`` that are not ``ignore_index`` (a mean over at least one):
+    the chunks' sums all-reduced over ``group`` (the gradient this rank's
+    sum takes is the true one), over the count all-reduced likewise."""
+    n = (labels != ignore_index).sum().to(torch.float32)
+    total = n.detach().clone()
+    collective.all_reduce(total, group=group)
+    local = mean.float() * n.clamp_min(1.0)
+    return mp_layers.mp_allreduce(local, group) / total.clamp_min(1.0)

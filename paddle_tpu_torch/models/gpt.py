@@ -37,7 +37,23 @@ projections and embeddings, ``0.02 / sqrt(2 * layers)`` for ``out_proj``
 and ``fc2``, zero biases, unit norms); the paged step's grid is
 flattened to ``[T, H]`` (the JAX step's ``[B, 1, H]``) and the KV pools
 are written in place. The head is always tied (``tie_word_embeddings``
-is the JAX default). Sequence parallelism is not ported.
+is the JAX default).
+
+Sequence parallelism (``paddle_tpu/models/gpt.py:192-200``, ``:411``):
+with ``config.sequence_parallel`` under a mesh whose ``sep`` degree is
+above 1, every rank takes the whole ``input_ids`` (and ``position_ids``
+and ``labels``), runs its chunk of the sequence (``ValueError`` when
+``sep`` does not divide ``S``) through the whole model at its global
+positions, and the attention is ring attention over the ``sep`` group;
+the loss is the global mean and the logits are gathered, as Llama's
+(``models/llama.py``). With attention dropout in training the JAX
+package leaves the ring and runs flash attention over the whole
+sequence; here each rank gathers k and v over ``sep`` and runs K1-K3 on
+its queries against keys ``[0, (r+1) C)``, the queries placed at their
+global rows behind ``r C`` zero rows, so the kernels' causal mask and
+dropout hash see the rows that one device would (the zero rows' dO is
+zero, so they add nothing to dK or dV). ``sep`` beside ``mp``, ``pp`` or
+``sharding`` above 1 is not ported and raises.
 
 Pipeline parallelism (``paddle_tpu/models/gpt.py:388-405``, ``:423-461``):
 when the current mesh's ``pp`` degree is above 1 at construction, the
@@ -95,9 +111,12 @@ from ..distributed import topology
 from ..distributed.fleet.mp_layers import (c_identity,
                                              parallel_cross_entropy)
 from ..distributed.fleet.pipeline_schedule import _StackRuntime
+from ..distributed.ring_attention import (all_gather_sequence,
+                                          ring_attention_local)
 from ._modules import (ColumnParallelLinear, Embedding, LayerNorm, Linear,
                        RowParallelLinear, VocabParallelEmbedding,
-                       cached_attention, mp_size)
+                       cached_attention, mp_size, sep_chunk, sep_group,
+                       sep_logits, sep_mean_loss)
 from .generation import GenerationMixin
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
@@ -127,6 +146,8 @@ class GPTConfig:
     fused_loss: bool = False
     # pp > 1: microbatches of the pipelined trunk (default: the pp degree)
     pp_num_microbatches: Optional[int] = None
+    # ring attention over the mesh's 'sep' axis when its degree is above 1
+    sequence_parallel: bool = False
 
     def __post_init__(self):
         if self.intermediate_size is None:
@@ -175,16 +196,37 @@ class GPTAttention(nn.Module):
 
     def forward(self, x):
         """Causal attention over ``x`` ``[B, S, H]``; under tensor
-        parallelism over this rank's ``num_heads / mp`` heads."""
+        parallelism over this rank's ``num_heads / mp`` heads; under
+        sequence parallelism ``x`` is this rank's chunk (module
+        docstring)."""
         B, S, _ = x.shape
         hd = self.head_dim
         qkv = self.qkv_proj(x)  # [B, S, 3H/mp]
         hl = qkv.shape[-1] // 3
         q, k, v = (t.view(B, S, hl // hd, hd) for t in qkv.split(hl, dim=-1))
-        ctx, _ = F.flash_attention(
-            q, k, v, causal=True,
-            dropout=self.attn_drop_p if self.training else 0.0)
+        drop = self.attn_drop_p if self.training else 0.0
+        sep = sep_group(self.cfg)
+        if sep is None:
+            ctx, _ = F.flash_attention(q, k, v, causal=True, dropout=drop)
+        elif drop:
+            ctx = self._gathered_attention(q, k, v, drop, sep)
+        else:
+            ctx = ring_attention_local(
+                *amp.cast_inputs("ring_attention", q, k, v), causal=True,
+                group=sep)
         return self.out_proj(ctx.reshape(B, S, hl))
+
+    @staticmethod
+    def _gathered_attention(q, k, v, drop, sep):
+        """Attention with dropout of this rank's queries over k and v
+        gathered over ``sep``, the queries at their global rows (module
+        docstring)."""
+        B, C, H, D = q.shape
+        first = sep.rank * C
+        k, v = (all_gather_sequence(t, sep)[:, :first + C] for t in (k, v))
+        q = torch.cat([q.new_zeros(B, first, H, D), q], dim=1)
+        ctx, _ = F.flash_attention(q, k, v, causal=True, dropout=drop)
+        return ctx[:, first:]
 
     def forward_cached(self, x, cache, cur_len):
         """KV-cache step over ``x`` ``[B, S, H]`` at positions ``cur_len +
@@ -398,6 +440,9 @@ class GPTModel(nn.Module):
         if position_ids is None:
             position_ids = torch.arange(
                 S, device=input_ids.device).expand(B, S)
+        sep = sep_group(cfg)
+        input_ids, position_ids = (sep_chunk(t, sep)
+                                   for t in (input_ids, position_ids))
         x = _add(self.embeddings(input_ids),
                  self.position_embeddings(position_ids))
         x = F.dropout(x, self.drop_p, training=self.training)
@@ -501,6 +546,9 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         Under tensor parallelism the logits are this rank's vocabulary
         block and the loss ``ParallelCrossEntropy``'s mean."""
         hidden = self.gpt(input_ids, position_ids)
+        sep = sep_group(self.config)
+        if sep is not None:
+            return self._forward_sep(hidden, labels, sep)
         emb = self.gpt.embeddings
         if isinstance(emb, VocabParallelEmbedding):
             # the head reads the whole hidden state on every rank: its
@@ -524,6 +572,23 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
                                labels.reshape(-1))
         return logits, loss
+
+    def _forward_sep(self, hidden, labels, sep):
+        """The head over this rank's chunk under sequence parallelism
+        (module docstring)."""
+        if labels is None:
+            return sep_logits(self.logits(hidden), sep)
+        labels = sep_chunk(labels, sep).reshape(-1)
+        if self.config.fused_loss:
+            h, w = amp.cast_inputs("fused_linear_cross_entropy", hidden,
+                                   self.gpt.embeddings.weight)
+            mean = fused_linear_cross_entropy(
+                h.reshape(-1, self.config.hidden_size), w, labels)
+            return None, sep_mean_loss(mean, labels, sep)
+        logits = self.logits(hidden)
+        mean = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
+                               labels)
+        return sep_logits(logits, sep), sep_mean_loss(mean, labels, sep)
 
     # ---------------------------------------------------- serving hooks
     def _decode_trunk(self):

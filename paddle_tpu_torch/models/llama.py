@@ -53,8 +53,21 @@ one captured decode step serves every position; its attention is the
 JAX package's plain masked softmax over the whole buffer, not flash
 attention.
 
-Not ported yet: sequence parallelism (``sequence_parallel=True``
-raises) and tensor parallelism.
+Sequence parallelism (``paddle_tpu/models/llama.py:360-364``,
+``:478-492``): with ``config.sequence_parallel`` under a mesh whose
+``sep`` degree is above 1, every rank takes the whole ``input_ids`` and
+``labels``, runs its chunk of the sequence (rows ``[r C, (r+1) C)``,
+``C = S / sep``; ``ValueError`` when ``sep`` does not divide ``S``)
+through the whole model, RoPE at the chunk's global positions, and the
+attention is ring attention over the ``sep`` group
+(``distributed/ring_attention.py``: K1-K3 per block, the blocks' LSEs
+merged). The loss is the global mean: each rank sums its chunk's
+per-token losses and divides by the count of labels that are not
+ignored, all-reduced over ``sep``, and the sums are all-reduced too, so
+every rank returns the JAX package's loss; logits come back gathered to
+``[B, S, V]``. The gradient a rank leaves on a weight is its chunk's
+share, which ``fleet.distributed_model`` sums over ``sep``. ``sep``
+beside ``mp``, ``pp`` or ``sharding`` above 1 is not ported and raises.
 
 Tensor parallelism (``paddle_tpu/models/llama.py:137``, ``:387``): when
 the current mesh's ``mp`` degree is above 1 at construction, q/k/v,
@@ -86,6 +99,8 @@ from ..quantization.observers import quantize_kv
 from ..tensor import facade_io
 from ..distributed.fleet.mp_layers import (c_identity,
                                              parallel_cross_entropy)
+from ..distributed.ring_attention import ring_attention_local
+from ._modules import sep_chunk, sep_group, sep_logits, sep_mean_loss
 from ._modules import (ColumnParallelLinear, Embedding, Linear, RMSNorm,
                        RowParallelLinear, VocabParallelEmbedding,
                        cached_attention, mp_size)
@@ -131,10 +146,6 @@ class LlamaConfig:
             raise ValueError("num_heads must divide hidden_size")
         if self.num_heads % self.num_key_value_heads:
             raise ValueError("num_key_value_heads must divide num_heads")
-        if self.sequence_parallel:
-            raise NotImplementedError(
-                "sequence_parallel (ring attention over a 'sep' mesh axis) "
-                "is not ported yet")
 
 
 def llama_tiny(**kw) -> LlamaConfig:
@@ -206,14 +217,19 @@ class LlamaAttention(nn.Module):
         """Causal self-attention over ``x`` ``[B, S, H]``: q/k/v shaped to
         ``[B, S, heads, D]``, RoPE at positions 0..S-1 with the f32 tables
         cast to the activations' dtype (``llama_rope_gqa``), kv heads
-        repeated per query group, then flash attention."""
+        repeated per query group, then flash attention. Under sequence
+        parallelism ``x`` is this rank's chunk: RoPE at its global
+        positions, then ring attention over ``sep``."""
         B, S, _ = x.shape
         hd = self.head_dim
         q, k, v = amp.cast_inputs("llama_rope_gqa", self.q_proj(x),
                                   self.k_proj(x), self.v_proj(x))
         # this rank's heads under tensor parallelism
         nh, nkv = q.shape[-1] // hd, k.shape[-1] // hd
-        cos, sin = _rope_rows(torch.arange(S, device=x.device), hd,
+        sep = sep_group(self.cfg)
+        first = 0 if sep is None else sep.rank * S
+        cos, sin = _rope_rows(torch.arange(first, first + S,
+                                           device=x.device), hd,
                               self.cfg.rope_theta)
         cos, sin = cos[None].to(q.dtype), sin[None].to(q.dtype)
         q = _apply_rope(q.view(B, S, nh, hd), cos, sin)
@@ -222,7 +238,12 @@ class LlamaAttention(nn.Module):
         if nh != nkv:  # GQA: repeat kv heads per query group
             k = k.repeat_interleave(nh // nkv, dim=2)
             v = v.repeat_interleave(nh // nkv, dim=2)
-        ctx, _ = F.flash_attention(q, k, v, causal=True)
+        if sep is None:
+            ctx, _ = F.flash_attention(q, k, v, causal=True)
+        else:
+            ctx = ring_attention_local(
+                *amp.cast_inputs("ring_attention", q, k, v), causal=True,
+                group=sep)
         (ctx,) = amp.cast_inputs("merge_heads", ctx)
         return self.o_proj(ctx.reshape(B, S, nh * hd))
 
@@ -384,8 +405,11 @@ class LlamaModel(nn.Module):
         ``config.recompute``. With ``caches`` (a per-layer list of
         ``(k_buf, v_buf)``) the KV-cache trunk at ``cur_len`` (a 0-d int64
         device tensor): returns ``(hidden, caches)``, the caches written
-        in place."""
+        in place. Under sequence parallelism the hidden states are this
+        rank's chunk of the sequence (module docstring)."""
         cfg = self.config
+        if caches is None:
+            input_ids = sep_chunk(input_ids, sep_group(cfg))
         x = self.embed_tokens(input_ids)
         if caches is not None:
             pos = cur_len + torch.arange(x.shape[1], device=x.device)
@@ -477,6 +501,9 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         mean loss)``, or ``(None, loss)`` when ``config.fused_loss``. Given
         facade Tensors, it returns facade Tensors (``tensor.facade_io``)."""
         hidden = self.llama(input_ids)
+        sep = sep_group(self.config)
+        if sep is not None:
+            return self._forward_sep(hidden, labels, sep)
         emb = self.llama.embed_tokens
         if isinstance(emb, VocabParallelEmbedding) and self.lm_head is None:
             # this rank's vocabulary block; the hidden state's gradient
@@ -501,6 +528,24 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
                                labels.reshape(-1))
         return logits, loss
+
+    def _forward_sep(self, hidden, labels, sep):
+        """The head over this rank's chunk under sequence parallelism
+        (module docstring)."""
+        if labels is None:
+            return sep_logits(self.logits(hidden), sep)
+        labels = sep_chunk(labels, sep).reshape(-1)
+        if self.config.fused_loss:
+            w = (self.lm_head.weight if self.lm_head is not None
+                 else self.llama.embed_tokens.weight)
+            h, w = amp.cast_inputs("fused_linear_cross_entropy", hidden, w)
+            mean = fused_linear_cross_entropy(
+                h.reshape(-1, self.config.hidden_size), w, labels)
+            return None, sep_mean_loss(mean, labels, sep)
+        logits = self.logits(hidden)
+        mean = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
+                               labels)
+        return sep_logits(logits, sep), sep_mean_loss(mean, labels, sep)
 
     def _decode_trunk(self):
         if isinstance(self.llama.embed_tokens, VocabParallelEmbedding):

@@ -31,6 +31,7 @@ from paddle_tpu_torch.distributed import spawn
 from paddle_tpu_torch.tools import dist_cases
 
 import torch_dist_ranks
+from torch_suite import one_torch_thread  # noqa: F401
 
 WORLD = 4
 TOL = 1e-5  # the mp layers: f32 partial products summed in another order

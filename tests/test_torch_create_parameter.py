@@ -11,6 +11,7 @@ import pytest
 
 import paddle_tpu as pt
 import paddle_tpu_torch as paddle
+from torch_suite import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

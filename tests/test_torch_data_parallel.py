@@ -24,6 +24,7 @@ import paddle_tpu.nn.functional as jF
 
 import torch_dist_ranks
 from torch_tp_common import LLAMA, held_against_jax, start_with_jax_models
+from torch_suite import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

@@ -14,6 +14,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_suite import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -13,6 +13,7 @@ import paddle_tpu as pt
 import paddle_tpu.nn.functional as jF
 import paddle_tpu_torch as paddle
 from paddle_tpu_torch.ops import embedding_grad as eg
+from torch_suite import one_torch_thread  # noqa: F401
 
 
 def _case(seed, V=50, H=8, shape=(4, 16)):

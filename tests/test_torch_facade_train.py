@@ -28,6 +28,7 @@ from paddle_tpu_torch import amp, bench
 from paddle_tpu_torch.models import (GPTForCausalLM, gpt_tiny,
                                      load_reference_state_dict)
 from torch_facade_common import on_cpu  # noqa: F401
+from torch_suite import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

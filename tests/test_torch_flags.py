@@ -17,6 +17,7 @@ from paddle_tpu_torch.autograd import engine
 from paddle_tpu_torch.nn.functional import attention
 from paddle_tpu_torch.ops import flash_attention as fa
 from torch_facade_common import on_cpu  # noqa: F401
+from torch_suite import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -29,6 +29,7 @@ from paddle_tpu.nn import functional as jF
 from paddle_tpu.ops.pallas import flash_attention as fa
 from paddle_tpu_torch.nn import functional as tF
 from paddle_tpu_torch.ops import flash_attention as tfa
+from torch_suite import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -28,6 +28,7 @@ import paddle_tpu as pt
 import paddle_tpu_torch as paddle
 from paddle_tpu_torch import faults
 from torch_facade_common import on_cpu  # noqa: F401 (autouse)
+from torch_suite import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -17,6 +17,7 @@ import torch
 from paddle_tpu.ops.pallas.fused_adamw import fused_adamw_flat as jax_fused
 from paddle_tpu.ops.pallas.fused_adamw import xla_adamw_flat
 from paddle_tpu_torch.ops import fused_adamw as fa
+from torch_suite import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-6, 1e-7
 

@@ -21,6 +21,7 @@ import torch
 from paddle_tpu.ops.fused_loss import \
     fused_linear_cross_entropy as jax_fused_ce
 from paddle_tpu_torch.ops.fused_loss import fused_linear_cross_entropy
+from torch_suite import one_torch_thread  # noqa: F401
 
 # name: (N, H, V, chunk, ignored rows, dtype)
 CASES = {

@@ -33,6 +33,7 @@ from paddle_tpu_torch.models import (GPTForCausalLM, gpt_tiny,
                                      load_reference_state_dict)
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.optimizer import AdamW
+from torch_suite import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

@@ -22,6 +22,7 @@ from paddle_tpu import jit as jjit
 from paddle_tpu_torch import amp, jit
 from paddle_tpu_torch.models import _modules as tnn
 from paddle_tpu_torch import optimizer as topt
+from torch_suite import one_torch_thread  # noqa: F401
 
 
 def _pair(lr=0.1, opt="SGD"):

@@ -29,6 +29,7 @@ from paddle_tpu.distributed import fleet as jfleet
 from paddle_tpu.distributed.sharding import _shard_spec_for
 
 import torch_zero_ranks
+from torch_suite import one_torch_thread  # noqa: F401
 
 LEVELS = torch_zero_ranks.LEVELS
 

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from paddle_tpu_torch.io import DataLoader, get_worker_info
+from torch_suite import one_torch_thread  # noqa: F401
 
 
 class _SquareDataset:

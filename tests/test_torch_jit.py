@@ -48,6 +48,7 @@ from paddle_tpu_torch.models import _modules
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 from paddle_tpu_torch.nn import functional as F
+from torch_suite import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -27,6 +27,7 @@ from paddle_tpu.ops.pallas import flash_attention as jfa
 from paddle_tpu_torch import bench, jit
 from paddle_tpu_torch.models import load_reference_state_dict
 from paddle_tpu_torch.ops import flash_attention as tfa
+from torch_suite import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

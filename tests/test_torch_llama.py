@@ -20,6 +20,7 @@ from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 from paddle_tpu.models import llama_tiny as jax_llama_tiny
 from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny,
                                      load_reference_state_dict)
+from torch_suite import one_torch_thread  # noqa: F401
 
 ATOL = RTOL = 1e-5
 WIDTHS = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,

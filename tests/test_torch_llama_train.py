@@ -33,6 +33,7 @@ from paddle_tpu_torch.models import (GPTForCausalLM, LlamaConfig,
                                      load_reference_state_dict)
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.optimizer import AdamW
+from torch_suite import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 S = 32
@@ -257,8 +258,19 @@ def test_recompute_policies_and_sequence_parallel_raise():
         with pytest.raises(ValueError):
             recompute(layer, x, policy=policy)
     assert torch.equal(recompute(layer, x, policy="full"), layer(x))
-    with pytest.raises(NotImplementedError):
-        LlamaConfig(sequence_parallel=True)
+    # sequence parallelism is ported (ring attention over a ``sep`` mesh
+    # axis); beside ``mp`` above 1 it still raises
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.models._modules import sep_group
+
+    cfg = LlamaConfig(sequence_parallel=True)
+    topology.set_mesh(topology.create_mesh({"sep": 2, "mp": 2},
+                                           devices=range(4)))
+    try:
+        with pytest.raises(NotImplementedError, match="beside mp"):
+            sep_group(cfg)
+    finally:
+        topology.set_mesh(None)
 
 
 @pytest.mark.parametrize("preserve", [True, False])

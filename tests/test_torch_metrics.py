@@ -36,6 +36,7 @@ from paddle_tpu_torch import metrics as torch_metrics
 from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny,
                                      load_reference_state_dict)
 from paddle_tpu_torch.serving import ServingEngine
+from torch_suite import one_torch_thread  # noqa: F401
 
 PACKAGES = ("paddle_tpu", "paddle_tpu_torch")
 

@@ -5,7 +5,10 @@
   run through both packages (``torch_facade_common.both``: equal results
   at the stated tolerance) or, where a value is random, on the port with
   the JAX test's assertions.
-- ``test_layer_twin``: every layer class of the ported
+- ``test_layer_twin`` (its cases split in name order at
+  ``torch_nn_cases.TWIN_SPLIT`` with ``test_torch_nn_layer_twins.py``,
+  so that the suite's workers can run the halves side by side): every
+  layer class of the ported
   ``nn/layer/{common,container,conv,norm,pooling,rnn,transformer}.py``
   built in both
   packages, the port's from the JAX layer's weights (``set_state_dict``),
@@ -24,7 +27,7 @@ import torch
 import paddle_tpu as pt
 import paddle_tpu_torch as paddle
 from torch_facade_common import both, on_cpu  # noqa: F401
-from torch_nn_cases import CASES, LAYERS, R
+from torch_nn_cases import CASES, LAYERS, TWIN_SPLIT, R
 from torch_nn_common import TOL, state_of, twin
 
 
@@ -468,8 +471,11 @@ class TestClip:
         both(case, TOL)
 
 
-@pytest.mark.parametrize("name", sorted(LAYERS))
+@pytest.mark.parametrize("name", [n for n in sorted(LAYERS)
+                                  if n < TWIN_SPLIT])
 def test_layer_twin(name):
+    """The cases before ``TWIN_SPLIT`` in name order; the others are in
+    ``test_torch_nn_layer_twins.py``."""
     make, inputs, *rest = LAYERS[name]
     twin(make, inputs, train=rest[0] if rest else True)
 

@@ -6,6 +6,7 @@ from torch_ops_common import (check_custom, check_excluded,
                               check_grad, check_output,
                               custom_ids, excluded_ids, grad_ids,
                               on_cpu, registry_ids)  # noqa: F401
+from torch_suite import one_torch_thread  # noqa: F401
 
 MODULE = "extras"
 

@@ -5,6 +5,7 @@ import pytest
 from torch_ops_common import (check_custom, check_grad,
                               check_output, custom_ids, grad_ids,
                               on_cpu, registry_ids)  # noqa: F401
+from torch_suite import one_torch_thread  # noqa: F401
 
 MODULE = "math"
 

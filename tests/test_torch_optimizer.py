@@ -21,6 +21,7 @@ import paddle_tpu as paddle
 from paddle_tpu.tensor import Parameter as JaxParameter
 from paddle_tpu.tensor import Tensor as JaxTensor
 from paddle_tpu_torch.optimizer import Adam, AdamW
+from torch_suite import one_torch_thread  # noqa: F401
 
 SHAPES = [(8, 6), (5,), (3, 4)]
 

@@ -26,6 +26,7 @@ from paddle_tpu.tensor import Parameter as JaxParameter
 from paddle_tpu.tensor import Tensor as JaxTensor
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch import optimizer as topt
+from torch_suite import one_torch_thread  # noqa: F401
 
 SHAPES = [(8, 6), (5,), (3, 4)]
 

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 
 from paddle_tpu.ops.pallas import paged_attention as jpa
 from paddle_tpu_torch.ops import paged_attention as tpa
+from torch_suite import one_torch_thread  # noqa: F401
 
 ATOL = RTOL = 2e-5
 

@@ -39,6 +39,7 @@ from paddle_tpu.distributed.fleet.pp_layers import (LayerDesc, PipelineLayer,
                                                     SharedLayerDesc)
 
 import torch_zero_ranks
+from torch_suite import one_torch_thread  # noqa: F401
 
 H = 16
 

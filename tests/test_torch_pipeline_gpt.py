@@ -18,6 +18,7 @@ import paddle_tpu.distributed as jdist
 from paddle_tpu.models import GPTForCausalLM, gpt_tiny
 
 import torch_zero_ranks
+from torch_suite import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,7 @@ import torch
 
 from paddle_tpu_torch.serving import Request
 from paddle_tpu_torch.serving import sampling as S
+from torch_suite import one_torch_thread  # noqa: F401
 
 SEEDS = [0, 1, -1, 2**31 - 1, Request(prompt=[1], seed=2**31).seed, 12345]
 POSITIONS = np.arange(4097, dtype=np.int32)

@@ -28,6 +28,7 @@ from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny,
                                      load_reference_state_dict)
 from paddle_tpu_torch.serving import (FCFSScheduler, PagedKVCachePool,
                                       Request, ServingEngine)
+from torch_suite import one_torch_thread  # noqa: F401
 
 WIDTHS = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
               num_key_value_heads=2, max_position_embeddings=64)

@@ -39,6 +39,7 @@ from paddle_tpu.distributed.topology import create_mesh
 from paddle_tpu.tensor import Tensor as JTensor
 
 import torch_zero_ranks
+from torch_suite import one_torch_thread  # noqa: F401
 
 META = "checkpoint.metadata.json"
 

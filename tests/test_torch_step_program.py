@@ -25,6 +25,7 @@ from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.serving import ServingEngine
 from paddle_tpu_torch.serving import engine as engine_mod
 from paddle_tpu_torch.serving import sampling as S
+from torch_suite import one_torch_thread  # noqa: F401
 
 WIDTHS = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
               num_key_value_heads=2, max_position_embeddings=64)

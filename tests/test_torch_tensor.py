@@ -9,6 +9,7 @@ import torch
 
 import paddle_tpu_torch as paddle
 from torch_facade_common import both, name_of, on_cpu  # noqa: F401
+from torch_suite import one_torch_thread  # noqa: F401
 
 
 def case_to_tensor_defaults(P):

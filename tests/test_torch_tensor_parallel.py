@@ -19,6 +19,7 @@ import pytest
 
 import torch_dist_ranks
 from torch_tp_common import GPT, held_against_jax, start_with_jax_models
+from torch_suite import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,7 @@ from paddle_tpu.serving import ServingEngine as JaxEngine
 from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny,
                                      load_reference_state_dict)
 from paddle_tpu_torch.serving import ServingEngine
+from torch_suite import one_torch_thread  # noqa: F401
 
 PACKAGES = ("paddle_tpu", "paddle_tpu_torch")
 TINY = dict(vocab_size=32, hidden_size=16, num_layers=1, num_heads=1,

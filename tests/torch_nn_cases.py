@@ -204,6 +204,9 @@ _ACT = {
 ACTIVATIONS = {name: (make, [R(3, 5, 4, scale=3.0)], "eval" not in name)
                for name, make in _ACT.items()}
 LAYERS = dict(CASES)
+# test_layer_twin's cases from this name on (name order) run in
+# test_torch_nn_layer_twins.py, the others in test_torch_nn_layers.py
+TWIN_SPLIT = "Linear"
 CASES.update(ACTIVATIONS)
 
 # the Layers of nn/layer/extended.py
