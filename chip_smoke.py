@@ -356,6 +356,31 @@ Phases, in order; any failure exits non-zero before the result line:
    factor against the local clip's, beside two controls (no ``1 / ep``
    on the expert gradients, gshard's capacity counted per rank), timed
    beside the local path. Prints each part's seconds.
+23. Distributed (g) (``phase_distributed_g``, ``tools/ps_engine_drills.py``):
+   (a) gpt13 (O2 bf16, AdamW, B 8, S 1024, the cross entropy over its
+   logits as ``Engine``'s loss) through ``auto_parallel.Engine`` at world
+   size 1 on NCCL: ``fit`` 4 steps (graphed after the first), every loss
+   and parameter bit for bit with the same step by hand under
+   ``jit.to_static``; ``evaluate``, ``predict``, ``save``/``load`` of the
+   model; ``cost()["flops"]`` within 2% of 6 x parameters x tokens plus
+   K1-K3's attention flops; step ms graphed and eager; (b) two gloo ranks
+   of GPT-355M through ``Engine`` at ``dp`` 2 with SGD: every leaf's
+   update against one model's full-batch step, beside the reducer-off
+   control; ``fused_allreduce_gradients`` bit for bit with
+   ``DataParallel``'s reduction; ``broadcast_dp_parameters`` left out on
+   ranks seeded apart, which must then differ; (d) ``rpc`` between those
+   two processes: GPT-355M's logits computed on worker 1, called by
+   ``rpc_sync`` and ``rpc_async``, bit for bit with worker 0's own call;
+   (c) a Wide&Deep CTR trainer (Criteo's shapes as PaddleRec sets them)
+   under ``distributed.launch --run_mode ps --server_num 2
+   --trainer_num 1``: one sync step equal to a dense-embedding twin's
+   beside a control without the push, 200 steps timed (steps/s, pull and
+   push ms, table rows), then two async trainers whose loss falls and
+   whose communicator merged rows. Then bucket independence
+   (``bucket_independence``): Llama-0.76B served graphed at token
+   budgets 16, 64 and 1024 on 4 seeds of the serve workload, the streams
+   that differ from budget 1024's counted, with the first differing
+   position and the gap between the two tokens' logits there.
 
 The last two lines are the kernels' JSON record (K1-K3 with their
 launches by path: ``train_gpt13``, ``train_llama``,
@@ -369,7 +394,8 @@ launches by path: ``train_gpt13``, ``train_llama``,
 ``train_zero_{os,os_g,p_g_os}_gpt13``, ``train_zero_{dp,os,os_g,
 p_g_os}_gpt355m``, ``train_pp_1f1b_gpt355m``,
 ``train_pp_model_gpt355m``, ``vpp_forward_gpt355m``,
-``train_sep2_llama076b`` (the two-rank paths summed over the ranks); on
+``train_sep2_llama076b``, ``train_engine_gpt13``,
+``train_engine_dp2_gpt355m`` (the two-rank paths summed over the ranks); on
 a graphed path the eager first
 step's launches plus the replayed ones; and ``bert_case``, their times at
 BERT's shape; K4's paths add ``serve_fleet_reload``; K4 and K5 record
@@ -4094,6 +4120,138 @@ def phase_distributed(torch, card):
             "state_roundtrip": roundtrip}
 
 
+def bucket_independence(torch, card):
+    """Llama-0.76B served graphed at token budgets 16, 64 and 1024 on 4
+    seeds of the serve workload (``phase_serve``'s: 8 requests of
+    64-1024 prompt tokens, 64 new, two sampled at temperature 0.8), one
+    engine a budget, its prefix cache cleared between seeds: each
+    request's stream at budgets 16 and 64 against budget 1024's. For a
+    stream that differs: the first differing position, the two tokens
+    and the gap between their logits there (a full forward of the
+    prompt and the common prefix). Measurement only: differences are
+    recorded, not failed."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    cfg = llama_076b()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=0)
+    budgets = (1024, 64, 16)
+    workloads = []
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        lengths = rng.integers(64, 1025, 8)
+        workloads.append([(rng.integers(0, cfg.vocab_size, int(n)),
+                           0.8 if i in (2, 5) else 0.0, 1000 + i, 64)
+                          for i, n in enumerate(lengths)])
+    streams, steps = {}, {}
+    for budget in budgets:
+        engine = ServingEngine(model, page_size=16, max_batch_slots=8,
+                               max_model_len=2048, token_budget=budget,
+                               kv_dtype=torch.bfloat16, cuda_graph=True,
+                               device="cuda")
+        for seed, requests in enumerate(workloads):
+            engine.prefix_cache.clear()
+            outs, rec = serve_traffic(torch, engine, requests)
+            streams[budget, seed] = [o.token_ids for o in outs]
+            steps[budget, seed] = rec["steps"]
+        del engine
+        torch.cuda.empty_cache()
+    diffs = []
+    for budget in budgets[1:]:
+        for seed, requests in enumerate(workloads):
+            for i, (ref, got) in enumerate(zip(streams[1024, seed],
+                                               streams[budget, seed])):
+                if ref == got:
+                    continue
+                pos = next((j for j, (a, b) in enumerate(zip(ref, got))
+                            if a != b), min(len(ref), len(got)))
+                d = {"budget": budget, "seed": seed, "request": i,
+                     "temperature": requests[i][1], "position": pos,
+                     "lengths": [len(ref), len(got)]}
+                if pos < min(len(ref), len(got)):
+                    ids = np.concatenate([requests[i][0],
+                                          np.asarray(ref[:pos])])
+                    with torch.no_grad():
+                        logits = model(torch.from_numpy(ids)[None].cuda())
+                    last = getattr(logits, "_value", logits)[0, -1].float()
+                    d.update(tokens=[ref[pos], got[pos]],
+                             logit_gap=float(last[ref[pos]]
+                                             - last[got[pos]]),
+                             top2_gap=float(last.topk(2).values.diff()
+                                            .abs()[0]))
+                diffs.append(d)
+    rec = {"card": card, "budgets": list(budgets), "seeds": 4,
+           "streams_compared": 2 * 4 * 8, "streams_differing": len(diffs),
+           "differences": diffs,
+           "steps": {f"{b}/{s}": n for (b, s), n in steps.items()},
+           "seconds": time.perf_counter() - t0}
+    del model
+    torch.cuda.empty_cache()
+    log("bucket independence: " + json.dumps(rec))
+    log(f"bucket independence ({card}): Llama-0.76B graphed, budgets 16 "
+        f"and 64 against 1024, 4 seeds x 8 requests: "
+        f"{len(diffs)} of {rec['streams_compared']} streams differ"
+        + ("".join(f"; budget {d['budget']} seed {d['seed']} request "
+                   f"{d['request']} from position {d['position']}"
+                   + (f" (tokens {d['tokens']}, logit gap "
+                      f"{d['logit_gap']:.4f})" if "tokens" in d else "")
+                   for d in diffs[:6]))
+        + f"; {rec['seconds']:.1f} s")
+    return rec
+
+
+def phase_distributed_g(torch, card):
+    """Phase 23 (module docstring): ``tools/ps_engine_drills.py``'s four
+    paths, then ``bucket_independence``. Prints each part's seconds."""
+    from paddle_tpu_torch.tools import ps_engine_drills as d
+
+    t0 = time.perf_counter()
+    try:
+        r = d.run("cuda", small=False, log=log)
+    except (d.DrillFailed, RuntimeError) as e:
+        fail(f"distributed (g): {e}")
+    a, b, c = r["engine_gpt13"], r["engine_dp2"], r["ctr"]
+    sync, asyn = c["sync"], c["async"]
+    log(f"distributed (g) ({card}): (a) gpt13 through Engine, 4 steps bit "
+        f"for bit with the hand step under to_static "
+        f"({a['params_compared']} parameters), step ms graphed "
+        f"{a['graphed_step_ms']:.2f}, eager {a['eager_step_ms']:.2f}; "
+        f"cost() {a['cost']['flops']:.4e} flops ({a['cost_rel']:.4%} off "
+        f"{a['analytic_flops']:.4e}), peak {a['cost']['peak_bytes']} "
+        f"bytes; save / load {a['save_s']:.2f} / {a['load_s']:.2f} s of "
+        f"{a['state_bytes']} bytes; K1/K2/K3 "
+        f"{a['launches']['flash_fwd']}/{a['launches']['flash_dq']}/"
+        f"{a['launches']['flash_dkv']}; (b) GPT-355M Engine dp 2 on gloo: "
+        f"updates at most {b['update_rel']['max']:.4%} off one model's by "
+        f"norm (median {b['update_rel']['median']:.4%}), reducer off "
+        f"{b['control_no_sync_rel']['min']:.3f} at least; "
+        f"fused_allreduce_gradients bit for bit with DataParallel on "
+        f"{b['fused_leaves']} leaves; without broadcast_dp_parameters "
+        f"{b['no_broadcast_ranks_unequal']} tensors differ; step "
+        f"{max(b['step_s']):.2f} s eager ({b['eager_reason']}); (d) rpc "
+        f"sync and async bit for bit; (c) CTR sync step rows "
+        f"{max(sync['rows_rel']):.2e} off the dense twin (control "
+        f"{min(sync['control_rows_rel']):.2f}), {sync['steps']} steps at "
+        f"{sync['steps_per_s']:.2f} steps/s, pull {sync['pull_ms']:.3f} ms "
+        f"and push {sync['push_ms']:.3f} ms a step "
+        f"({sync['pull_push_share']:.1%} of the step), tables "
+        f"{sync['table_rows']} rows; async losses "
+        + ", ".join(f"{x['loss_first']:.4f} -> {x['loss_last']:.4f} "
+                    f"({x['merged']} rows merged)" for x in asyn.values())
+        + "; seconds " + json.dumps(r["seconds"]))
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    buckets = bucket_independence(torch, card)
+    t2 = time.perf_counter()
+    log(f"distributed (g) phase ({card}): drills {t1 - t0:.1f} s, bucket "
+        f"independence {t2 - t1:.1f} s")
+    return {"drills": r, "buckets": buckets}
+
+
 def log_sep_moe(card, r):
     """One line of the sequence- and expert-parallel drills' readings."""
     ring, sep, moe = r["ring"], r["sep"], r["moe"][0]
@@ -4177,6 +4335,9 @@ def main():
     chaos = phase_train_chaos(torch, card)
     torch.cuda.empty_cache()
     distributed = phase_distributed(torch, card)
+    torch.cuda.empty_cache()
+    # Engine (gpt13 at world 1, GPT-355M at dp 2 summed over the ranks)
+    engine_paths = phase_distributed_g(torch, card)["drills"]["launches"]
     dp13 = distributed["dp_gpt13"]
     dist_flash = {"train_dp_gpt13": dp13["flash_launches"],
                   **distributed["drills"]["flash_launches"],
@@ -4219,7 +4380,8 @@ def main():
            for lv, z in dp13["zero"].items()}
         | {path: n["paged_attention"]
            for path, n in distributed["drills"]["flash_launches"].items()}
-        | {path: n["paged_attention"] for path, n in zero_pp.items()},
+        | {path: n["paged_attention"] for path, n in zero_pp.items()}
+        | {path: n["paged_attention"] for path, n in engine_paths.items()},
         # NaN in one slot's live K, V or scale rows, per phase-3a case:
         # non-finite on that slot's rows only (the kinds held)
         "nan_confined": {name: rec["nan_confined"]
@@ -4263,7 +4425,10 @@ def main():
             | {path: n[kname] for path, n in dist_flash.items()}
             # ZeRO at world 1 (above), the two-rank ZeRO, pipeline (1F1B,
             # the model's GPipe) and VPP paths, summed over the ranks
-            | {path: n[kname] for path, n in zero_pp.items()},
+            | {path: n[kname] for path, n in zero_pp.items()}
+            # the auto-parallel Engine: gpt13 at world 1 (one eager step,
+            # one capture, replays), GPT-355M at dp 2 (eager, gloo)
+            | {path: n[kname] for path, n in engine_paths.items()},
             "max_abs_err": flash13["max_abs_err"][kname],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -4293,7 +4458,8 @@ def main():
            for lv, z in dp13["zero"].items()}
         | {path: n["fused_adamw"]
            for path, n in distributed["drills"]["flash_launches"].items()}
-        | {path: n["fused_adamw"] for path, n in zero_pp.items()},
+        | {path: n["fused_adamw"] for path, n in zero_pp.items()}
+        | {path: n["fused_adamw"] for path, n in engine_paths.items()},
         "max_abs_err": k5["max_abs_err"],
         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
@@ -4316,6 +4482,7 @@ def main():
         | {path: n["embedding_grad"]
            for path, n in distributed["drills"]["flash_launches"].items()}
         | {path: n["embedding_grad"] for path, n in zero_pp.items()}
+        | {path: n["embedding_grad"] for path, n in engine_paths.items()}
         # the repeats of the distributed phase alone (flag on)
         | {"embedding_repeats": k6["launches"]},
         **{k: k6["kernel"][k] for k in ("max_abs_err", "ms", "plain_ms",

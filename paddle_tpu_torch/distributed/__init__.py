@@ -18,13 +18,23 @@ tensor-parallel layers and pipelines (``PipelineLayer``,
 its blocks into and that load under another layout (``checkpoint``),
 and sequence parallelism: ring attention over the ``sep`` axis
 (``ring_attention``). Expert parallelism is
-``incubate.distributed.models.moe``. Not ported yet: the parameter
-server, ``rpc`` and ``auto_parallel``.
+``incubate.distributed.models.moe``. The parameter server (``ps``: the
+native tables of ``csrc/ps_table.cc`` behind TCP servers, the sharding
+client, ``SparseEmbedding`` on torch autograd, the async and geo
+communicators), ``rpc`` (workers calling each other's functions, the
+rendezvous on ``TCPStore``) and ``auto_parallel`` (the ``Engine`` on
+``jit.StaticFunction``, each rank its rows of the batch) are ported;
+``fleet`` carries the role makers, ``utils``, ``data_generator``,
+``elastic`` and ``auto``, and ``launch`` its ``ps``, ``rpc`` and elastic
+modes.
 """
 from . import checkpoint  # noqa: F401
 from . import communication  # noqa: F401
 from . import fleet  # noqa: F401
+from . import auto_parallel  # noqa: F401
 from . import launch  # noqa: F401
+from . import ps  # noqa: F401
+from . import rpc  # noqa: F401
 from ..framework import io  # noqa: F401 - reference exports distributed.io
 from .collective import (  # noqa: F401
     P2POp, ReduceOp, all_gather, all_gather_object, all_reduce, alltoall,
@@ -64,7 +74,7 @@ __all__ = [
     "PartitionSpec", "shard_tensor", "reshard", "shard_layer",
     "dtensor_from_fn", "CommunicateTopology", "HybridCommunicateGroup",
     "create_mesh", "get_mesh", "set_mesh", "fleet", "group_sharded_parallel",
-    "TCPStore", "spawn",
+    "rpc", "TCPStore", "ps", "spawn", "auto_parallel",
     "communication", "launch", "io", "checkpoint",
     "ParallelMode", "is_initialized", "is_available",
     "destroy_process_group", "get_backend", "alltoall_single",

@@ -17,8 +17,19 @@ config's unset ``pp_num_microbatches``; ``distributed_optimizer`` shards
 the optimizer's state (ZeRO ``os``, ``distributed/sharding.py``) when
 ``strategy.sharding`` is set and otherwise returns it as it is (the
 gradients it reads are averaged already). The pipeline modules are
-``pp_layers``, ``pipeline_schedule`` and ``pipeline_parallel``. The role
-makers and the rest of the JAX package's ``fleet`` are not ported yet.
+``pp_layers``, ``pipeline_schedule`` and ``pipeline_parallel``.
+
+``fleet.init`` takes a role maker (``role_maker``: ``Role``,
+``PaddleCloudRoleMaker`` reading the launcher's environment,
+``UserDefinedRoleMaker``); ``is_worker``/``is_server``, the worker and
+server counts, indices and endpoints read it. A parameter-server job
+(``is_collective=False``, the launcher's ``ps`` mode) starts no process
+group and builds no mesh: its trainers talk to the servers through
+``distributed.ps``. ``fleet.util`` is one cached ``UtilBase`` whose role
+maker ``init`` rebinds. ``utils`` (file systems, the logger, the
+hybrid-parallel helpers), ``data_generator``, ``elastic`` and ``auto``
+(the auto-parallel ``Engine``) are its submodules, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -38,8 +49,21 @@ from .pipeline_schedule import (StackedPipelineBlocks, pipeline_1f1b_train,
                                 pipeline_apply)
 from .pp_layers import LayerDesc, PipelineLayer, SharedLayerDesc
 from .recompute import recompute
+from . import data_generator, utils  # noqa: F401
+from .data_generator import (  # noqa: F401
+    MultiSlotDataGenerator, MultiSlotStringDataGenerator,
+)
+from .role_maker import (  # noqa: F401
+    PaddleCloudRoleMaker, Role, UserDefinedRoleMaker,
+)
+from .utils import DistributedInfer, UtilBase  # noqa: F401
 
 __all__ = [
+    "utils", "data_generator", "auto", "elastic", "util", "UtilBase", "DistributedInfer",
+    "Role", "UserDefinedRoleMaker", "PaddleCloudRoleMaker",
+    "MultiSlotDataGenerator", "MultiSlotStringDataGenerator",
+    "is_server", "is_worker", "server_num", "server_index",
+    "server_endpoints", "worker_endpoints",
     "init", "fleet", "Fleet", "DistributedStrategy", "distributed_model",
     "distributed_optimizer", "get_hybrid_communicate_group",
     "ColumnParallelLinear", "RowParallelLinear", "VocabParallelEmbedding",
@@ -104,13 +128,36 @@ class Fleet:
         self._hcg: Optional[HybridCommunicateGroup] = None
         self._strategy: Optional[DistributedStrategy] = None
         self._is_initialized = False
+        self._is_collective = True
+        self._role_maker = None
+        self._util = None
+
+    @property
+    def util(self):
+        """reference: fleet.util: ONE cached UtilBase (util_factory
+        caches it in the reference, so state set through it persists);
+        init() rebinds its role maker."""
+        if self._util is None:
+            self._util = UtilBase(self._role_maker)
+        return self._util
 
     def init(self, role_maker=None, is_collective: bool = True, strategy=None,
              log_level="INFO"):
-        """reference: fleet.py:168: the process group, then the hybrid
-        mesh over every rank (``HybridCommunicateGroup``)."""
-        init_parallel_env(mesh_axes={})
+        """reference: fleet.py:168: the role maker; then, for a
+        collective job, the process group and the hybrid mesh over every
+        rank (``HybridCommunicateGroup``); a parameter-server job starts
+        neither (module docstring)."""
+        self._role_maker = role_maker or PaddleCloudRoleMaker(
+            is_collective=is_collective)
+        if self._util is not None:
+            self._util._set_role_maker(self._role_maker)
+        self._is_collective = bool(is_collective)
         self._strategy = strategy or DistributedStrategy()
+        if not is_collective:
+            self._hcg = None
+            self._is_initialized = True
+            return self
+        init_parallel_env(mesh_axes={})
         hc = dict(self._strategy.hybrid_configs)
         n = get_world_size()
         degrees = {
@@ -148,14 +195,47 @@ class Fleet:
     def strategy(self):
         return self._strategy
 
+    def _roles(self):
+        if self._role_maker is None:
+            self._role_maker = PaddleCloudRoleMaker(is_collective=True)
+        return self._role_maker
+
     def is_first_worker(self):
+        if not self._is_collective:
+            return self._roles()._is_first_worker()
         return get_rank() == 0
 
     def worker_index(self):
+        if not self._is_collective:
+            return self._roles()._worker_index()
         return get_rank()
 
     def worker_num(self):
+        if not self._is_collective:
+            return self._roles()._worker_num()
         return get_world_size()
+
+    def is_worker(self):
+        """reference: fleet.py is_worker."""
+        return self._roles()._is_worker()
+
+    def is_server(self):
+        """reference: fleet.py is_server."""
+        return self._roles()._is_server()
+
+    def server_num(self):
+        return self._roles()._server_num()
+
+    def server_index(self):
+        return self._roles()._server_index()
+
+    def server_endpoints(self, to_string: bool = False):
+        eps = self._roles()._get_pserver_endpoints()
+        return ",".join(eps) if to_string else eps
+
+    def worker_endpoints(self, to_string: bool = False):
+        eps = self._roles()._get_trainer_endpoints()
+        return ",".join(eps) if to_string else eps
 
     def barrier_worker(self):
         from ..collective import barrier
@@ -239,3 +319,32 @@ def worker_index():
 
 def worker_num():
     return fleet.worker_num()
+
+
+def is_worker():
+    return fleet.is_worker()
+
+
+def is_server():
+    return fleet.is_server()
+
+
+def server_num():
+    return fleet.server_num()
+
+
+def server_index():
+    return fleet.server_index()
+
+
+def server_endpoints(to_string=False):
+    return fleet.server_endpoints(to_string)
+
+
+def worker_endpoints(to_string=False):
+    return fleet.worker_endpoints(to_string)
+
+
+util = fleet.util
+
+from . import auto, elastic  # noqa: E402,F401 - auto reads fleet's mesh

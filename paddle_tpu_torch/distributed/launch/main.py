@@ -20,9 +20,24 @@ Env contract written for every worker (consumed by
 
 A worker that fails ends the job: the others are terminated and the
 launcher exits with its code (``--max_restarts`` relaunches the job that
-many times first). The ``ps`` and ``rpc`` modes write their roles'
-environment and supervise the processes; their servers are not ported.
-Elastic jobs are not ported.
+many times first).
+
+``--run_mode ps`` (or ``--server_num``/``--trainer_num``) starts the
+script as ``--server_num`` servers and ``--trainer_num`` trainers under
+the reference's environment (``TRAINING_ROLE`` PSERVER or TRAINER,
+``PADDLE_PSERVERS_IP_PORT_LIST``, ``PADDLE_TRAINER_ENDPOINTS``,
+``POD_IP``/``PADDLE_PORT``): a server runs ``distributed.ps.PSServer``
+on its endpoint, a trainer its ``PSClient``; the servers are stopped
+when every trainer has finished. ``--run_mode rpc`` starts
+``--nproc_per_node`` workers with ``PADDLE_WORKER_ENDPOINT`` and
+``PADDLE_MASTER_ENDPOINT`` for ``distributed.rpc.init_rpc``.
+
+Elastic jobs (``PADDLE_ELASTIC_NP`` set, or ``--nnodes N:M``): the
+launcher registers its node with ``fleet.elastic.ElasticManager`` (a
+heartbeat file under ``PADDLE_ELASTIC_DIR``); a worker that exits with
+``ELASTIC_EXIT_CODE`` (101) is a scale event, not a failure: the job is
+relaunched at the registry's node count, with a fresh rendezvous store,
+and no ``--max_restarts`` restart is used up.
 """
 from __future__ import annotations
 
@@ -49,8 +64,8 @@ def _parse_args(argv):
         prog="python -m paddle_tpu_torch.distributed.launch",
         description="paddle_tpu_torch distributed launcher (collective jobs)")
     p.add_argument("--nnodes", type=str, default="1",
-                   help="number of nodes (int, or 'N:M': the lower bound is "
-                        "used)")
+                   help="number of nodes (int, or 'N:M': an elastic range; "
+                        "the job starts at the lower bound)")
     p.add_argument("--nproc_per_node", type=int, default=None,
                    help="workers on this node (default: 1)")
     p.add_argument("--master", type=str, default=None,
@@ -316,6 +331,21 @@ def launch(argv: Optional[List[str]] = None) -> int:
         raise SystemExit(
             "--master host:port is required for multi-node jobs: a per-node "
             "default coordinator address can never rendezvous")
+    from ..fleet.elastic import ELASTIC_EXIT_CODE, ElasticManager
+
+    # elastic jobs: the LAUNCHER owns node registration (stable hostname
+    # identity, lives across trainer relaunches) so rc=101 can re-derive the
+    # node set — env rewrites inside a dying trainer are lost with it
+    elastic = None
+    np_range = os.environ.get("PADDLE_ELASTIC_NP") or (
+        args.nnodes if ":" in str(args.nnodes) else None)
+    if np_range:
+        elastic = ElasticManager(np=np_range, host=socket.gethostname())
+        if elastic.enable:
+            elastic.register()
+        else:
+            elastic = None
+
     attempt = 0
     while True:
         t0 = time.time()
@@ -338,8 +368,30 @@ def launch(argv: Optional[List[str]] = None) -> int:
         if rc == 0:
             print(f"[launch] job finished in {time.time() - t0:.1f}s",
                   file=sys.stderr, flush=True)
+            if elastic is not None:
+                elastic.exit(completed=True)
             return 0
+        if rc == ELASTIC_EXIT_CODE and elastic is not None:
+            # scale event: re-form at the CURRENT registry membership
+            # (manager.py:30 contract) — not counted against max_restarts
+            time.sleep(2.0)  # let departures expire / arrivals register
+            hosts = sorted(elastic.hosts())
+            if hosts:
+                nnodes = len(hosts)
+                try:
+                    args.rank = hosts.index(elastic.host)
+                except ValueError:
+                    print("[launch] this node left the elastic set; exiting",
+                          file=sys.stderr, flush=True)
+                    elastic.exit()
+                    return 0
+            print(f"[launch] elastic scale event: re-forming with "
+                  f"nnodes={nnodes} rank={args.rank}",
+                  file=sys.stderr, flush=True)
+            continue
         if attempt >= args.max_restarts:
+            if elastic is not None:
+                elastic.exit()
             return rc
         attempt += 1
         print(f"[launch] restarting ({attempt}/{args.max_restarts})",

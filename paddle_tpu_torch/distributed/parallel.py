@@ -31,7 +31,9 @@ already the global batch's mean. The port runs one process per rank:
   the gradients in place. Everything runs on the current stream, so a
   ``jit.StaticFunction`` captures the reduction with the step.
   ``no_sync()`` skips it (the gradients accumulate locally, as the
-  reference's do); parameters and buffers are broadcast from the group's
+  reference's do). Over a ``gloo`` group (two ranks sharing a card) the
+  collectives are host operations: ``jit.StaticFunction`` runs such a
+  step eagerly (``__jit_capture__``); parameters and buffers are broadcast from the group's
   first rank when the wrapper is built. ``find_unused_parameters`` walks
   the forward's autograd graph for the parameters it reaches, and the
   others take zero gradients into the reduction; without it, a backward
@@ -398,6 +400,18 @@ class DataParallel(Layer):
 
     def __jit_state__(self):
         return [self._layers]
+
+    def __jit_capture__(self):
+        """``("eager", why)`` when the reducer's group runs on ``gloo``
+        with more than one rank: its collectives are host operations a
+        CUDA graph cannot hold (``jit.StaticFunction`` then runs the step
+        eagerly)."""
+        pg, n, trivial = collective._resolve(self._group)
+        if trivial or n == 1 or _dist().get_backend(pg) != "gloo":
+            return None
+        return ("eager", f"DataParallel reduces its gradients over gloo "
+                f"({n} ranks), whose collectives run on the host and "
+                "cannot be captured in a CUDA graph")
 
     def parameters(self, include_sublayers: bool = True):
         return list(self._layers.parameters())

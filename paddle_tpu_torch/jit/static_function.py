@@ -50,9 +50,30 @@ source="fresh"}`` once (on the CPU, the call that would capture). A CUDA
 graph cannot leave its process, so there is no persistent cache:
 ``set_compile_cache_dir``/``get_compile_cache_dir``/``clear_compile_cache``
 keep their names and record a directory nothing reads, and every program
-is ``"fresh"``. ``cost_analysis`` returns None (there is no XLA cost
-model). Not ported: ``lower``, ``jit.save``/``load``, ``BucketedFunction``
-and the ``dy2static`` AST pass.
+is ``"fresh"``.
+
+An object the step reaches may say that the step cannot be captured
+(``__jit_capture__()``, returning ``("eager", why)`` or ``("refuse",
+why)``; None when it can be). ``DataParallel`` over a ``gloo`` group (two
+ranks sharing a card) says ``"eager"``: a gloo collective is a host
+operation no CUDA graph can hold, so every call of such a step runs
+eagerly, on the card as on the CPU, and ``eager_reason`` says why.
+``distributed.ps.SparseEmbedding`` says ``"refuse"``: its rows come from
+the servers on the host at each call, and a replay would reuse the
+captured pull, so the call raises a RuntimeError naming the function.
+
+``cost_analysis`` stands where the JAX package reads XLA's cost analysis
+of the compiled program: for a signature that has run, a dict of
+``flops`` (the products that ``torch.utils.flop_counter``'s formulas
+count over the signature's first, eager call, plus the flops the flash
+kernels K1-K3 do on their launches' inputs, by the formulas of their
+bounds, since a counter cannot see a kernel launched through ctypes;
+``flops_counted`` and ``flops_kernels`` are the two parts) and
+``peak_bytes`` (the device memory allocated at the peak of that call, on
+the card; None on the CPU). Unlike XLA's, the count leaves out the
+elementwise work (activations, norms, the optimizer's update). Before
+any call it is None. Not ported: ``lower``, ``jit.save``/``load``,
+``BucketedFunction`` and the ``dy2static`` AST pass.
 """
 from __future__ import annotations
 
@@ -133,12 +154,18 @@ def _scan_state(objs: Sequence[Any]):
     seen: set = set()
     opts: List[Optimizer] = []
     modules: List[Any] = []
+    capture: List[tuple] = []
     stack = list(objs)
     while stack:
         o = stack.pop()
         if o is None or id(o) in seen or isinstance(o, torch.Tensor):
             continue
         seen.add(id(o))
+        say = getattr(o, "__jit_capture__", None)
+        if say is not None and not isinstance(o, type):
+            verdict = say()
+            if verdict is not None:
+                capture.append(verdict)
         if isinstance(o, Layer):
             modules.append(o)
             stack.extend(o.sublayers())
@@ -153,7 +180,7 @@ def _scan_state(objs: Sequence[Any]):
             stack.extend(o.values())
         if hasattr(o, "__jit_state__") and not isinstance(o, type):
             stack.extend(o.__jit_state__())
-    return opts, modules
+    return opts, modules, capture
 
 
 def _closure_objects(fn: Callable) -> list:
@@ -311,6 +338,7 @@ class _Program:
         self.paged_calls = 0
         self.embedding_calls = 0
         self.capture_s: Optional[float] = None
+        self.cost: Optional[dict] = None
         self._staging: Dict[torch.device, tuple] = {}
 
     def stage_seeds(self, values: Dict[torch.device, List[int]]) -> None:
@@ -366,6 +394,41 @@ def _device_of(tensors, opts, modules) -> torch.device:
     return tensors[0].device if tensors else torch.device("cpu")
 
 
+class _FlopCount:
+    """The flops of the products run inside it, by
+    ``torch.utils.flop_counter``'s formulas. Unlike ``FlopCounterMode``,
+    which runs an operation it has no formula for through its
+    decomposition (other kernels, other roundings), every operation runs
+    as it would outside: a counted call computes what an uncounted one
+    does."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils.flop_counter import flop_registry
+
+        count = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                out = func(*args, **kwargs)
+                formula = flop_registry.get(func._overloadpacket)
+                if formula is not None:
+                    count.total += int(formula(*args, **kwargs,
+                                               out_val=out))
+                return out
+
+        self.total = 0
+        self._mode = _Mode()
+
+    def __enter__(self):
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
 # ------------------------------------------------------ StaticFunction
 class StaticFunction:
     """The imperative ``function`` captured per input signature (module
@@ -392,12 +455,23 @@ class StaticFunction:
         self._cache: Dict[tuple, _Program] = {}
         self._pool = None
         self._stream: Optional[torch.cuda.Stream] = None
+        # why every call runs eagerly (module docstring), or None
+        self.eager_reason: Optional[str] = None
         self.__name__ = getattr(function, "__name__", "static_fn")
         self.__doc__ = getattr(function, "__doc__", None)
 
     # -- introspection -------------------------------------------------
     def cost_analysis(self, key=None) -> Optional[dict]:
-        """None: the port has no XLA cost model."""
+        """The cost of a signature's first call (module docstring): of
+        ``key`` (a key of :meth:`capture_seconds`), else of the signature
+        called last; None before any call."""
+        if key is not None:
+            prog = self._cache.get(key)
+            return None if prog is None or prog.cost is None \
+                else dict(prog.cost)
+        for prog in reversed(list(self._cache.values())):
+            if prog.cost is not None:
+                return dict(prog.cost)
         return None
 
     def compile_counts(self) -> Dict[str, int]:
@@ -426,10 +500,42 @@ class StaticFunction:
 
     # -- call ----------------------------------------------------------
     def _scan(self, args, kwargs) -> None:
-        self._opts, self._modules = _scan_state(
+        self._opts, self._modules, capture = _scan_state(
             _closure_objects(self._fn) + self._observe + list(args)
             + list(kwargs.values()))
+        for mode, why in capture:
+            if mode == "refuse":
+                raise RuntimeError(
+                    f"to_static of the step {self.__name__!r} refused: "
+                    f"{why}")
+        eager = [why for mode, why in capture if mode == "eager"]
+        self.eager_reason = "; ".join(eager) if eager else None
         self._scanned = True
+
+    def _first_call(self, prog: _Program, device: torch.device, args,
+                    kwargs):
+        """A signature's first call, counted (``cost_analysis``)."""
+        cuda = device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        counter = _FlopCount()
+        _fa.flop_log = []
+        try:
+            with counter:
+                if cuda and self.eager_reason is None:
+                    out = self._warm_up(prog, device, args, kwargs)
+                else:
+                    with prog.tape.open("fill"):
+                        out = _detached(self._fn(*args, **kwargs))
+            kernels = sum(f for _, f in _fa.flop_log)
+        finally:
+            _fa.flop_log = None
+        counted = counter.total
+        prog.cost = {"flops": counted + kernels, "flops_counted": counted,
+                     "flops_kernels": kernels,
+                     "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                                    if cuda else None)}
+        return out
 
     def __call__(self, *args, **kwargs):
         if _generator._tape is not None:
@@ -445,16 +551,16 @@ class StaticFunction:
             prog = self._cache[key] = _Program()
         prog.calls += 1
         device = _device_of(tensors, self._opts, self._modules)
-        if device.type != "cuda":
-            if prog.calls > 1 and not prog.built:
+        if prog.calls == 1:
+            return self._first_call(prog, device, args, kwargs)
+        if device.type != "cuda" or self.eager_reason is not None:
+            if device.type != "cuda" and not prog.built:
                 self._materialize()
                 self._count_compile()
                 prog.built = True
             with prog.tape.open("fill"):
                 out = self._fn(*args, **kwargs)
             return _detached(out)
-        if prog.calls == 1:
-            return self._warm_up(prog, device, args, kwargs)
         first = prog.graph is None
         if first:
             self._capture(prog, tensors, spec, meta, device)

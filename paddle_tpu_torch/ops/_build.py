@@ -1,12 +1,21 @@
-"""Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them.
+"""Build the native sources under ``csrc/`` and load them.
 
 Each ``csrc/<name>.cu`` exposes plain C functions and is compiled on its
-own, at first use, into ``build/paddle_tpu_torch/lib<name>-<hash>.so``
-beside the package (``<hash>`` covers the source and the flags, so an
-edited source builds anew), then loaded with :mod:`ctypes`. The source
-includes no PyTorch header, which keeps a build to seconds.
+own with ``nvcc``, at first use, into
+``build/paddle_tpu_torch/lib<name>-<hash>.so`` beside the package
+(``<hash>`` covers the source and the flags, so an edited source builds
+anew), then loaded with :mod:`ctypes`. The source includes no PyTorch
+header, which keeps a build to seconds.
 
-Nothing here falls back: a missing ``nvcc`` or a failed compile raises.
+The host route (:func:`load_host`) does the same for a host C++ source,
+``csrc/<name>.cc`` (the parameter server's tables), with the host
+compiler (``c++``, else ``g++``: ``-O2 -shared -fPIC -std=c++17
+-pthread``, the JAX package's flags for the same source). The launcher
+starts servers and trainers together, so the build runs under a lock
+file beside the library: one process compiles, the others wait and load
+its result.
+
+Nothing here falls back: a missing compiler or a failed compile raises.
 """
 from __future__ import annotations
 
@@ -19,13 +28,15 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "library_path",
-           "build", "load"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "HOST_FLAGS", "find_nvcc",
+           "find_host_compiler", "library_path", "host_library_path",
+           "build", "load", "load_host"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+HOST_FLAGS = ("-shared", "-fPIC", "-std=c++17", "-pthread", "-O2")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -103,4 +114,57 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
+    return lib
+
+
+# ------------------------------------------------------------ host route
+def find_host_compiler() -> str:
+    """The host C++ compiler: ``c++`` on ``PATH``, else ``g++``. Raises
+    ``RuntimeError`` if neither is there."""
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError(
+        "no host C++ compiler (c++ or g++) on PATH: the host sources in "
+        f"{CSRC} cannot be built")
+
+
+def host_library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cc`` builds to, keyed by source and flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cc").read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of the host source ``csrc/<name>.cc``, built
+    first if needed under the build's lock file (module docstring).
+    Raises ``RuntimeError`` with the compiler's output on a failed
+    compile."""
+    key = f"host:{name}"
+    lib = _loaded.get(key)
+    if lib is not None:
+        return lib
+    import fcntl
+
+    out = host_library_path(name)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [find_host_compiler(), *HOST_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cc")]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            out.with_suffix(".log").write_text(proc.stdout)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"host build of {name}.cc failed (exit "
+                    f"{proc.returncode}):\n{proc.stdout[-4000:]}")
+            os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _loaded[key] = lib
     return lib

@@ -75,6 +75,16 @@ captured_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 replayed_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 plain_calls: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
+# when a list: every eager launch appends ``(kernel, flops)`` to it, the
+# flops the kernel does on its inputs (``kernel_flops``);
+# ``jit.StaticFunction.cost_analysis`` sets it around a signature's first
+# call, since a profiler's counter cannot see a kernel launched through
+# ctypes
+flop_log: Optional[list] = None
+# flops per valid (q, k) pair and head, in units of the head dim: K1 q.k
+# and p.v; K2 q.k, dO.v, dS.k; K3 q.k, dO.v, p^T.dO, dS^T.q
+FLOPS_PER_PAIR = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -289,7 +299,29 @@ def _seed_ptr(seed, q, dropout_p):
     return seed.data_ptr()
 
 
-def _launch(name, fn, ptrs, strides, q, sk, causal, scale, dropout_p, seed):
+def kernel_flops(name: str, q: torch.Tensor, sk: int, causal: bool,
+                 kpad: Optional[torch.Tensor] = None) -> int:
+    """The flops kernel ``name`` does on these inputs: its
+    ``FLOPS_PER_PAIR`` times the head dim, the heads and the (q, k)
+    pairs that the causal mask and the key padding leave valid (with
+    ``kpad``, counted on its device: a host read)."""
+    B, sq, H, D = q.shape
+    if kpad is None:
+        if causal:  # row i sees keys j <= i + sk - sq
+            pairs = sum(min(max(i + sk - sq + 1, 0), sk) for i in range(sq))
+        else:
+            pairs = sq * sk
+        pairs *= B
+    else:
+        ok = torch.ones((sq, sk), dtype=torch.bool, device=kpad.device)
+        if causal:
+            ok = ok.tril(sk - sq)
+        pairs = int((ok[None] & (kpad[:, None, :] > 0.5)).sum())
+    return FLOPS_PER_PAIR[name] * D * H * pairs
+
+
+def _launch(name, fn, ptrs, strides, q, sk, causal, scale, dropout_p, seed,
+            kpad=None):
     B, sq, H, D = q.shape
     seed_ptr = _seed_ptr(seed, q, dropout_p)
     with torch.cuda.device(q.device):
@@ -304,6 +336,8 @@ def _launch(name, fn, ptrs, strides, q, sk, causal, scale, dropout_p, seed):
         captured_launches[name] += 1
     else:
         kernel_launches[name] += 1
+        if flop_log is not None:
+            flop_log.append((name, kernel_flops(name, q, sk, causal, kpad)))
 
 
 def _fwd_cuda(q, k, v, causal, scale, dropout_p, seed, kpad):
@@ -316,7 +350,7 @@ def _fwd_cuda(q, k, v, causal, scale, dropout_p, seed, kpad):
              kpad.data_ptr() if kpad is not None else None,
              o.data_ptr(), lse.data_ptr()],
             _strides(q, k, v, o), q, k.shape[1], causal, scale, dropout_p,
-            seed)
+            seed, kpad)
     return o, lse
 
 
@@ -337,7 +371,7 @@ def _dq_cuda(q, k, v, do, lse, delta, causal, scale, dropout_p, seed, kpad):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch("flash_dq", _fn("flash_dq", 8), ptrs + [dq.data_ptr()],
             _strides(q, k, v, do), q, k.shape[1], causal, scale, dropout_p,
-            seed)
+            seed, kpad)
     return dq
 
 
@@ -348,7 +382,7 @@ def _dkv_cuda(q, k, v, do, lse, delta, causal, scale, dropout_p, seed,
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch("flash_dkv", _fn("flash_dkv", 9),
             ptrs + [dk.data_ptr(), dv.data_ptr()], _strides(q, k, v, do), q,
-            k.shape[1], causal, scale, dropout_p, seed)
+            k.shape[1], causal, scale, dropout_p, seed, kpad)
     return dk, dv
 
 

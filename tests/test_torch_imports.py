@@ -603,14 +603,13 @@ def test_distributed_modules_import_no_jax():
 
 def test_distributed_exports_the_jax_names_of_its_parts():
     """``paddle_tpu_torch.distributed`` has every name of the JAX
-    package's ``distributed`` but those of the parts not ported yet (the
-    parameter server, ``rpc``, ``auto_parallel``); ``fleet`` has
-    ``fleet.init`` and the tensor-parallel layers."""
+    package's ``distributed``, the parameter server, ``rpc`` and
+    ``auto_parallel`` among them; ``fleet`` has ``fleet.init`` and the
+    tensor-parallel layers."""
     import paddle_tpu.distributed as jdist
     import paddle_tpu_torch.distributed as tdist
 
-    later = {"ps", "rpc", "auto_parallel"}
-    missing = set(jdist.__all__) - later - set(tdist.__all__)
+    missing = set(jdist.__all__) - set(tdist.__all__)
     assert not missing, missing
     assert all(hasattr(tdist, n) for n in tdist.__all__)
     for n in ("init", "distributed_model", "distributed_optimizer",
@@ -636,3 +635,75 @@ def test_init_parallel_env_needs_a_card_unless_told_cpu(no_cuda):
         assert not tdist.is_initialized()
     finally:
         device._current = saved
+
+
+NEW_DISTRIBUTED = (
+    "distributed._wire", "distributed.ps", "distributed.ps.table",
+    "distributed.ps.service", "distributed.ps.layers",
+    "distributed.ps.communicator", "distributed.rpc", "distributed.rpc.rpc",
+    "distributed.auto_parallel", "distributed.fleet.utils",
+    "distributed.fleet.role_maker", "distributed.fleet.data_generator",
+    "distributed.fleet.elastic", "distributed.fleet.auto",
+    "tools.ps_engine_drills")
+
+
+def test_the_rest_of_distributed_imports_no_jax():
+    """The parameter server, ``rpc``, the auto-parallel ``Engine`` and
+    fleet's utilities, role makers, data generators and elastic manager,
+    imported alone in a fresh interpreter, load neither ``jax`` nor
+    ``paddle_tpu``; ``distributed`` and ``fleet`` export them."""
+    probe = (
+        "import importlib, sys\n"
+        f"for n in {NEW_DISTRIBUTED!r}:\n"
+        "    importlib.import_module('paddle_tpu_torch.' + n)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
+        "'jaxlib', 'paddle_tpu')]\n"
+        "assert not bad, bad\n"
+        "import paddle_tpu_torch.distributed as d\n"
+        "assert {'ps', 'rpc', 'auto_parallel'} <= set(d.__all__)\n"
+        "f = d.fleet\n"
+        "for n in ('utils', 'data_generator', 'auto', 'util', "
+        "'PaddleCloudRoleMaker', 'UserDefinedRoleMaker', 'Role'):\n"
+        "    assert hasattr(f, n), n\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, cwd=str(REPO), env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_cost_analysis_is_none_before_a_call_and_counts_after():
+    """``StaticFunction.cost_analysis``: None before any call; after one,
+    the products ``FlopCounterMode`` counted on it (one [2, 4] x [4, 3]
+    product forward, the weight's product backward) and no peak bytes
+    on the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import jit, nn
+
+    paddle.set_device("cpu")
+    try:
+        m = nn.Linear(4, 3)
+        opt = paddle.optimizer.SGD(learning_rate=0.1,
+                                   parameters=m.parameters())
+
+        def step(x):
+            loss = m(x).sum()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        sf = jit.StaticFunction(step)
+        assert sf.cost_analysis() is None
+        x = paddle.to_tensor(torch.ones(2, 4).numpy())
+        sf(x)
+        cost = sf.cost_analysis()
+        assert cost == {"flops": 2 * 2 * 2 * 4 * 3,
+                        "flops_counted": 2 * 2 * 2 * 4 * 3,
+                        "flops_kernels": 0, "peak_bytes": None}
+        sf(x)  # later calls keep the first call's count
+        assert sf.cost_analysis() == cost
+        assert sf.cost_analysis(next(iter(sf._cache))) == cost
+    finally:
+        paddle.set_device(None)
