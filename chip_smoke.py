@@ -381,6 +381,31 @@ Phases, in order; any failure exits non-zero before the result line:
    budgets 16, 64 and 1024 on 4 seeds of the serve workload, the streams
    that differ from budget 1024's counted, with the first differing
    position and the gap between the two tokens' logits there.
+24. Zoo (h) (``phase_zoo_h``, ``tools/zoo_drills.py``): (a) ``bench
+   --model gpt``'s step, GPT-355M (vocab 50304, hidden 1024, 24 layers,
+   16 heads), B 8, S 1024, O2 bf16 with master weights, AdamW: three
+   ``StaticFunction`` calls (eager, capture, replay) against three eager
+   steps from the same seed, every loss and parameter bit for bit, then
+   10 replays timed (tokens/s, step ms), K1-K3 24 launches a step and the
+   embedding kernel counted; (b) the classification zoo at full width
+   (every ``TestModelZoo`` constructor outside ResNet, ``alexnet``,
+   ``vgg16``, ``googlenet``, ``inception_v3``, ``mobilenet_v3_large``,
+   ``shufflenet_v2_x1_0``; B 8, 224 x 224, InceptionV3 299, 1000
+   classes), each eval forward in f32 (TF32 off) against the same model
+   on the CPU within ``ZOO_TOL`` by norm, a model with one weight doubled
+   outside it; one O2 bf16 AdamW step graphed against eager bit for bit
+   for ``mobilenet_v3_large``, ``densenet121`` and ``inception_v3``; (c)
+   PP-YOLOE-s on ``bench --model yoloe``'s stream (sides [320, 416,
+   512], B 8, up to 16 boxes, 8 batches) through ``BucketedFunction``:
+   the 16 warm-up steps (each bucket's eager call, then its capture)
+   against the same padded steps eagerly from the same seed, every loss
+   and the final state bit for bit, ``recompiles`` at most the stream's
+   bucket keys, then 3 timed passes (images/s, capture seconds, peak
+   bytes); ``predict``'s ``nms`` on one 512 x 512 image on the card equal
+   to ``nms`` on the CPU over the same boxes and scores, timed; (d) CRNN
+   on ``bench --model ocr``'s stream (widths [96, 160, 256, 320], B 32,
+   labels up to 24, 97 classes), checked and timed as (c); every
+   graphed step under cuDNN's defaults. Prints one JSON line a part.
 
 The last two lines are the kernels' JSON record (K1-K3 with their
 launches by path: ``train_gpt13``, ``train_llama``,
@@ -395,7 +420,9 @@ launches by path: ``train_gpt13``, ``train_llama``,
 p_g_os}_gpt355m``, ``train_pp_1f1b_gpt355m``,
 ``train_pp_model_gpt355m``, ``vpp_forward_gpt355m``,
 ``train_sep2_llama076b``, ``train_engine_gpt13``,
-``train_engine_dp2_gpt355m`` (the two-rank paths summed over the ranks); on
+``train_engine_dp2_gpt355m`` (the two-rank paths summed over the ranks),
+``train_gpt355m``, and 0 on ``zoo_forward``, ``zoo_train``,
+``train_yoloe_stream`` and ``train_ocr_stream``; on
 a graphed path the eager first
 step's launches plus the replayed ones; and ``bert_case``, their times at
 BERT's shape; K4's paths add ``serve_fleet_reload``; K4 and K5 record
@@ -4252,6 +4279,46 @@ def phase_distributed_g(torch, card):
     return {"drills": r, "buckets": buckets}
 
 
+def phase_zoo_h(torch, card):
+    """Phase 24 (module docstring): ``tools/zoo_drills.py``'s four parts.
+    Prints one JSON line a part and a summary; returns the drills'
+    record (``launches`` by path)."""
+    from paddle_tpu_torch.tools import zoo_drills as d
+
+    t0 = time.perf_counter()
+    try:
+        r = d.run("cuda", small=False, log=log)
+    except (d.DrillFailed, RuntimeError) as e:
+        fail(f"zoo (h): {e}")
+    a, b, c, o = r["gpt355m"], r["zoo"], r["yoloe"], r["ocr"]
+    fwd = b["forward"]
+    worst = max(fwd["models"].items(), key=lambda kv: kv[1]["rel"])
+    log(f"zoo (h) ({card}): (a) GPT-355M {a['params_m']} M, graphed = "
+        f"eager bit for bit over 3 steps ({a['params_compared']} "
+        f"parameters), step {a['step_ms']:.2f} ms, "
+        f"{a['tokens_per_s']:.1f} tokens/s, capture {a['capture_s']:.2f} s, "
+        f"peak {a['peak_bytes']} bytes, K1/K2/K3 "
+        f"{a['launches']['flash_fwd']}/{a['launches']['flash_dq']}/"
+        f"{a['launches']['flash_dkv']}, embedding "
+        f"{a['launches']['embedding_grad']}; (b) {len(fwd['models'])} "
+        f"models within {fwd['tol']} of the CPU by norm (worst "
+        f"{worst[0]} {worst[1]['rel']:.3e}), control "
+        f"{fwd['control']['rel']:.3e}; graphed train steps bit for bit: "
+        + ", ".join(b["train"]) + "; " + "; ".join(
+            f"({p}) {x['config']}: {x['images_per_s']:.1f} images/s, "
+            f"stream {x['stream_ms']:.1f} ms, {x['recompiles']} graphs for "
+            f"{x['bucket_keys']} bucket keys ({x['distinct_input_shapes']} "
+            f"shapes), capture {sum(x['capture_s']):.2f} s, peak "
+            f"{x['peak_bytes']} bytes, 16 steps bit for bit"
+            for p, x in (("c", c), ("d", o)))
+        + f"; predict nms {c['predict']['kept']} of "
+        f"{c['predict']['candidates']} kept, equal to the CPU's, "
+        f"{c['predict']['nms_ms']:.1f} ms; seconds "
+        + json.dumps({k: round(v, 1) for k, v in r["seconds"].items()})
+        + f", phase {time.perf_counter() - t0:.1f} s")
+    return r
+
+
 def log_sep_moe(card, r):
     """One line of the sequence- and expert-parallel drills' readings."""
     ring, sep, moe = r["ring"], r["sep"], r["moe"][0]
@@ -4279,6 +4346,19 @@ def log_sep_moe(card, r):
         f"{1e3 * moe['gshard']['local_s']:.1f} ms")
 
 
+def timed(phase, *args):
+    """``phase(*args)``, printing its wall seconds and the run's so far."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    t1 = time.perf_counter()
+    log(f"clock: {phase.__name__} {t1 - t0:.1f} s, at "
+        f"{t1 - CLOCK_T0:.1f} s")
+    return out
+
+
+CLOCK_T0 = time.perf_counter()
+
+
 def main():
     try:
         import torch
@@ -4288,56 +4368,60 @@ def main():
         fail("paddle_tpu_torch/ not found beside chip_smoke.py: run it from "
              "a checkout of the repository")
     sys.path.insert(0, HERE)
-    name, card = phase_device(torch)
-    phase_build()
-    paged = phase_paged_kernels(torch)
-    flash = phase_flash_kernels(torch)
-    adamw = phase_adamw_kernels(torch)
-    engine, serve = phase_serve(torch, card)
-    phase_mixed_steps(torch, engine)
+    name, card = timed(phase_device, torch)
+    timed(phase_build)
+    paged = timed(phase_paged_kernels, torch)
+    flash = timed(phase_flash_kernels, torch)
+    adamw = timed(phase_adamw_kernels, torch)
+    engine, serve = timed(phase_serve, torch, card)
+    timed(phase_mixed_steps, torch, engine)
     del engine
     torch.cuda.empty_cache()
-    features = phase_serve_features(torch, card)
+    features = timed(phase_serve_features, torch, card)
     torch.cuda.empty_cache()
-    tenancy = phase_serve_tenancy(torch, card)
+    tenancy = timed(phase_serve_tenancy, torch, card)
     torch.cuda.empty_cache()
-    resilience = phase_serve_resilience(torch, card)
+    resilience = timed(phase_serve_resilience, torch, card)
     torch.cuda.empty_cache()
-    gpt_model, serve_gpt = phase_serve_gpt(torch, card)
-    fleet = phase_serve_fleet(torch, card, gpt_model)
+    gpt_model, serve_gpt = timed(phase_serve_gpt, torch, card)
+    fleet = timed(phase_serve_fleet, torch, card, gpt_model)
     del gpt_model
     torch.cuda.empty_cache()
-    phase_reference(torch)
+    timed(phase_reference, torch)
     torch.cuda.empty_cache()
-    flash_launches, gpt13 = phase_train(torch, card, "gpt13")
-    phase_train_reference(torch, "gpt")
-    adamw_launches = phase_adamw_path(torch)
-    llama_launches, _ = phase_train(torch, card, "llama")
-    phase_train_reference(torch, "llama")
+    flash_launches, gpt13 = timed(phase_train, torch, card, "gpt13")
+    timed(phase_train_reference, torch, "gpt")
+    adamw_launches = timed(phase_adamw_path, torch)
+    llama_launches, _ = timed(phase_train, torch, card, "llama")
+    timed(phase_train_reference, torch, "llama")
     torch.cuda.empty_cache()
-    facade = phase_facade(torch, card, gpt13)
+    facade = timed(phase_facade, torch, card, gpt13)
     torch.cuda.empty_cache()
-    graphed_gpt13, _ = phase_train_graphed(torch, card, "gpt13")
-    graphed_llama, _ = phase_train_graphed(torch, card, "llama")
-    graphed_state, _ = phase_train_graphed_state(torch, card)
+    graphed_gpt13, _ = timed(phase_train_graphed, torch, card, "gpt13")
+    graphed_llama, _ = timed(phase_train_graphed, torch, card, "llama")
+    graphed_state, _ = timed(phase_train_graphed_state, torch, card)
     torch.cuda.empty_cache()
-    bert, _ = phase_train_bert(torch, card)
+    bert, _ = timed(phase_train_bert, torch, card)
     torch.cuda.empty_cache()
-    phase_nn_vision_ops(torch, card)
+    timed(phase_nn_vision_ops, torch, card)
     torch.cuda.empty_cache()
-    phase_train_resnet50(torch, card)
+    timed(phase_train_resnet50, torch, card)
     torch.cuda.empty_cache()
-    generate = phase_generate(torch, card)
-    rc_launches, _ = phase_train_recompute(torch, card)
-    flag_launches, _ = phase_flags(torch, card)
+    generate = timed(phase_generate, torch, card)
+    rc_launches, _ = timed(phase_train_recompute, torch, card)
+    flag_launches, _ = timed(phase_flags, torch, card)
     torch.cuda.empty_cache()
-    phase_nn_extended_ops(torch, card)
-    chaos = phase_train_chaos(torch, card)
+    timed(phase_nn_extended_ops, torch, card)
+    chaos = timed(phase_train_chaos, torch, card)
     torch.cuda.empty_cache()
-    distributed = phase_distributed(torch, card)
+    distributed = timed(phase_distributed, torch, card)
     torch.cuda.empty_cache()
     # Engine (gpt13 at world 1, GPT-355M at dp 2 summed over the ranks)
-    engine_paths = phase_distributed_g(torch, card)["drills"]["launches"]
+    engine_paths = timed(phase_distributed_g, torch,
+                         card)["drills"]["launches"]
+    torch.cuda.empty_cache()
+    # GPT-355M's bench step, the zoo and the two bucketed streams
+    zoo_paths = timed(phase_zoo_h, torch, card)["launches"]
     dp13 = distributed["dp_gpt13"]
     dist_flash = {"train_dp_gpt13": dp13["flash_launches"],
                   **distributed["drills"]["flash_launches"],
@@ -4381,7 +4465,8 @@ def main():
         | {path: n["paged_attention"]
            for path, n in distributed["drills"]["flash_launches"].items()}
         | {path: n["paged_attention"] for path, n in zero_pp.items()}
-        | {path: n["paged_attention"] for path, n in engine_paths.items()},
+        | {path: n["paged_attention"] for path, n in engine_paths.items()}
+        | {path: n["paged_attention"] for path, n in zoo_paths.items()},
         # NaN in one slot's live K, V or scale rows, per phase-3a case:
         # non-finite on that slot's rows only (the kinds held)
         "nan_confined": {name: rec["nan_confined"]
@@ -4428,7 +4513,10 @@ def main():
             | {path: n[kname] for path, n in zero_pp.items()}
             # the auto-parallel Engine: gpt13 at world 1 (one eager step,
             # one capture, replays), GPT-355M at dp 2 (eager, gloo)
-            | {path: n[kname] for path, n in engine_paths.items()},
+            | {path: n[kname] for path, n in engine_paths.items()}
+            # GPT-355M's bench step (eager, then replays), and the zoo's
+            # vision paths (none expected)
+            | {path: n[kname] for path, n in zoo_paths.items()},
             "max_abs_err": flash13["max_abs_err"][kname],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -4459,7 +4547,8 @@ def main():
         | {path: n["fused_adamw"]
            for path, n in distributed["drills"]["flash_launches"].items()}
         | {path: n["fused_adamw"] for path, n in zero_pp.items()}
-        | {path: n["fused_adamw"] for path, n in engine_paths.items()},
+        | {path: n["fused_adamw"] for path, n in engine_paths.items()}
+        | {path: n["fused_adamw"] for path, n in zoo_paths.items()},
         "max_abs_err": k5["max_abs_err"],
         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
@@ -4483,6 +4572,7 @@ def main():
            for path, n in distributed["drills"]["flash_launches"].items()}
         | {path: n["embedding_grad"] for path, n in zero_pp.items()}
         | {path: n["embedding_grad"] for path, n in engine_paths.items()}
+        | {path: n["embedding_grad"] for path, n in zoo_paths.items()}
         # the repeats of the distributed phase alone (flag on)
         | {"embedding_repeats": k6["launches"]},
         **{k: k6["kernel"][k] for k in ("max_abs_err", "ms", "plain_ms",

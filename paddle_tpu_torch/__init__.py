@@ -48,16 +48,19 @@ with GPT's and Llama's tensor-parallel paths, ``spawn`` and ``launch``,
 and the DataLoader's process workers; ZeRO, the sharded checkpoint
 across ranks and pipelines; sequence parallelism (ring attention over
 the mesh's ``sep`` axis, with Llama's and GPT's ``sep`` paths) and
-expert parallelism (``incubate.distributed.models.moe``).
+expert parallelism (``incubate.distributed.models.moe``); the rest of
+``distributed`` (the parameter server, ``rpc``, the auto-parallel
+``Engine``); and the model zoo (``vision.models``: the classification
+nets, PP-YOLOE and PP-OCR), the detection ops (``vision.ops``) and
+``jit.BucketedFunction``, with ``bench --model gpt|yoloe|ocr``.
 
 Every entry point runs on ``cuda`` unless given ``device="cpu"`` or told
 ``set_device("cpu")`` (:mod:`.device`); kernels are built from ``csrc/``
 with ``nvcc`` at first use (:mod:`.ops._build`). Not ported yet, of the
 JAX package's namespace: ``jit.save``/``jit.load``, ``static``,
-``distributed``'s parameter server, ``rpc`` and ``auto_parallel``,
-``hapi.summary``, ``vision`` beyond the ResNet models, ``incubate``
-beyond its MoE, ``distribution``, ``fft``, ``signal``, ``sparse`` and the
-``*Place`` classes.
+``hapi.summary``, ``vision``'s ``transforms``, ``datasets`` and image
+backend, ``incubate`` beyond its MoE, ``distribution``, ``fft``,
+``signal``, ``sparse`` and the ``*Place`` classes.
 """
 from .device import default_device, get_device, resolve_device, set_device
 from . import dtypes  # noqa: E402

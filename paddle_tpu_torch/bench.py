@@ -1,16 +1,20 @@
-"""Training throughput on the card: GPT-3 1.3B, Llama-0.76B, BERT-base and
-ResNet-50.
+"""Training throughput on the card: GPT-3 1.3B, GPT-355M, Llama-0.76B,
+BERT-base, ResNet-50, and PP-YOLOE-s and CRNN on bucketed shape streams.
 
     python -m paddle_tpu_torch.bench                  # gpt13 on cuda
+    python -m paddle_tpu_torch.bench --model gpt      # GPT-355M
     python -m paddle_tpu_torch.bench --model llama
     python -m paddle_tpu_torch.bench --model bert
     python -m paddle_tpu_torch.bench --model resnet50
+    python -m paddle_tpu_torch.bench --model yoloe    # PP-YOLOE-s stream
+    python -m paddle_tpu_torch.bench --model ocr      # CRNN stream
     python -m paddle_tpu_torch.bench --eager          # the eager step
     python -m paddle_tpu_torch.bench --recompute [--recompute-policy dots]
     python -m paddle_tpu_torch.bench --small --device cpu [--model llama]
 
-Counterpart of the root ``bench.py``'s ``bench_gpt13``, ``bench_llama``,
-``bench_bert``, ``bench_resnet50`` and ``_time_steps``. By default the
+Counterpart of the root ``bench.py``'s ``bench_gpt13``, ``bench_gpt``,
+``bench_llama``, ``bench_bert``, ``bench_resnet50``, ``bench_yoloe``,
+``bench_ocr``, ``_time_steps`` and ``_time_stream``. By default the
 step runs as the root bench runs it (``bench.py:300``, ``:791``):
 ``jit.StaticFunction(train_fn, observe=[model, opt], warmup=False)``
 over ids and labels from
@@ -25,6 +29,12 @@ configuration at the bench's defaults:
   entropy, ``amp.decorate(level="O2", dtype="bfloat16",
   master_weight=False)``. ``--small``: hidden 256, 4 layers, 2 heads of
   128, vocab 2048, B 2, S 256, 3 steps.
+- ``gpt``: GPT-355M (vocab 50304, hidden 1024, 24 layers, 16 heads of
+  64), B 8, S 1024, no dropout, no recompute, the plain cross entropy
+  over the logits (``fused_loss`` False, the root bench's default),
+  ``amp.decorate(level="O2", dtype="bfloat16")`` with master weights.
+  ``--small``: hidden 256, 4 layers, 8 heads, vocab 2048, B 4, S 256, 5
+  steps (``bench.py:262-270``).
 - ``llama``: Llama-0.76B (vocab 32000, hidden 2048, 12 layers, 16 heads
   = 16 KV heads, intermediate 5632), B 8, S 1024, full recompute of
   every layer, the fused cross entropy, ``amp.decorate(level="O2",
@@ -45,6 +55,27 @@ configuration at the bench's defaults:
   ``F.cross_entropy`` under ``auto_cast`` O2 (``bench.py:496-537``); a
   Paddle ``Layer`` model whose step takes facade tensors. ``--small``:
   ``resnet18``, B 2, 64 x 64, 3 steps.
+
+- ``yoloe`` (``bench.py:598-668``): ``ppyoloe_s(num_classes=80)``, O2
+  bf16 with master weights, AdamW, its ``loss`` over a seeded stream of 8
+  batches of B 8 images at sides drawn from [320, 416, 512] and 2-15 gt
+  boxes, through ``jit.BucketedFunction`` (images padded onto the side
+  ladder, boxes, labels and the box mask onto [8, 16] with 0).
+  ``--small``: sides [64, 96], B 2, up to 8 boxes, 2 reps.
+- ``ocr`` (``bench.py:671-737``): ``CRNN(num_classes=97)``, O2 bf16 with
+  master weights, AdamW, CTC over a seeded stream of 8 batches of B 32
+  crops 32 high at widths drawn from [96, 160, 256, 320] and labels of
+  2-23 tokens, through ``jit.BucketedFunction`` (widths onto that
+  ladder, labels onto [12, 24] with the blank 0). ``--small``: widths
+  [64, 96], B 4, labels up to 8, 2 reps.
+
+The streams are timed as ``_time_stream`` times them: a warm-up (here
+two passes over the 8 batches: a signature's first call runs eagerly,
+its second captures), then 3 reps over all 8 batches, each ending in one
+synchronisation, the best rep setting images/s. Their line carries
+``distinct_input_shapes``, ``recompiles`` (``compile_count``: one CUDA
+graph a bucket signature), ``stream_batches``, the capture and warm-up
+seconds and the peak memory.
 
 ``--recompute``/``--no-recompute`` and ``--recompute-policy`` (``full``,
 ``dots``, ``dots_no_batch``, ...; ``distributed/fleet/recompute.py``)
@@ -93,12 +124,13 @@ from .models import (BertConfig, BertForPretraining, GPTConfig,
                      bert_base, bert_tiny, llama_tiny)
 from .optimizer import AdamW, Momentum
 
-__all__ = ["gpt13_setup", "llama_setup", "bert_setup", "bert_data",
-           "make_bert_train_fn", "SETUPS", "MASTER_WEIGHT", "build",
-           "make_train_fn", "time_steps", "config_name", "train_run",
-           "bench_model", "bench_gpt13", "bench_llama", "card_label",
-           "facade_step", "resnet_setup", "make_resnet_train_fn",
-           "resnet_data", "H100_BF16_PEAK_TFLOPS"]
+__all__ = ["gpt13_setup", "gpt_setup", "llama_setup", "bert_setup",
+           "bert_data", "make_bert_train_fn", "SETUPS", "MASTER_WEIGHT",
+           "build", "make_train_fn", "time_steps", "config_name",
+           "train_run", "bench_model", "bench_gpt13", "bench_llama",
+           "card_label", "facade_step", "resnet_setup",
+           "make_resnet_train_fn", "resnet_data", "H100_BF16_PEAK_TFLOPS",
+           "STREAMS", "build_vision", "time_stream", "bench_stream"]
 
 H100_BF16_PEAK_TFLOPS = 989.0  # dense, SXM, 700 W (NVIDIA data sheet)
 
@@ -118,6 +150,23 @@ def gpt13_setup(small: bool):
                     num_heads=16, max_position_embeddings=max(S, 1024),
                     hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
                     fused_loss=True)
+    return cfg, 8, S, 10
+
+
+def gpt_setup(small: bool):
+    """``(config, batch, seq, steps)`` of ``bench_gpt`` (GPT-355M) at its
+    defaults."""
+    if small:
+        S = 256
+        cfg = GPTConfig(vocab_size=2048, hidden_size=256, num_layers=4,
+                        num_heads=8, max_position_embeddings=max(S, 512),
+                        hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+        return cfg, 4, S, 5
+    S = 1024
+    cfg = GPTConfig(vocab_size=50304, hidden_size=1024, num_layers=24,
+                    num_heads=16, max_position_embeddings=max(S, 1024),
+                    hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                    fused_loss=False)
     return cfg, 8, S, 10
 
 
@@ -151,10 +200,10 @@ def resnet_setup(small: bool):
     return "resnet50", 64, 224, 10
 
 
-SETUPS = {"gpt13": gpt13_setup, "llama": llama_setup, "bert": bert_setup,
-          "resnet50": resnet_setup}
+SETUPS = {"gpt13": gpt13_setup, "gpt": gpt_setup, "llama": llama_setup,
+          "bert": bert_setup, "resnet50": resnet_setup}
 # each bench's decorate: gpt13 without master weights, the others with
-MASTER_WEIGHT = {"gpt13": False, "llama": None, "bert": None,
+MASTER_WEIGHT = {"gpt13": False, "gpt": None, "llama": None, "bert": None,
                  "resnet50": None}
 
 
@@ -337,6 +386,8 @@ def config_name(model: str, cfg, B: int, S: int) -> str:
                       else "")
     if model == "gpt13":
         return "gpt13" + head + rc + "-fce-nomaster"
+    if model == "gpt":
+        return "gpt" + head + rc + ("-fce" if cfg.fused_loss else "")
     return "llama" + head + rc + ("-fce" if cfg.fused_loss else "")
 
 
@@ -357,7 +408,7 @@ def train_run(model: str = "gpt13", small: bool = False, device=None,
     device = resolve_device(device)
     cfg, B, S, default_steps = SETUPS[model](small)
     if recompute is not None or recompute_policy is not None:
-        if model not in ("gpt13", "llama"):
+        if model not in ("gpt13", "gpt", "llama"):
             raise ValueError(f"--recompute is a GPT or Llama setting, not "
                              f"{model}'s")
         cfg = dataclasses.replace(
@@ -453,9 +504,209 @@ def bench_llama(small: bool = False, device=None,
     return bench_model("llama", small, device, steps, reps, eager)
 
 
+# ------------------------------------------------ dynamic-shape vision
+def yoloe_setup(small: bool):
+    """``(side ladder, batch, most gt boxes, reps)`` of ``bench_yoloe``."""
+    if small:
+        return [64, 96], 2, 8, 2
+    return [320, 416, 512], 8, 16, 3
+
+
+def ocr_setup(small: bool):
+    """``(width ladder, batch, longest label, reps)`` of ``bench_ocr``."""
+    if small:
+        return [64, 96], 4, 8, 2
+    return [96, 160, 256, 320], 32, 24, 3
+
+
+def yoloe_stream(sizes, B: int, M_max: int, device, n: int = 8):
+    """``bench_yoloe``'s seeded stream: ``n`` batches of images at drawn
+    sides, xyxy gt boxes, labels in [0, 80) and an all-ones box mask, as
+    facade tensors on ``device`` (numpy seed 0, the same draws in the same
+    order)."""
+    import paddle_tpu_torch as paddle
+
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(n):
+        H = int(rng.choice(sizes))
+        W = int(rng.choice(sizes))
+        M = int(rng.integers(2, M_max))
+        imgs = rng.standard_normal((B, 3, H, W)).astype("float32")
+        xy = rng.uniform(0, min(H, W) * 0.6, (B, M, 2)).astype("float32")
+        wh = rng.uniform(8, min(H, W) * 0.3, (B, M, 2)).astype("float32")
+        boxes = np.concatenate([xy, xy + wh], -1)
+        labels = rng.integers(0, 80, (B, M))
+        batches.append(tuple(paddle.to_tensor(a, place=device) for a in (
+            imgs, boxes, labels, np.ones((B, M), "float32"))))
+    return batches
+
+
+def ocr_stream(widths, B: int, L_max: int, device, n: int = 8):
+    """``bench_ocr``'s seeded stream: ``n`` batches of crops 32 high at
+    drawn widths, labels in [1, 97) and their lengths, as facade tensors
+    on ``device``."""
+    import paddle_tpu_torch as paddle
+
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(n):
+        W = int(rng.choice(widths))
+        L = int(rng.integers(2, L_max))
+        imgs = rng.standard_normal((B, 3, 32, W)).astype("float32")
+        labels = rng.integers(1, 97, (B, L))
+        batches.append(tuple(paddle.to_tensor(a, place=device) for a in (
+            imgs, labels, np.full((B,), L, "int64"))))
+    return batches
+
+
+def build_vision(make, device):
+    """``make()`` on ``device`` from ``generator.seed(0)`` and its AdamW,
+    O2 bf16 with master weights."""
+    generator.seed(0)
+    with using_device(device):
+        model = make()
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    return amp.decorate(model, opt, level="O2", dtype="bfloat16")
+
+
+def build_yoloe(device):
+    """``ppyoloe_s(num_classes=80)`` and its AdamW, O2 bf16 with master
+    weights, from ``generator.seed(0)``."""
+    from .vision.models import ppyoloe_s
+
+    return build_vision(lambda: ppyoloe_s(num_classes=80), device)
+
+
+def build_ocr(device):
+    """``CRNN(num_classes=97)`` and its AdamW, O2 bf16 with master
+    weights, from ``generator.seed(0)``."""
+    from .vision.models import CRNN
+
+    return build_vision(lambda: CRNN(num_classes=97), device)
+
+
+def make_yoloe_train_fn(model, opt) -> Callable:
+    """``bench_yoloe``'s ``train_fn`` (``bench.py:619``)."""
+    def train_fn(imgs, gt_boxes, gt_labels, gt_mask):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = model.loss(model(imgs), gt_boxes, gt_labels, gt_mask)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return train_fn
+
+
+def make_ocr_train_fn(model, opt) -> Callable:
+    """``bench_ocr``'s ``train_fn`` (``bench.py:692``)."""
+    def train_fn(imgs, labels, label_lengths):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            log_probs = model(imgs)
+            loss = model.loss(log_probs, labels, label_lengths)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return train_fn
+
+
+def yoloe_step(train_fn, model, opt, sizes, M_max: int):
+    """The bucketed step: image sides onto ``sizes``, the box axis onto
+    ``[M_max // 2, M_max]``, boxes, labels and the mask padded with 0."""
+    mladder = [M_max // 2, M_max]
+    return jit.BucketedFunction(
+        train_fn, axes={0: {2: sizes, 3: sizes}, 1: {1: mladder},
+                        2: {1: mladder}, 3: {1: mladder}},
+        pad_values={1: 0.0, 2: 0, 3: 0.0}, observe=[model, opt])
+
+
+def ocr_step(train_fn, model, opt, widths, L_max: int):
+    """The bucketed step: widths onto ``widths``, labels onto ``[L_max //
+    2, L_max]`` padded with the blank 0."""
+    return jit.BucketedFunction(
+        train_fn, axes={0: {3: widths}, 1: {1: [L_max // 2, L_max]}},
+        pad_values={1: 0}, observe=[model, opt])
+
+
+def time_stream(step: Callable, batches, reps: int, device: torch.device,
+                after_warmup: Optional[Callable] = None):
+    """``(best seconds of a pass, warm-up seconds, every step's loss)``:
+    two warm-up passes over ``batches`` (each signature's eager first
+    call, then its capture), ``after_warmup()`` when given, then ``reps``
+    passes with one synchronisation at each pass's end."""
+    losses: List[torch.Tensor] = []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        for b in batches:
+            losses.append(step(*b).detach())
+    _sync(device)
+    warm_s = time.perf_counter() - t0
+    if after_warmup is not None:
+        after_warmup()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for b in batches:
+            losses.append(step(*b).detach())
+        _sync(device)
+        best = min(best, time.perf_counter() - t0)
+    return best, warm_s, [float(x) for x in losses]
+
+
+STREAMS = {"yoloe": (yoloe_setup, yoloe_stream, build_yoloe,
+                     make_yoloe_train_fn, yoloe_step),
+           "ocr": (ocr_setup, ocr_stream, build_ocr, make_ocr_train_fn,
+                   ocr_step)}
+
+
+def bench_stream(model: str = "yoloe", small: bool = False, device=None,
+                 reps: Optional[int] = None) -> dict:
+    """``bench_yoloe``'s or ``bench_ocr``'s record: images/s over the
+    stream, its distinct input shapes, the signatures captured
+    (``recompiles``), capture and warm-up seconds, peak memory and every
+    step's loss."""
+    setup, stream, build_, make_fn, make_step = STREAMS[model]
+    device = resolve_device(device)
+    ladder, B, longest, default_reps = setup(small)
+    reps = default_reps if reps is None else int(reps)
+    net, opt = build_(device)
+    step = make_step(make_fn(net, opt), net, opt, ladder, longest)
+    batches = stream(ladder, B, longest, device)
+    distinct = len({tuple(b[0].shape) + tuple(b[1].shape) for b in batches})
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    best, warm_s, losses = time_stream(step, batches, reps, device)
+    capture = step._fn.capture_seconds()
+    name = "ppyoloe_s" if model == "yoloe" else "crnn"
+    what = f"sizes{ladder}" if model == "yoloe" else f"w{ladder}"
+    return {
+        "metric": f"{model}_images_per_sec_per_chip",
+        "value": round(len(batches) * B / best, 1),
+        "unit": "imgs/s",
+        "vs_baseline": 1.0,
+        "config": f"{name}-b{B}-{what}-bf16-bucketed",
+        "distinct_input_shapes": distinct,
+        "recompiles": step.compile_count,
+        "max_programs": step.max_programs(),
+        "stream_batches": len(batches),
+        "stream_ms": round(1000 * best, 2),
+        "warmup_s": round(warm_s, 2),
+        "capture_s": round(sum(capture.values()), 3) if capture else None,
+        "loss": losses[-1],
+        "losses": losses,
+        "peak_memory_gib": (round(torch.cuda.max_memory_allocated(device)
+                                  / 2**30, 2)
+                            if device.type == "cuda" else None),
+        "graphed": device.type == "cuda",
+        "device": card_label(device),
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=sorted(SETUPS), default="gpt13")
+    ap.add_argument("--model", choices=sorted(SETUPS) + sorted(STREAMS),
+                    default="gpt13")
     ap.add_argument("--small", action="store_true",
                     help="the bench's small configuration")
     ap.add_argument("--device", default=None,
@@ -475,11 +726,14 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.benchmark = False
-    rec = bench_model(args.model, args.small, args.device, eager=args.eager,
-                      recompute=args.recompute,
-                      recompute_policy=args.recompute_policy)
+    if args.model in STREAMS:
+        rec = bench_stream(args.model, args.small, args.device)
+    else:
+        rec = bench_model(args.model, args.small, args.device,
+                          eager=args.eager, recompute=args.recompute,
+                          recompute_policy=args.recompute_policy)
+        rec.pop("steps_run")
     rec.pop("losses")
-    rec.pop("steps_run")
     print(json.dumps(rec), flush=True)
 
 

@@ -4,9 +4,12 @@ input signature (:mod:`.static_function`), with ``InputSpec``,
 ``not_to_static``, ``enable_to_static``, ``ignore_module``,
 ``set_code_level``, ``set_verbosity`` and the compile-cache functions.
 
+``BucketedFunction`` (:mod:`.bucketing`) pads dynamic dims onto bucket
+ladders first, so a stream of shapes captures one graph per bucket.
+
 Not ported yet: ``save``/``load``/``TranslatedLayer`` (a deployment
-artifact; ``torch.export`` is the counterpart), ``BucketedFunction`` and
-the ``dy2static`` AST pass.
+artifact; ``torch.export`` is the counterpart) and the ``dy2static`` AST
+pass.
 """
 from __future__ import annotations
 
@@ -14,13 +17,16 @@ from typing import Callable
 
 import torch
 
+from .bucketing import (BucketedFunction, bucket_for, pad_to_bucket,
+                        pow2_buckets)
 from .static_function import (InputSpec, StaticFunction, clear_compile_cache,
                               get_compile_cache_dir, set_compile_cache_dir)
 
 __all__ = ["to_static", "not_to_static", "StaticFunction", "InputSpec",
            "enable_to_static", "ignore_module", "set_code_level",
-           "set_verbosity", "set_compile_cache_dir", "get_compile_cache_dir",
-           "clear_compile_cache"]
+           "set_verbosity", "BucketedFunction", "bucket_for",
+           "pad_to_bucket", "pow2_buckets", "set_compile_cache_dir",
+           "get_compile_cache_dir", "clear_compile_cache"]
 
 _to_static_enabled = True
 

@@ -72,8 +72,9 @@ bounds, since a counter cannot see a kernel launched through ctypes;
 ``peak_bytes`` (the device memory allocated at the peak of that call, on
 the card; None on the CPU). Unlike XLA's, the count leaves out the
 elementwise work (activations, norms, the optimizer's update). Before
-any call it is None. Not ported: ``lower``, ``jit.save``/``load``,
-``BucketedFunction`` and the ``dy2static`` AST pass.
+any call it is None. Not ported: ``lower``, ``jit.save``/``load`` and
+the ``dy2static`` AST pass (``BucketedFunction`` is in
+:mod:`.bucketing`).
 """
 from __future__ import annotations
 

@@ -359,23 +359,27 @@ def ctc_loss(log_probs, labels, input_lengths, label_lengths,
     lbl = as_torch(labels, lp).to(torch.int64)
     in_len = as_torch(input_lengths, lp).to(torch.int64).to(dev)
     lbl_len = as_torch(label_lengths, lp).to(torch.int64).to(dev)
-    T, N, _ = lp.shape
+    T, N, C = lp.shape
     S = lbl.shape[1]
     L = 2 * S + 1
     ext = torch.full((N, L), blank, dtype=torch.int64, device=dev)
     ext[:, 1::2] = lbl
+    # every frame's log-prob of each extended label, as one product with
+    # the labels' one-hot rows: its backward sums in a fixed order, where
+    # a gather's scatter-add over repeated labels (the blanks) adds in the
+    # order its atomics land, so a captured step and its eager twin differ
+    onehot = (ext[..., None] == torch.arange(C, device=dev)).to(lp.dtype)
+    lp_ext = torch.einsum("tnc,nlc->tnl", lp, onehot)
     neg = torch.full((), -1e30, dtype=lp.dtype, device=dev)
     alpha = torch.full((N, L), -1e30, dtype=lp.dtype, device=dev)
-    alpha = torch.cat([lp[0, :, blank][:, None],
-                       lp[0].gather(1, ext[:, 1:2]), alpha[:, 2:]], 1)
+    alpha = torch.cat([lp_ext[0, :, :2], alpha[:, 2:]], 1)
     same2 = torch.cat([torch.ones((N, 2), dtype=torch.bool, device=dev),
                        ext[:, 2:] == ext[:, :-2]], 1)
     for t in range(1, T):
         s1 = torch.cat([neg.expand(N, 1), alpha[:, :-1]], 1)
         s2 = torch.cat([neg.expand(N, 2), alpha[:, :-2]], 1)
         s2 = torch.where(same2, neg, s2)
-        new = torch.logaddexp(torch.logaddexp(alpha, s1), s2) \
-            + lp[t].gather(1, ext)
+        new = torch.logaddexp(torch.logaddexp(alpha, s1), s2) + lp_ext[t]
         alpha = torch.where((t < in_len)[:, None], new, alpha)
     last = 2 * lbl_len
     a_n = alpha.gather(1, last[:, None]).squeeze(1)

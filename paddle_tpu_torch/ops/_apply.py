@@ -12,8 +12,9 @@ the JAX package's type rules (it runs with ``jax_enable_x64``):
   integer or bool tensor, which gives float64 (torch would give f32). Two
   tensors of different dtypes meet at ``torch.promote_types``, whatever
   their ranks (torch alone lets a 0-d tensor's dtype lose to the other's
-  within a kind; JAX does not). A numpy scalar is a 0-d tensor of its
-  own dtype.
+  within a kind; JAX does not), after the amp cast of the op's inputs (a
+  bf16 and an f64 tensor meet as bf16 under O2, as in JAX). A numpy
+  scalar is a 0-d tensor of its own dtype.
 - :func:`inexact` is JAX's cast of an integer input to an op that gives
   floats: int64 to float64, other integers and bool to float32.
 """
@@ -101,8 +102,13 @@ def binary(fn, x, y, attrs=None, differentiable=True, name=""):
     yt = _strong(y, xt) if isinstance(y, np.generic) else \
         ensure_tensor(y, ref=xt)
     if xt._value.dtype != yt._value.dtype:
-        dt = torch.promote_types(xt._value.dtype, yt._value.dtype)
-        return apply_op(lambda a, b: fn(a.to(dt), b.to(dt), **kw), [xt, yt],
-                        None, differentiable=differentiable, name=name)
+        # promoted after the amp cast, as the JAX op promotes what it is
+        # given: under auto_cast both may already share a dtype
+        def promoted(a, b):
+            dt = torch.promote_types(a.dtype, b.dtype)
+            return fn(a.to(dt), b.to(dt), **kw)
+
+        return apply_op(promoted, [xt, yt], None,
+                        differentiable=differentiable, name=name)
     return apply_op(fn, [xt, yt], attrs, differentiable=differentiable,
                     name=name)

@@ -248,9 +248,9 @@ def held(case: str, got, want, tol: float = 1e-6) -> bool:
         np.allclose(got, want, rtol=tol, atol=tol)
 
 
-def run_cases(device: str = "cpu", cases=None) -> Dict[str, object]:
+def run_cases(device: str = "cuda", cases=None) -> Dict[str, object]:
     """Every case (or ``cases``) on this rank, after ``init_parallel_env``:
-    ``{case: result}``."""
+    ``{case: result}``, on the card unless ``device`` says ``"cpu"``."""
     import paddle_tpu_torch.distributed as dist
 
     rank, world = dist.get_rank(), dist.get_world_size()

@@ -46,9 +46,12 @@ class ToyDataset(Dataset):
 def _reset():
     import paddle_tpu_torch as paddle
 
+    prev = paddle.get_device() if paddle.device._current is not None \
+        else None
     paddle.set_device("cpu")
     yield
     _teardown()
+    paddle.set_device(prev)
 
 
 def _teardown():

@@ -31,10 +31,15 @@ PKGS = {"jax": (jfleet, jutils), "torch": (tfleet, tutils)}
 
 @pytest.fixture(autouse=True)
 def on_cpu():
+    """The CPU for the test, then the device it was (a later test in the
+    worker may expect the card)."""
     import paddle_tpu_torch as paddle
 
+    prev = paddle.get_device() if paddle.device._current is not None \
+        else None
     paddle.set_device("cpu")
     yield
+    paddle.set_device(prev)
 
 
 # ------------------------------------------------------------------ fs

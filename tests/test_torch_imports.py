@@ -421,25 +421,23 @@ def test_nn_and_vision_export_the_ported_jax_names():
     """``paddle.nn`` has every class of the JAX package's conv, pooling
     and RNN modules and ``paddle.nn.functional`` every functional of its
     conv and pooling modules; ``paddle.vision`` and ``vision.models``
-    export the ResNet family's names (those of ``resnet.py``) and no
-    other model's."""
+    export every model name of the JAX package's ``vision.models`` (the
+    whole zoo is ported), and ``paddle.vision`` the ``ops`` module."""
     import paddle_tpu as pt
     import paddle_tpu_torch as paddle
     from paddle_tpu.nn.functional import conv as jconv, pooling as jpool
     from paddle_tpu.nn.layer import conv, pooling, rnn
-    from paddle_tpu.vision.models import resnet as jresnet
 
     for mod in (conv, pooling, rnn):
         assert all(hasattr(paddle.nn, n) for n in mod.__all__), mod
     for mod in (jconv, jpool):
         assert set(mod.__all__) <= set(paddle.nn.functional.__all__)
-    names = set(jresnet.__all__)
+    names = set(pt.vision.models.__all__)
     assert set(paddle.vision.models.__all__) == names
-    assert set(paddle.vision.__all__) == names | {"models"}
+    assert set(paddle.vision.__all__) == names | {"models", "ops"}
     assert all(getattr(paddle.vision, n) is getattr(paddle.vision.models, n)
                for n in names)
-    assert hasattr(pt.vision.models, "LeNet") \
-        and not hasattr(paddle.vision.models, "LeNet")
+    assert hasattr(paddle.vision.models, "LeNet")
     assert "vision" in paddle.__all__
 
 
@@ -707,3 +705,68 @@ def test_cost_analysis_is_none_before_a_call_and_counts_after():
         assert sf.cost_analysis(next(iter(sf._cache))) == cost
     finally:
         paddle.set_device(None)
+
+
+def test_zoo_slice_modules_import_no_jax():
+    """The model zoo's slice: every new module is walked by the probe
+    (no jax) and names no forbidden import."""
+    new = ["vision.ops", "vision.ops_extra", "vision.models.simple_nets",
+           "vision.models.mobilenet", "vision.models.extra_nets",
+           "vision.models.detection", "vision.models.ocr", "jit.bucketing",
+           "tools.zoo_drills"]
+    for m in new:
+        path = PKG.joinpath(*m.split(".")).with_suffix(".py")
+        assert path.exists(), path
+        assert not [n for _, n in _imports(path) if _forbidden(n)]
+    probe = ("import importlib, sys\n"
+             + "".join(f"importlib.import_module('paddle_tpu_torch.{m}')\n"
+                       for m in new)
+             + "bad = [m for m in sys.modules if m.split('.')[0] in "
+               "('jax', 'jaxlib', 'paddle_tpu')]\n"
+               "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, cwd=str(REPO), env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+# names of the JAX package's exports that the port has not ported yet
+JIT_QUEUED = {"save", "load", "TranslatedLayer"}
+
+
+def test_exports_equal_the_jax_packages():
+    """``vision.models.__all__`` equals the JAX one; ``jit.__all__`` equals
+    it but for the names still queued (``JIT_QUEUED``); ``vision.ops``
+    exports the same names."""
+    import paddle_tpu as pt
+    import paddle_tpu_torch as paddle
+
+    assert paddle.vision.models.__all__ == pt.vision.models.__all__
+    assert set(paddle.jit.__all__) == set(pt.jit.__all__) - JIT_QUEUED
+    assert not JIT_QUEUED & set(paddle.jit.__all__)
+    assert paddle.vision.ops.__all__ == pt.vision.ops.__all__
+    for name in paddle.vision.models.__all__:
+        assert hasattr(paddle.vision.models, name), name
+
+
+def test_zoo_entry_points_need_a_card(no_cuda):
+    """The zoo's models, ``bench --model gpt|yoloe|ocr``, the drills and
+    ``dist_cases.run_cases`` resolve to the card."""
+    import inspect
+
+    from paddle_tpu_torch import bench, vision
+    from paddle_tpu_torch.tools import dist_cases, zoo_drills
+
+    with pytest.raises(RuntimeError):
+        vision.models.mobilenet_v3_small(num_classes=10)
+    with pytest.raises(RuntimeError):
+        vision.models.ppyoloe_s()
+    for model in ("gpt", "yoloe", "ocr"):
+        with pytest.raises(RuntimeError):
+            bench.main(["--model", model, "--small"])
+    with pytest.raises(RuntimeError):
+        zoo_drills.run(small=True)
+    assert inspect.signature(dist_cases.run_cases).parameters[
+        "device"].default == "cuda"

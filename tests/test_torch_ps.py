@@ -29,8 +29,13 @@ PKGS = {"jax": jps, "torch": tps}
 
 @pytest.fixture(autouse=True)
 def on_cpu():
+    """The CPU for the test, then the device it was (a later test in the
+    worker may expect the card)."""
+    prev = paddle.get_device() if paddle.device._current is not None \
+        else None
     paddle.set_device("cpu")
     yield
+    paddle.set_device(prev)
 
 
 def _both(fn):
