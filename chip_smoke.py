@@ -338,7 +338,8 @@ Phases, in order; any failure exits non-zero before the result line:
    ``pipeline_1f1b_train``, gradients within their tolerance of one
    model's, each beside a control outside it (one backward send lost;
    the loss not divided by the microbatch count), and VPP 2's logits.
-   (f) gpt13's whole train state saved and restored through
+   (f) gpt13's whole train state (at its width, ``STATE_LAYERS`` of its
+   24 layers since PR 21) saved and restored through
    ``CheckpointManager``, timed, bit for bit (GPT-355M's when the disk
    or host memory is under twice the state). (g) Sequence and expert
    parallelism (``tools/sep_moe_drills.py``): ring attention's block
@@ -377,7 +378,8 @@ Phases, in order; any failure exits non-zero before the result line:
    beside a control without the push, 200 steps timed (steps/s, pull and
    push ms, table rows), then two async trainers whose loss falls and
    whose communicator merged rows. Then bucket independence
-   (``bucket_independence``): Llama-0.76B served graphed at token
+   (``bucket_independence``): Llama-0.76B (at its width,
+   ``BUCKET_LAYERS`` of its 12 layers since PR 21) served graphed at token
    budgets 16, 64 and 1024 on 4 seeds of the serve workload, the streams
    that differ from budget 1024's counted, with the first differing
    position and the gap between the two tokens' logits there.
@@ -406,6 +408,24 @@ Phases, in order; any failure exits non-zero before the result line:
    on ``bench --model ocr``'s stream (widths [96, 160, 256, 320], B 32,
    labels up to 24, 97 classes), checked and timed as (c); every
    graphed step under cuDNN's defaults. Prints one JSON line a part.
+25. Deploy (i) (``phase_deploy_i``, ``tools/deploy_drills.py``): (a)
+   GPT-355M (``bench --model gpt``'s, O2 bf16 from its seed) exported by
+   ``jit.save`` (dynamic batch, S 1024; one ``paddle_tpu_torch::flash_fwd``
+   node, K1, a layer), served by ``inference.create_predictor`` on the
+   card at B 8 and B 2: logits bit for bit the eager model's, K1 24
+   launches a call, K2-K5, the embedding kernel and the plain versions
+   none; (b) the same artifact through the ``PD_*`` C API at B 2, equal;
+   (c) ``convert_to_mixed_precision`` to bf16 storage, reloaded, equal;
+   (d) ``profiler.Profiler`` (``make_scheduler(closed=1, ready=1,
+   record=2)``, ``export_chrome_tracing``) around four calls of the bench
+   step: the trace's K1/K2/K3 device events equal the launch counters
+   over the two recorded steps, the step spans there, ``summary()``'s
+   device operations printed; (e) the device API (memory queries equal
+   ``torch.cuda``'s, an ``Event`` pair timing K1, K1 under
+   ``stream_guard(Stream())`` equal and on another stream, the operator's
+   host cost per eager call); (f) one QAT step of a conv + linear net on
+   the card against the CPU within ``QAT_TOL``. Prints one JSON line a
+   part.
 
 The last two lines are the kernels' JSON record (K1-K3 with their
 launches by path: ``train_gpt13``, ``train_llama``,
@@ -421,7 +441,9 @@ p_g_os}_gpt355m``, ``train_pp_1f1b_gpt355m``,
 ``train_pp_model_gpt355m``, ``vpp_forward_gpt355m``,
 ``train_sep2_llama076b``, ``train_engine_gpt13``,
 ``train_engine_dp2_gpt355m`` (the two-rank paths summed over the ranks),
-``train_gpt355m``, and 0 on ``zoo_forward``, ``zoo_train``,
+``train_gpt355m``, ``profile_gpt355m``, ``infer_gpt355m``,
+``infer_capi_gpt355m``, ``infer_bf16_store_gpt355m`` (K1 only: 24 a
+call), and 0 on ``zoo_forward``, ``zoo_train``,
 ``train_yoloe_stream`` and ``train_ocr_stream``; on
 a graphed path the eager first
 step's launches plus the replayed ones; and ``bert_case``, their times at
@@ -3837,7 +3859,8 @@ ZERO_LEVELS = ("os", "os_g", "p_g_os")
 
 def state_roundtrip(torch, card):
     """Part 4 of the distributed phase: gpt13's whole train state (its
-    bf16 parameters and AdamW's moments after one step, at world size 1)
+    first ``STATE_LAYERS`` layers at its width: the bf16 parameters and
+    AdamW's moments after one step, at world size 1)
     saved through ``CheckpointManager`` and restored whole on the card,
     timed, every leaf bit for bit. The free disk under ``TMPDIR`` and the
     host's available memory are read first; either under twice the
@@ -3851,7 +3874,10 @@ def state_roundtrip(torch, card):
     from paddle_tpu_torch.checkpoint import CheckpointManager
     from paddle_tpu_torch.tools import dist_drills
 
+    import dataclasses
+
     cfg, B, S, _ = bench.SETUPS["gpt13"](False)
+    cfg = dataclasses.replace(cfg, num_layers=STATE_LAYERS)
     n_params = 1313.7e6   # gpt13's parameters; bf16, two bf16 moments
     need = 2 * n_params * (2 + 2 * 2)
     tmp = tempfile.gettempdir()
@@ -3875,6 +3901,7 @@ def state_roundtrip(torch, card):
     ids = torch.from_numpy(rng.integers(0, model.config.vocab_size,
                                         (2, S))).cuda()
     bench.make_train_fn(model, opt)(ids, ids.roll(-1, 1))
+    rec["layers"] = model.config.num_layers
     state = {"model": model.state_dict(), "opt": opt.state_dict()}
     flat = [v for v in state["model"].values()] + [
         v for v in state["opt"].values() if hasattr(v, "numel")]
@@ -3907,6 +3934,7 @@ def state_roundtrip(torch, card):
     rec["restore_gb_per_s"] = rec["state_bytes"] / rec["restore_s"] / 1e9
     log("distributed state_roundtrip: " + json.dumps(rec))
     log(f"distributed state_roundtrip ({card}): {rec['model']} "
+        f"({rec['layers']} layers) "
         f"{rec['state_bytes']} bytes in {rec['leaves']} leaves, save "
         f"{rec['save_s']:.2f} s, restore {rec['restore_s']:.2f} s, "
         "bit for bit")
@@ -4147,8 +4175,15 @@ def phase_distributed(torch, card):
             "state_roundtrip": roundtrip}
 
 
+# the depth of the earlier count-free paths, cut so the smoke stays well
+# inside its limit as phases are added (widths and checks unchanged)
+BUCKET_LAYERS = 6          # of Llama-0.76B's 12 (PR 21)
+STATE_LAYERS = 12          # of gpt13's 24 (PR 21)
+
+
 def bucket_independence(torch, card):
-    """Llama-0.76B served graphed at token budgets 16, 64 and 1024 on 4
+    """Llama-0.76B (its first ``BUCKET_LAYERS`` layers) served graphed at
+    token budgets 16, 64 and 1024 on 4
     seeds of the serve workload (``phase_serve``'s: 8 requests of
     64-1024 prompt tokens, 64 new, two sampled at temperature 0.8), one
     engine a budget, its prefix cache cleared between seeds: each
@@ -4162,8 +4197,10 @@ def bucket_independence(torch, card):
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.serving import ServingEngine
 
+    import dataclasses
+
     t0 = time.perf_counter()
-    cfg = llama_076b()
+    cfg = dataclasses.replace(llama_076b(), num_layers=BUCKET_LAYERS)
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                              seed=0)
     budgets = (1024, 64, 16)
@@ -4211,7 +4248,8 @@ def bucket_independence(torch, card):
                              top2_gap=float(last.topk(2).values.diff()
                                             .abs()[0]))
                 diffs.append(d)
-    rec = {"card": card, "budgets": list(budgets), "seeds": 4,
+    rec = {"card": card, "layers": cfg.num_layers,
+           "budgets": list(budgets), "seeds": 4,
            "streams_compared": 2 * 4 * 8, "streams_differing": len(diffs),
            "differences": diffs,
            "steps": {f"{b}/{s}": n for (b, s), n in steps.items()},
@@ -4219,7 +4257,8 @@ def bucket_independence(torch, card):
     del model
     torch.cuda.empty_cache()
     log("bucket independence: " + json.dumps(rec))
-    log(f"bucket independence ({card}): Llama-0.76B graphed, budgets 16 "
+    log(f"bucket independence ({card}): Llama-0.76B ({cfg.num_layers} "
+        "layers) graphed, budgets 16 "
         f"and 64 against 1024, 4 seeds x 8 requests: "
         f"{len(diffs)} of {rec['streams_compared']} streams differ"
         + ("".join(f"; budget {d['budget']} seed {d['seed']} request "
@@ -4316,6 +4355,46 @@ def phase_zoo_h(torch, card):
         f"{c['predict']['nms_ms']:.1f} ms; seconds "
         + json.dumps({k: round(v, 1) for k, v in r["seconds"].items()})
         + f", phase {time.perf_counter() - t0:.1f} s")
+    return r
+
+
+def phase_deploy_i(torch, card):
+    """Phase 25 (module docstring): ``tools/deploy_drills.py``'s six
+    parts. Prints one JSON line a part and a summary; returns the drills'
+    record (``launches`` by path)."""
+    from paddle_tpu_torch.tools import deploy_drills as d
+
+    t0 = time.perf_counter()
+    try:
+        r = d.run("cuda", small=False, log=log)
+    except (d.DrillFailed, RuntimeError, ValueError) as e:
+        fail(f"deploy (i): {e}")
+    a, p, e, q = r["serve"], r["profile"], r["device_api"], r["qat"]
+    log(f"deploy (i) ({card}): (a) GPT-355M exported in "
+        f"{a['export_s']:.1f} s ({a['flash_nodes']} K1 nodes, .pdmodel "
+        f"{a['pdmodel_bytes']} bytes, .pdiparams {a['pdiparams_bytes']}), "
+        f"loaded in {a['load_s']:.1f} s; logits bit for bit eager "
+        + json.dumps(a["predictor_equal"]) + ", ms a call predictor / eager "
+        + json.dumps({b: [round(a['predictor_ms'][b], 3),
+                          round(a['eager_ms'][b], 3)]
+                      for b in a["predictor_ms"]})
+        + f", K1 {a['launches_predictor']['flash_fwd']} a call; (b) C API "
+        f"equal {a['capi_equal']}; (c) bf16 storage equal "
+        f"{a['bf16_store_equal']} (.pdiparams {a['bf16_pdiparams_bytes']} "
+        f"bytes); (d) trace K1/K2/K3 events {p['in_trace']} = counters "
+        f"over 2 steps, {p['device_events']} device events, "
+        f"{p['device_ms_per_step']:.3f} device ms a step; (e) K1 "
+        f"{e['k1_event_ms']:.4f} ms by Event, side stream equal "
+        f"{e['side_equal']} on streams {e['k1_streams']}, the operator's "
+        f"host cost {e['op_overhead_us']:.1f} us a call "
+        + json.dumps({k: round(v, 1) for k, v in e["dispatch_us"].items()})
+        + f"; (f) QAT card/CPU worst {q['worst_rel_to_max']:.2e}; seconds "
+        + json.dumps({k: round(v, 1) for k, v in r["seconds"].items()})
+        + f", phase {time.perf_counter() - t0:.1f} s")
+    log(f"deploy (i) ({card}): GPT-355M bench step (replayed) by device "
+        "time, ms a step and launches by part: "
+        + json.dumps(p["groups_ms_per_step"]) + "; by kernel: "
+        + json.dumps([(n[:60], t, c) for n, t, c in p["top"]]))
     return r
 
 
@@ -4422,6 +4501,10 @@ def main():
     torch.cuda.empty_cache()
     # GPT-355M's bench step, the zoo and the two bucketed streams
     zoo_paths = timed(phase_zoo_h, torch, card)["launches"]
+    torch.cuda.empty_cache()
+    # GPT-355M exported and served (K1 only), and its profiled bench step
+    deploy_paths = timed(phase_deploy_i, torch, card)["launches"]
+    zoo_paths = zoo_paths | deploy_paths
     dp13 = distributed["dp_gpt13"]
     dist_flash = {"train_dp_gpt13": dp13["flash_launches"],
                   **distributed["drills"]["flash_launches"],

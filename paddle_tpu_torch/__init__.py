@@ -8,8 +8,11 @@ state, grad mode and ``paddle.grad``, ``set_device``/``get_device``, and
 the modules ``autograd``, ``nn``, ``optimizer`` (with ``optimizer.lr``),
 ``amp``, ``jit``, ``linalg``, ``models`` and ``vision``, and
 ``set_flags``/``get_flags``, ``save``/``load``, ``Model`` and the modules
-``io``, ``metric``, ``callbacks``, ``hapi`` and ``checkpoint``, and
-``distributed`` with ``DataParallel``.
+``io``, ``metric``, ``callbacks``, ``hapi`` and ``checkpoint``,
+``distributed`` with ``DataParallel``, and the deployment and
+observability modules ``inference``, ``profiler`` and ``quantization``
+with ``device.cuda``, the places, ``summary``, ``flops`` and the small
+names of ``framework.core_api``.
 
 The JAX package ``paddle_tpu`` is the reference; this package grows
 beside it slice by slice, keeping its module layout and names so each
@@ -52,16 +55,22 @@ expert parallelism (``incubate.distributed.models.moe``); the rest of
 ``distributed`` (the parameter server, ``rpc``, the auto-parallel
 ``Engine``); and the model zoo (``vision.models``: the classification
 nets, PP-YOLOE and PP-OCR), the detection ops (``vision.ops``) and
-``jit.BucketedFunction``, with ``bench --model gpt|yoloe|ocr``.
+``jit.BucketedFunction``, with ``bench --model gpt|yoloe|ocr``; and
+deployment and observability: ``jit.save``/``jit.load`` on
+``torch.export`` (K1 an operator of the exported graph), ``inference``
+with its ``Predictor`` and C API, ``profiler`` on ``torch.profiler``,
+``device.cuda``, QAT/PTQ.
 
 Every entry point runs on ``cuda`` unless given ``device="cpu"`` or told
 ``set_device("cpu")`` (:mod:`.device`); kernels are built from ``csrc/``
 with ``nvcc`` at first use (:mod:`.ops._build`). Not ported yet, of the
-JAX package's namespace: ``jit.save``/``jit.load``, ``static``,
-``hapi.summary``, ``vision``'s ``transforms``, ``datasets`` and image
-backend, ``incubate`` beyond its MoE, ``distribution``, ``fft``,
-``signal``, ``sparse`` and the ``*Place`` classes.
+JAX package's namespace: ``static``, ``vision``'s ``transforms``,
+``datasets`` and image backend, ``incubate`` beyond its MoE,
+``distribution``, ``fft``, ``signal``, ``sparse``, ``onnx`` and the rest
+of ``utils``.
 """
+import torch as _torch
+
 from .device import default_device, get_device, resolve_device, set_device
 from . import dtypes  # noqa: E402
 from .tensor import Parameter, Tensor, to_tensor  # noqa: E402
@@ -76,10 +85,11 @@ from .dtypes import (bfloat16, bool_, complex64, complex128,  # noqa: E402
 from .dtypes import bool_ as bool  # noqa: E402,A001 - Paddle's name
 from . import framework  # noqa: E402
 from .framework.flags import get_flags, set_flags  # noqa: E402
-from .framework.core_api import (create_parameter, dtype,  # noqa: E402
-                                 finfo, get_default_dtype, iinfo,
-                                 in_dynamic_mode, is_tensor,
-                                 set_default_dtype)
+from .framework.core_api import (  # noqa: E402
+    CPUPlace, CUDAPinnedPlace, CUDAPlace, LazyGuard, TPUPlace, batch,
+    check_shape, create_parameter, disable_signal_handler, dtype, finfo,
+    get_cuda_rng_state, get_default_dtype, iinfo, in_dynamic_mode,
+    is_tensor, set_cuda_rng_state, set_default_dtype, set_printoptions)
 from .generator import (default_generator, get_rng_state,  # noqa: E402
                         seed, set_rng_state)
 from . import amp, jit, linalg, models, nn, optimizer, vision  # noqa: E402
@@ -90,6 +100,26 @@ from .hapi import Model  # noqa: E402
 from . import distributed  # noqa: E402
 from .distributed import DataParallel  # noqa: E402
 from . import incubate  # noqa: E402
+from . import (inference, loadgen, profiler, quantization,  # noqa: E402
+               regularizer, sysconfig, utils, version)
+from .hapi import summary  # noqa: E402
+from .nn import ParamAttr  # noqa: E402
+from .utils import flops  # noqa: E402
+
+
+def is_compiled_with_cuda() -> bool:
+    """This build: True when torch was built with CUDA (the JAX package,
+    a TPU build, says False)."""
+    return _torch.version.cuda is not None
+
+
+def is_compiled_with_tpu() -> bool:
+    return False
+
+
+def is_compiled_with_xpu() -> bool:
+    return False
+
 
 __version__ = "0.1.0"
 
@@ -105,5 +135,12 @@ __all__ = (["default_device", "resolve_device", "set_device", "get_device",
             "amp", "jit", "linalg", "models", "nn", "optimizer", "vision",
             "set_flags", "get_flags", "save", "load", "checkpoint", "io",
             "metric", "callbacks", "hapi", "Model", "distributed",
-            "DataParallel", "incubate"]
+            "DataParallel", "incubate", "CPUPlace", "CUDAPlace",
+            "CUDAPinnedPlace", "TPUPlace", "LazyGuard", "batch",
+            "check_shape", "disable_signal_handler", "get_cuda_rng_state",
+            "set_cuda_rng_state", "set_printoptions", "is_compiled_with_cuda",
+            "is_compiled_with_tpu", "is_compiled_with_xpu", "ParamAttr",
+            "inference", "loadgen", "profiler", "quantization",
+            "regularizer", "sysconfig", "utils", "version", "summary",
+            "flops", "device"]
            + [n for n in ops.__all__ if n not in ("to_tensor",)])

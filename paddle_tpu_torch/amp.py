@@ -24,6 +24,7 @@ unfused ``cross_entropy`` f32.
 """
 from __future__ import annotations
 
+import collections.abc
 import contextlib
 import contextvars
 from dataclasses import dataclass
@@ -34,8 +35,10 @@ from torch import nn
 
 from .device import resolve_device
 
-__all__ = ["auto_cast", "decorate", "cast_inputs", "current_state",
-           "restored_state", "GradScaler", "WHITE_LIST", "BLACK_LIST"]
+__all__ = ["auto_cast", "amp_guard", "decorate", "cast_inputs",
+           "current_state", "restored_state", "GradScaler", "WHITE_LIST",
+           "BLACK_LIST", "white_list", "black_list", "amp_state",
+           "is_bfloat16_supported", "is_float16_supported"]
 
 # the JAX package's amp lists (paddle_tpu/amp/__init__.py:31, :40)
 WHITE_LIST = frozenset({
@@ -101,6 +104,54 @@ def auto_cast(enable: bool = True,
              if enable and level != "O0" else None)
     with restored_state(state):
         yield
+
+
+amp_guard = auto_cast  # the legacy name (fluid.dygraph.amp_guard)
+
+
+def white_list():
+    return set(WHITE_LIST)
+
+
+def black_list():
+    return set(BLACK_LIST)
+
+
+class _StateView(collections.abc.Mapping):
+    """``amp.amp_state``: the active ``auto_cast`` state as the JAX
+    package's dict reads (``enabled``, ``dtype``, ``level``, ``white``,
+    ``black``). Read-only: the state is a context variable, set by
+    :func:`auto_cast`."""
+
+    def _view(self) -> dict:
+        st = _state.get()
+        if st is None:
+            return {"enabled": False, "dtype": None, "level": "O1",
+                    "white": frozenset(), "black": frozenset()}
+        return {"enabled": True, "dtype": st.dtype, "level": st.level,
+                "white": st.white, "black": st.black}
+
+    def __getitem__(self, key):
+        return self._view()[key]
+
+    def __iter__(self):
+        return iter(self._view())
+
+    def __len__(self):
+        return 5
+
+
+amp_state = _StateView()
+
+
+def is_bfloat16_supported(device=None) -> bool:
+    """bf16 runs on the card's tensor cores and on the CPU."""
+    return True
+
+
+def is_float16_supported(device=None) -> bool:
+    """fp16 on a card; False without one."""
+    return torch.cuda.is_available()
 
 
 def current_state() -> Optional[_State]:

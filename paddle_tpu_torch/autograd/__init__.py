@@ -11,7 +11,9 @@ from .engine import (apply_op, backward, enable_grad, grad, inplace_rebind,
 from .py_layer import PyLayer, PyLayerContext
 
 saved_tensors_hooks = torch.autograd.graph.saved_tensors_hooks
+# a node of the tape: torch autograd's (``Tensor.grad_fn``)
+GradNode = torch.autograd.graph.Node
 
-__all__ = ["apply_op", "backward", "grad", "is_grad_enabled", "no_grad",
+__all__ = ["GradNode", "apply_op", "backward", "grad", "is_grad_enabled", "no_grad",
            "enable_grad", "set_grad_enabled", "inplace_rebind", "PyLayer",
            "PyLayerContext", "saved_tensors_hooks"]

@@ -31,7 +31,6 @@ import time
 from collections import namedtuple
 from typing import Any, Dict, List, Optional
 
-from .._wire import free_port as _free_port
 from .._wire import recv_msg as _recv_msg
 from .._wire import send_msg as _send_msg
 from ..store import TCPStore
@@ -88,6 +87,9 @@ class _RpcAgent:
         # bind only the advertised interface: the handler runs pickled
         # callables, so don't listen wider than the endpoint contract
         self._sock.bind((ip, port))
+        # port 0: the one the OS gave (no window for another process to
+        # take a port picked and released before this bind)
+        self.port = self._sock.getsockname()[1]
         self._sock.listen(64)
         self._thread = threading.Thread(target=self._serve, daemon=True,
                                         name=f"rpc-agent-{name}")
@@ -203,7 +205,7 @@ def init_rpc(name: str, rank: Optional[int] = None,
                   if world_size is None else world_size)
     endpoint = os.environ.get("PADDLE_WORKER_ENDPOINT")
     if endpoint is None:
-        endpoint = f"{_host_ip()}:{_free_port()}"
+        endpoint = f"{_host_ip()}:0"
     master_endpoint = (master_endpoint if master_endpoint is not None
                        else os.environ["PADDLE_MASTER_ENDPOINT"])
     master_ip, master_port = master_endpoint.rsplit(":", 1)
@@ -214,7 +216,7 @@ def init_rpc(name: str, rank: Optional[int] = None,
     ip, port = endpoint.rsplit(":", 1)
     agent = _RpcAgent(name, rank, ip, int(port))
     _store.set(f"rpc/worker/{rank}",
-               pickle.dumps(WorkerInfo(name, rank, ip, int(port))))
+               pickle.dumps(WorkerInfo(name, rank, ip, agent.port)))
     seen = set()
     for r in range(world_size):
         info = pickle.loads(_store.get(f"rpc/worker/{r}"))

@@ -44,7 +44,8 @@ import torch
 
 __all__ = ["default_generator", "seed", "initial_seed", "set_initial_seed",
            "host_rng", "next_seed", "device_generator", "get_rng_state",
-           "set_rng_state", "SeedTape", "SEED_SLOTS"]
+           "set_rng_state", "get_cuda_rng_state", "set_cuda_rng_state",
+           "SeedTape", "SEED_SLOTS"]
 
 SEED_BOUND = 1 << 24
 # slots of a tape's seed buffer per device: one a dropout site per call
@@ -124,6 +125,19 @@ def set_rng_state(state: torch.Tensor) -> None:
     if _tape is not None:
         _tape.loaded(state)
     default_generator.set_state(state)
+
+
+def get_cuda_rng_state() -> torch.Tensor:
+    """``paddle.get_cuda_rng_state``: every draw on a card is seeded from
+    the global generator (:func:`device_generator`, :func:`next_seed`),
+    so the card's state is that generator's, as the JAX package's one
+    device generator's is."""
+    return get_rng_state()
+
+
+def set_cuda_rng_state(state: torch.Tensor) -> None:
+    """Restore a state from :func:`get_cuda_rng_state`."""
+    set_rng_state(state)
 
 
 class SeedTape:

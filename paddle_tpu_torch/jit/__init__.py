@@ -7,9 +7,9 @@ input signature (:mod:`.static_function`), with ``InputSpec``,
 ``BucketedFunction`` (:mod:`.bucketing`) pads dynamic dims onto bucket
 ladders first, so a stream of shapes captures one graph per bucket.
 
-Not ported yet: ``save``/``load``/``TranslatedLayer`` (a deployment
-artifact; ``torch.export`` is the counterpart) and the ``dy2static`` AST
-pass.
+``save``, ``load`` and ``TranslatedLayer`` (:mod:`.save_load`) write and
+read the deployment artifact on ``torch.export``. Not ported yet: the
+``dy2static`` AST pass.
 """
 from __future__ import annotations
 
@@ -17,12 +17,15 @@ from typing import Callable
 
 import torch
 
+from ..nn.layer_base import Layer
 from .bucketing import (BucketedFunction, bucket_for, pad_to_bucket,
                         pow2_buckets)
 from .static_function import (InputSpec, StaticFunction, clear_compile_cache,
                               get_compile_cache_dir, set_compile_cache_dir)
+from .save_load import TranslatedLayer, load, save
 
-__all__ = ["to_static", "not_to_static", "StaticFunction", "InputSpec",
+__all__ = ["to_static", "not_to_static", "save", "load", "TranslatedLayer",
+           "StaticFunction", "InputSpec",
            "enable_to_static", "ignore_module", "set_code_level",
            "set_verbosity", "BucketedFunction", "bucket_for",
            "pad_to_bucket", "pow2_buckets", "set_compile_cache_dir",
@@ -53,8 +56,8 @@ def not_to_static(function: Callable) -> Callable:
 
 def to_static(function=None, input_spec=None, build_strategy=None,
               backend=None, **kwargs):
-    """Capture a function, or a module's ``forward`` (observing the
-    module), per input signature (``paddle.jit.to_static``); usable as
+    """Capture a function, or a module's or facade Layer's ``forward``
+    (observing it), per input signature (``paddle.jit.to_static``); usable as
     ``@to_static`` or ``to_static(fn, ...)``. ``warmup=`` is passed on
     to :class:`StaticFunction`."""
     warmup = kwargs.pop("warmup", True)
@@ -62,7 +65,7 @@ def to_static(function=None, input_spec=None, build_strategy=None,
     def decorate(obj):
         if not _to_static_enabled:
             return obj
-        if isinstance(obj, torch.nn.Module):
+        if isinstance(obj, (torch.nn.Module, Layer)):
             obj.forward = StaticFunction(obj.forward, input_spec,
                                          observe=[obj], warmup=warmup)
             return obj

@@ -7,7 +7,7 @@ functionals (``functional``) and the layer classes of ``layer.common``,
 ``layer.norm``, ``layer.loss``, ``layer.pooling``, ``layer.rnn``,
 ``layer.transformer`` and ``layer.extended`` (``Softmax2D``, the
 hierarchical-sigmoid, multi-margin and RNN-T losses, beam search),
-exported flat as Paddle does. Not ported yet: ``quant``.
+exported flat as Paddle does, and ``quant`` (``Stub``).
 
 The port's GPT and Llama are ``torch.nn.Module``s built from the
 torch-layout layers of ``models/_modules.py``, not from these.
@@ -37,3 +37,4 @@ __all__ = (["functional", "initializer", "utils", "clip", "Layer",
            + rnn.__all__ + transformer.__all__)
 
 from . import clip  # noqa: E402
+from . import quant  # noqa: E402,F401

@@ -15,6 +15,7 @@ from ... import dtypes
 from ...amp import cast_inputs
 from ...autograd.engine import inplace_rebind
 from ...generator import device_generator
+from ...ops.math import clip_tensor
 from ...tensor import Tensor, facade_io
 from .common import as_torch
 
@@ -54,7 +55,9 @@ def relu_(x, name=None):
 
 @facade_io
 def relu6(x, name=None):
-    return _unary("relu6", lambda a: a.clamp(0.0, 6.0))(x)
+    # jax.nn.relu6's gradient: only where 0 < x < 6 (none at 0 and 6)
+    return _unary("relu6", lambda a: torch.where(
+        (a > 0.0) & (a < 6.0), a, a.clamp(0.0, 6.0).detach()))(x)
 
 
 @facade_io
@@ -160,7 +163,7 @@ def rrelu(x, lower: float = 1.0 / 8.0, upper: float = 1.0 / 3.0,
 
 @facade_io
 def hardtanh(x, min: float = -1.0, max: float = 1.0, name=None):
-    return _unary("hardtanh", lambda a: a.clamp(min, max))(x)
+    return _unary("hardtanh", lambda a: clip_tensor(a, min, max))(x)
 
 
 @facade_io
@@ -179,13 +182,13 @@ def softshrink(x, threshold: float = 0.5, name=None):
 @facade_io
 def hardsigmoid(x, slope: float = 0.1666667, offset: float = 0.5,
                 name=None):
-    return _unary("hardsigmoid", lambda a: (slope * a + offset).clamp(
-        0.0, 1.0))(x)
+    return _unary("hardsigmoid", lambda a: clip_tensor(
+        slope * a + offset, 0.0, 1.0))(x)
 
 
 @facade_io
 def hardswish(x, name=None):
-    return _unary("hardswish", lambda a: a * (a + 3.0).clamp(0.0, 6.0)
+    return _unary("hardswish", lambda a: a * clip_tensor(a + 3.0, 0.0, 6.0)
                   / 6.0)(x)
 
 

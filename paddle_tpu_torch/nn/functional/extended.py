@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ... import dtypes
+from ...ops.math import clip_tensor
 from ...tensor import facade_io
 from .activation import _in_place, elu
 from .common import as_torch
@@ -157,7 +158,7 @@ def margin_cross_entropy(logits, label, margin1: float = 1.0,
     logits times ``scale`` (``[N, 1]``, or reduced)."""
     (lv,) = _ins("margin_cross_entropy", logits)
     yl = as_torch(label, lv).reshape(-1).to(torch.int64)
-    cos_t = torch.clamp(lv.gather(1, yl[:, None]), -1.0, 1.0)
+    cos_t = clip_tensor(lv.gather(1, yl[:, None]), -1.0, 1.0)
     adjusted = torch.cos(margin1 * torch.arccos(cos_t) + margin2) - margin3
     one_hot = torch.nn.functional.one_hot(yl, lv.shape[-1]).to(lv.dtype)
     out = (lv * (1 - one_hot) + adjusted * one_hot) * scale

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as tF
 
 from ...amp import cast_inputs
+from ...ops.math import abs_tensor, clip_tensor
 from ...tensor import facade_io
 from .activation import softmax
 from .common import as_torch
@@ -127,7 +128,7 @@ def softmax_with_cross_entropy(logits, label, soft_label: bool = False,
 def binary_cross_entropy(input, label, weight=None, reduction: str = "mean",
                          name=None):
     p, y, w = _ins("bce", input, label, weight)
-    p = p.clamp(1e-12, 1.0 - 1e-7)
+    p = clip_tensor(p, 1e-12, 1.0 - 1e-7)
     loss = -(y * torch.log(p) + (1 - y) * torch.log1p(-p))
     return _reduce(loss if w is None else loss * w, reduction)
 
@@ -139,10 +140,10 @@ def binary_cross_entropy_with_logits(logit, label, weight=None,
     z, y, w, pw = _ins("bce_with_logits", logit, label, weight, pos_weight)
     if pw is not None:
         log_w = (pw - 1) * y + 1
-        loss = (1 - y) * z + log_w * (_softplus0(-z.abs())
-                                      + torch.clamp_min(-z, 0.0))
+        loss = (1 - y) * z + log_w * (_softplus0(-abs_tensor(z))
+                                      + clip_tensor(-z, 0.0))
     else:
-        loss = torch.clamp_min(z, 0.0) - z * y + _softplus0(-z.abs())
+        loss = clip_tensor(z, 0.0) - z * y + _softplus0(-abs_tensor(z))
     return _reduce(loss if w is None else loss * w, reduction)
 
 
@@ -180,7 +181,7 @@ def square_error_cost(input, label):
 @facade_io
 def l1_loss(input, label, reduction: str = "mean", name=None):
     a, b = _ins("l1_loss", input, label)
-    return _reduce((a - b).abs(), reduction)
+    return _reduce(abs_tensor(a - b), reduction)
 
 
 @facade_io
@@ -242,7 +243,7 @@ def sigmoid_focal_loss(logit, label, normalizer=None, alpha: float = 0.25,
                        name=None):
     z, y, nrm = _ins("sigmoid_focal_loss", logit, label, normalizer)
     p = torch.sigmoid(z)
-    ce = torch.clamp_min(z, 0.0) - z * y + _softplus0(-z.abs())
+    ce = clip_tensor(z, 0.0) - z * y + _softplus0(-abs_tensor(z))
     p_t = p * y + (1 - p) * (1 - y)
     a_t = alpha * y + (1 - alpha) * (1 - y)
     loss = a_t * (1 - p_t) ** gamma * ce

@@ -8,9 +8,12 @@ anew), then loaded with :mod:`ctypes`. The source includes no PyTorch
 header, which keeps a build to seconds.
 
 The host route (:func:`load_host`) does the same for a host C++ source,
-``csrc/<name>.cc`` (the parameter server's tables), with the host
-compiler (``c++``, else ``g++``: ``-O2 -shared -fPIC -std=c++17
--pthread``, the JAX package's flags for the same source). The launcher
+``csrc/<name>.cc`` (the parameter server's tables, the inference C
+API), with the host compiler (``c++``, else ``g++``: ``-O2 -shared
+-fPIC -std=c++17 -pthread``, the JAX package's flags for the same
+source) and the library's own flags (``HOST_EXTRA_FLAGS``: CPython's
+headers and library for the C API, which embeds the interpreter), which
+the library's path hashes too. The launcher
 starts servers and trainers together, so the build runs under a lock
 file beside the library: one process compiles, the others wait and load
 its result.
@@ -28,7 +31,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "HOST_FLAGS", "find_nvcc",
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "HOST_FLAGS",
+           "HOST_EXTRA_FLAGS", "find_nvcc",
            "find_host_compiler", "library_path", "host_library_path",
            "build", "load", "load_host"]
 
@@ -130,10 +134,36 @@ def find_host_compiler() -> str:
         f"{CSRC} cannot be built")
 
 
+def _python_embed_flags() -> list:
+    """Compile and link flags of a library that embeds CPython, from the
+    running interpreter: its headers, and its shared library where there
+    is one (loaded into a Python process, the library also resolves the
+    interpreter's symbols from the process)."""
+    import sysconfig
+
+    flags = [f"-I{sysconfig.get_paths()['include']}"]
+    libdir = sysconfig.get_config_var("LIBDIR") or ""
+    version = (sysconfig.get_config_var("LDVERSION")
+               or sysconfig.get_config_var("VERSION"))
+    if libdir and (Path(libdir) / f"libpython{version}.so").exists():
+        flags += [f"-L{libdir}", f"-Wl,-rpath,{libdir}",
+                  f"-lpython{version}"]
+    return flags
+
+
+# the flags of one host library beyond HOST_FLAGS
+HOST_EXTRA_FLAGS = {"pd_inference_c": _python_embed_flags}
+
+
+def _extra_flags(name: str) -> list:
+    extra = HOST_EXTRA_FLAGS.get(name)
+    return extra() if extra else []
+
+
 def host_library_path(name: str) -> Path:
     """Where ``csrc/<name>.cc`` builds to, keyed by source and flags."""
     h = hashlib.sha256((CSRC / f"{name}.cc").read_bytes())
-    h.update(" ".join(HOST_FLAGS).encode())
+    h.update(" ".join([*HOST_FLAGS, *_extra_flags(name)]).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -155,7 +185,7 @@ def load_host(name: str) -> ctypes.CDLL:
         if not out.exists():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [find_host_compiler(), *HOST_FLAGS, "-o", str(tmp),
-                   str(CSRC / f"{name}.cc")]
+                   str(CSRC / f"{name}.cc"), *_extra_flags(name)]
             proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
             out.with_suffix(".log").write_text(proc.stdout)

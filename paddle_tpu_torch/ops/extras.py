@@ -11,7 +11,7 @@ import torch
 from ..autograd.engine import apply_op, inplace_rebind
 from ..tensor import Tensor
 from ._apply import binary, ensure_tensor, inexact, unary
-from .math import _tensors
+from .math import _tensors, clip_tensor
 
 __all__ = [
     "logit", "mv", "floor_mod", "multiplex", "real", "imag", "conj",
@@ -35,7 +35,7 @@ def logit(x, eps=None, name=None):
     def fn(v):
         v = inexact(v)
         if eps is not None:
-            v = torch.clamp(v, eps, 1.0 - eps)
+            v = clip_tensor(v, eps, 1.0 - eps)
         return torch.log(v) - torch.log1p(-v)
 
     return unary(fn, x, name="logit")

@@ -38,6 +38,14 @@ CUDA graph launches nothing then: it counts in ``captured_launches``, and
 the graph's owner adds the launches each replay makes with
 :func:`count_replays` (``replayed_launches``), as for K4.
 
+K1 is also the operator ``paddle_tpu_torch::flash_fwd``
+(``torch.library.custom_op``, registered when this module is imported;
+:func:`flash_fwd` calls it), with a fake implementation for shapes, so
+``torch.export`` records one node per attention call and a loaded
+program launches K1 on CUDA tensors. A call that needs no gradient
+(``flash_attention_bshd`` under ``no_grad`` or on inputs that need
+none) runs the operator without the autograd function.
+
 The kernels read q/k/v/dO through their strides (the last dimension
 must be contiguous), so GPT's q/k/v -- ``[B, S, H, D]`` views of one
 ``[B, S, 3H]`` projection -- go in without a copy. The bf16 kernels
@@ -395,19 +403,40 @@ def _on(t: torch.Tensor, what: str) -> str:
     return t.device.type
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  seed: Optional[torch.Tensor], kpad: Optional[torch.Tensor],
+                  causal: bool, scale: float,
+                  dropout_p: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 as an operator of its own, ``paddle_tpu_torch::flash_fwd``: a
+    node of a ``torch.export`` graph (``jit.save``), which a loaded
+    program runs again through this dispatch. CPU tensors take the plain
+    version, CUDA tensors launch K1 (``seed`` None without dropout)."""
+    if _on(q, "flash_fwd") == "cpu":
+        plain_calls["flash_fwd"] += 1
+        return ref_flash_fwd(q, k, v, causal, scale, dropout_p,
+                             0 if seed is None else seed, kpad)
+    return _fwd_cuda(q, k, v, causal, scale, dropout_p, seed, kpad)
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, seed, kpad, causal, scale, dropout_p):
+    B, sq, H, D = q.shape
+    return (q.new_empty((B, sq, H, D)),
+            q.new_empty((B * H, sq), dtype=torch.float32))
+
+
 def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
               dropout_p: float = 0.0, dropout_seed=0,
               key_padding_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(O, LSE)`` of attention over ``[B, S, H, D]`` inputs (module
-    docstring). CPU tensors take the plain version, CUDA tensors K1."""
+    docstring), through the operator ``paddle_tpu_torch::flash_fwd``:
+    CPU tensors take the plain version, CUDA tensors K1."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
-    kpad = _kpad(key_padding_mask)
-    if _on(q, "flash_fwd") == "cpu":
-        plain_calls["flash_fwd"] += 1
-        return ref_flash_fwd(q, k, v, causal, scale, dropout_p, dropout_seed,
-                             kpad)
-    return _fwd_cuda(q, k, v, causal, scale, dropout_p,
-                     _seed_tensor(dropout_seed, q, dropout_p), kpad)
+    seed = (_seed_tensor(dropout_seed, q, dropout_p) if dropout_p > 0.0
+            else None)
+    return _flash_fwd_op(q, k, v, seed, _kpad(key_padding_mask),
+                         bool(causal), float(scale), float(dropout_p))
 
 
 def flash_dq(q, k, v, do, lse, delta, causal: bool = False,
@@ -517,6 +546,12 @@ def flash_attention_bshd(q, k, v, causal: bool = False,
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     seed = (dropout_seed if isinstance(dropout_seed, torch.Tensor)
             else int(dropout_seed))
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        # nothing to differentiate (inference, an export's trace): the
+        # forward operator alone, no autograd node
+        return flash_fwd(q, k, v, causal, scale, dropout_p, seed,
+                         key_padding_mask)[0]
     return FlashAttentionFunction.apply(q, k, v, bool(causal), scale,
                                         float(dropout_p), seed,
                                         key_padding_mask)

@@ -102,6 +102,48 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
     return out
 
 
+# ------------------------------------------- JAX's gradients at the kinks
+class _Abs(torch.autograd.Function):
+    """``torch.abs``'s values, ``jnp.abs``'s gradient: ``g`` where
+    ``x >= 0`` (0 and -0.0 included), ``-g`` elsewhere (NaN included);
+    ``torch.abs`` gives 0 at 0."""
+
+    @staticmethod
+    def forward(ctx, a):
+        ctx.save_for_backward(a)
+        return torch.abs(a)
+
+    @staticmethod
+    def backward(ctx, g):
+        (a,) = ctx.saved_tensors
+        return torch.where(a >= 0, g, -g)
+
+
+def abs_tensor(a: torch.Tensor) -> torch.Tensor:
+    """``|a|`` with the JAX package's gradient at 0 (:class:`_Abs`) for a
+    real floating tensor that needs one; else ``torch.abs``."""
+    if a.requires_grad and a.is_floating_point():
+        return _Abs.apply(a)
+    return torch.abs(a)
+
+
+def clip_tensor(a: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
+    """``jnp.clip(a, lo, hi)`` (and ``jnp.maximum``/``minimum`` against a
+    bound), with its gradient: half at a tie, as torch's ``maximum`` and
+    ``minimum`` give it, where ``clamp`` passes all of it. A scalar bound
+    becomes a 0-d fill of ``a``'s dtype on its device (no host copy);
+    a non-float ``a`` takes ``clamp`` (no gradient to split)."""
+    if not a.is_floating_point():
+        return torch.clamp(a, lo, hi)
+    if lo is not None:
+        a = torch.maximum(a, lo if isinstance(lo, torch.Tensor)
+                          else a.new_full((), lo))
+    if hi is not None:
+        a = torch.minimum(a, hi if isinstance(hi, torch.Tensor)
+                          else a.new_full((), hi))
+    return a
+
+
 def _unary_factory(fn, name, differentiable=True, floats=True):
     """An elementwise op; ``floats``: an integer input becomes inexact
     first (``_apply.inexact``)."""
@@ -123,7 +165,7 @@ log1p = _unary_factory(torch.log1p, "log1p")
 sqrt = _unary_factory(torch.sqrt, "sqrt")
 rsqrt = _unary_factory(torch.rsqrt, "rsqrt")
 square = _unary_factory(torch.square, "square", floats=False)
-abs = _unary_factory(torch.abs, "abs", floats=False)
+abs = _unary_factory(abs_tensor, "abs", floats=False)
 neg = _unary_factory(torch.neg, "neg", floats=False)
 sign = _unary_factory(torch.sign, "sign", differentiable=False, floats=False)
 floor = _unary_factory(torch.floor, "floor", differentiable=False,
@@ -210,7 +252,7 @@ def lerp(x, y, weight, name=None):
 def clip(x, min=None, max=None, name=None):
     lo = min._value if isinstance(min, Tensor) else min
     hi = max._value if isinstance(max, Tensor) else max
-    return unary(lambda a: torch.clamp(a, lo, hi), x, name="clip")
+    return unary(lambda a: clip_tensor(a, lo, hi), x, name="clip")
 
 
 def isclose(x, y, rtol=1e-05, atol=1e-08, equal_nan=False, name=None):

@@ -15,8 +15,17 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["KV_QMAX", "KV_SCALE_FLOOR", "kv_absmax_scales", "quantize_kv",
-           "dequantize_kv"]
+__all__ = ["AbsmaxObserver", "KV_QMAX", "KV_SCALE_FLOOR", "kv_absmax_scales",
+           "quantize_kv", "dequantize_kv"]
+
+
+def __getattr__(name):
+    """``AbsmaxObserver``, the model observer, lives in the package."""
+    if name == "AbsmaxObserver":
+        from . import AbsmaxObserver
+
+        return AbsmaxObserver
+    raise AttributeError(name)
 
 # symmetric int8 grid [-127, 127] (the -128 code is unused)
 KV_QMAX = 127.0

@@ -158,6 +158,7 @@ from .. import faults, metrics
 from ..device import resolve_device
 from ..ops import paged_attention as pa
 from ..ops.paged_attention import ragged_paged_attention
+from ..profiler import RecordEvent, record_counter
 from ..quantization.observers import KV_SCALE_FLOOR
 from . import sampling, tracing
 from .adapters import AdapterRows, AdapterStore
@@ -1079,7 +1080,12 @@ class ServingEngine:
     def step(self) -> List[RequestOutput]:
         """One engine iteration: sweep deadlines, admit, one unified
         ragged step, land, retire. Returns the requests that finished in
-        it. The watchdog's bracket closes even when the body raises."""
+        it. The watchdog's bracket closes even when the body raises. The
+        iteration is a ``profiler.RecordEvent("engine_step")`` span."""
+        with RecordEvent("engine_step"):
+            return self._step()
+
+    def _step(self) -> List[RequestOutput]:
         t0 = time.perf_counter()
         if self.watchdog is not None:
             self.watchdog.begin_step()
@@ -1131,8 +1137,8 @@ class ServingEngine:
         self.stats["tokens_per_sec"] = produced / dt if dt > 0.0 else 0.0
         self.stats["page_utilization"] = self.pool.utilization()
         self.stats["peak_pages"] = self.pool.peak_used
-        for k, g in self._m_gauges.items():
-            g.set(self.stats[k])
+        for k in self._m_gauges:  # the gauges, and a profiler's window
+            record_counter(f"serving.{k}", self.stats[k])
         self._trace.emit("step.tokens", self.engine_id, arg=float(produced))
         return finished
 

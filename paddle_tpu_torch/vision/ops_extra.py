@@ -24,6 +24,7 @@ import torch
 from ..autograd.engine import apply_op
 from ..device import default_device
 from ..ops._apply import ensure_tensor
+from ..ops.math import clip_tensor as _clip
 from ..tensor import Tensor
 
 __all__ = ["yolo_loss", "prior_box", "matrix_nms", "psroi_pool", "PSRoIPool",
@@ -42,17 +43,6 @@ def _on(arr: np.ndarray, device) -> Tensor:
 
 def _device(x):
     return ensure_tensor(x)._value.device
-
-
-def _clip(x, lo=None, hi=None):
-    """``jnp.clip``/``jnp.maximum``/``jnp.minimum`` against constants, with
-    their gradient: half at a tie, as torch's ``maximum`` gives it (a
-    ``clamp`` passes all of it)."""
-    if lo is not None:  # new_full: a fill on the device, no host copy
-        x = torch.maximum(x, x.new_full((), lo))
-    if hi is not None:
-        x = torch.minimum(x, x.new_full((), hi))
-    return x
 
 
 def _bce(logits, target):

@@ -12,6 +12,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 from torch_suite import one_torch_thread  # noqa: F401
@@ -733,7 +734,7 @@ def test_zoo_slice_modules_import_no_jax():
 
 
 # names of the JAX package's exports that the port has not ported yet
-JIT_QUEUED = {"save", "load", "TranslatedLayer"}
+JIT_QUEUED = set()
 
 
 def test_exports_equal_the_jax_packages():
@@ -770,3 +771,102 @@ def test_zoo_entry_points_need_a_card(no_cuda):
         zoo_drills.run(small=True)
     assert inspect.signature(dist_cases.run_cases).parameters[
         "device"].default == "cuda"
+
+
+def test_deployment_slice_modules_import_no_jax():
+    """The deployment and observability slice: every new module is walked
+    by the probe (no jax) and names no forbidden import."""
+    new = ["device", "device.cuda", "device.xpu", "inference",
+           "inference.config", "inference.predictor", "inference.capi_bridge",
+           "profiler", "quantization", "quantization.quanters", "nn.quant",
+           "jit.save_load", "hapi.summary", "utils", "utils.flops",
+           "regularizer", "version", "sysconfig"]
+    for m in new:
+        path = PKG.joinpath(*m.split("."))
+        path = path / "__init__.py" if path.is_dir() else path.with_suffix(
+            ".py")
+        assert path.exists(), path
+        assert not [n for _, n in _imports(path) if _forbidden(n)]
+    probe = ("import importlib, sys\n"
+             + "".join(f"importlib.import_module('paddle_tpu_torch.{m}')\n"
+                       for m in new)
+             + "bad = [m for m in sys.modules if m.split('.')[0] in "
+               "('jax', 'jaxlib', 'paddle_tpu')]\n"
+               "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, cwd=str(REPO), env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+    src = (PKG / "csrc" / "pd_inference_c.cc").read_text()
+    assert "paddle_tpu_torch.inference.capi_bridge" in src
+    assert '"paddle_tpu.inference' not in src
+
+
+# the JAX package's top-level names the port still lacks (ROADMAP Queue 1
+# item 16(d)-(k)); the deployment slice ported 24 of the 41 before it
+TOP_LEVEL_QUEUED = {"audio", "cost_model", "dataset", "disable_static",
+                    "distribution", "enable_static", "fft", "geometric",
+                    "hub", "native", "onnx", "reader", "signal", "sparse",
+                    "static", "text"}
+
+
+def test_top_level_gap_is_the_queued_names():
+    """The ``dir()`` diff of the two packages, each freshly imported (a
+    test that imports a submodule adds it to its package's names)."""
+    import paddle_tpu as pt
+    import paddle_tpu_torch as paddle
+
+    probe = ("import paddle_tpu as pt, paddle_tpu_torch as p\n"
+             "print(' '.join(sorted({n for n in dir(pt) if not "
+             "n.startswith('_')} - {'annotations'} - set(dir(p)))))\n")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, cwd=str(REPO), env=env, timeout=300)
+    assert r.returncode == 0, r.stderr
+    missing = set(r.stdout.split())
+    assert missing == TOP_LEVEL_QUEUED, missing ^ TOP_LEVEL_QUEUED
+    for name in ("CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "TPUPlace",
+                 "LazyGuard", "batch", "check_shape", "summary", "flops",
+                 "inference", "profiler", "get_cuda_rng_state",
+                 "set_printoptions", "is_compiled_with_cuda", "ParamAttr",
+                 "loadgen", "regularizer", "version", "sysconfig", "utils"):
+        assert name in paddle.__all__, name
+    for sub in ("inference", "profiler", "quantization"):
+        assert set(getattr(pt, sub).__all__) <= set(
+            getattr(paddle, sub).__all__), sub
+
+
+def test_deployment_entry_points_need_a_card(no_cuda, tmp_path):
+    """``create_predictor``, ``jit.load``, ``device.cuda.Stream`` and the
+    profiler's GPU target resolve to the card, unless told the CPU."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("cpu")
+    try:
+        lin = paddle.nn.Linear(4, 2)
+        prefix = str(tmp_path / "lin")
+        paddle.jit.save(lin, prefix, input_spec=[
+            paddle.jit.InputSpec([None, 4], "float32")])
+    finally:
+        paddle.set_device(None)
+    cfg = paddle.inference.Config()
+    cfg.set_model(prefix)
+    assert cfg.use_gpu()
+    with pytest.raises(RuntimeError):
+        paddle.inference.create_predictor(cfg)
+    with pytest.raises(RuntimeError):
+        paddle.jit.load(prefix)
+    cfg.disable_gpu()
+    assert paddle.inference.create_predictor(cfg).run(
+        [np.ones((3, 4), np.float32)])[0].shape == (3, 2)
+    with pytest.raises(ValueError):
+        paddle.device.cuda.Stream()
+    with pytest.raises(ValueError):
+        paddle.device.cuda.Event()
+    with pytest.raises(RuntimeError):
+        paddle.profiler.Profiler()
+    paddle.profiler.Profiler(targets=[paddle.profiler.ProfilerTarget.CPU])

@@ -104,7 +104,7 @@ def test_functional_signatures_equal_the_jax_package(name):
 def test_nn_exports_the_names_of_the_ported_modules():
     """``paddle.nn`` holds every class of the JAX package's
     ``nn/layer/{activation,common,container,conv,extended,loss,norm,
-    pooling,rnn,transformer}.py`` and no name of a module not ported yet;
+    pooling,rnn,transformer}.py`` and its ``quant`` module (``Stub``);
     ``nn.functional`` every functional of its ``activation``, ``common``,
     ``conv``, ``extended``, ``loss``, ``norm`` and ``pooling``."""
     from paddle_tpu.nn import functional as JF
@@ -120,8 +120,7 @@ def test_nn_exports_the_names_of_the_ported_modules():
             "ClipGradByGlobalNorm"}
     assert set(paddle.nn.__all__) == want | base
     assert all(hasattr(paddle.nn, n) for n in want | base)
-    for deferred in ("quant",):
-        assert hasattr(pt.nn, deferred) and not hasattr(paddle.nn, deferred)
+    assert pt.nn.quant.__all__ == paddle.nn.quant.__all__ == ["Stub"]
     fwant = set().union(*(getattr(JF, m).__all__ for m in
                           ("activation", "common", "conv", "extended",
                            "loss", "norm", "pooling")))

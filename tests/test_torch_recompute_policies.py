@@ -42,7 +42,9 @@ def one_thread():
 
 
 class _Products(TorchDispatchMode):
-    """Counts the matrix products dispatched inside the block."""
+    """Counts the matrix products dispatched inside the block, and the
+    flash forward operator (``paddle_tpu_torch::flash_fwd``, K1 or its
+    plain version: its products run inside it)."""
 
     def __init__(self):
         super().__init__()
@@ -50,7 +52,7 @@ class _Products(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         name = func.overloadpacket.__name__
-        if name in ("mm", "addmm", "bmm", "baddbmm"):
+        if name in ("mm", "addmm", "bmm", "baddbmm", "flash_fwd"):
             self.n[name] = self.n.get(name, 0) + 1
         return func(*args, **(kwargs or {}))
 
@@ -114,17 +116,40 @@ def test_policy_equals_no_recompute_and_the_jax_package(runs, name, policy):
 def test_saved_products_per_policy(runs):
     """The backward of a 2-layer GPT re-dispatches what the policy did not
     save: under ``full`` the layers' linears (``addmm``, up to the last
-    one the backward needs: 3 a layer) and attention's two batched
-    products a layer; under ``dots`` none; under ``dots_no_batch`` only
-    the batched ones."""
+    one the backward needs: 3 a layer); under ``dots`` and
+    ``dots_no_batch`` no linear. Attention is the flash operator, which
+    no policy saves (it is no matrix product to them): it is dispatched
+    again, one a layer, under every policy, as K1 relaunches on the card
+    (PERF.md: ``train_gpt13_rc_*``), and its batched products run inside
+    it. A batched product outside it is saved under ``dots`` and
+    re-dispatched under ``dots_no_batch``."""
     counts = {p: c for p, (_l, _g, _lin, c) in runs["gpt"][1].items()}
     base = counts[None]
-    extra = {p: {k: c.get(k, 0) - base.get(k, 0) for k in ("addmm", "bmm")}
+    keys = ("addmm", "bmm", "flash_fwd")
+    extra = {p: {k: c.get(k, 0) - base.get(k, 0) for k in keys}
              for p, c in counts.items()}
-    assert extra["full"] == {"addmm": 6, "bmm": 4}
-    assert extra["dots"] == extra["dots_saveable"] == {"addmm": 0, "bmm": 0}
+    assert extra["full"] == {"addmm": 6, "bmm": 0, "flash_fwd": 2}
+    assert extra["dots"] == extra["dots_saveable"] == \
+        {"addmm": 0, "bmm": 0, "flash_fwd": 2}
     assert extra["dots_no_batch"] == extra["dots_with_no_batch_dims"] == \
-        {"addmm": 0, "bmm": 4}
+        {"addmm": 0, "bmm": 0, "flash_fwd": 2}
+    w = torch.randn(3, 8, 8, generator=torch.Generator().manual_seed(1),
+                    requires_grad=True)
+    x = torch.randn(3, 4, 8, generator=torch.Generator().manual_seed(2),
+                    requires_grad=True)
+
+    def batched(v):
+        return torch.tanh(torch.bmm(v, w))
+
+    rerun = {}
+    for policy in ("dots", "dots_no_batch"):
+        out = recompute(batched, x, policy=policy).sum()
+        with _Products() as counted:
+            out.backward()
+        rerun[policy] = counted.n.get("bmm", 0)
+    # the backward's own two products, and the forward's once more when
+    # the policy did not save it
+    assert rerun == {"dots": 2, "dots_no_batch": 3}
 
 
 def test_everything_and_nothing_saveable():
