@@ -426,6 +426,23 @@ Phases, in order; any failure exits non-zero before the result line:
    host cost per eager call); (f) one QAT step of a conv + linear net on
    the card against the CPU within ``QAT_TOL``. Prints one JSON line a
    part.
+26. Incubate (j) (``phase_incubate_j``, ``tools/incubate_drills.py``):
+   (a) 12 ``FusedTransformerEncoderLayer`` at BERT-base's width (768, 12
+   heads, 3072, gelu, post-LN, dropout 0.1), B 32, S 128, a bool
+   key-padding mask, O2 bf16, AdamW on an MSE loss: 4 steps eagerly,
+   then the same 4 through ``jit.to_static``, losses and parameters bit
+   for bit, K1-K3 12 a step, nothing else; the same eager steps with
+   ``incubate.set_config({"kernel": {"enable": False}})``: no flash
+   launch, losses within ``KERNEL_OFF_RTOL``; (b) ``FusedMultiTransformer``
+   at GPT-355M's width (24 layers, 1024, 16 heads), bf16, B 8: a 128-token
+   prefill (dense attention), then 32 one-token steps on the caches, K1
+   at Sq 1 and Sk 129-160, 24 launches a step, each call held against
+   the plain K1 within phase 3b's bf16 tolerance, every step within
+   ``DECODE_REL`` of the kernels-off run; K1 timed at that shape beside
+   its bound, its plain version and SDPA; (c) ``flash_attn_unpadded``,
+   the masked softmax, the segment and graph ops on 100,000 edges,
+   ``FusedEcMoe``, the optimizers, BFGS/L-BFGS and ``asp`` on the card
+   against the CPU. Prints one JSON line a part.
 
 The last two lines are the kernels' JSON record (K1-K3 with their
 launches by path: ``train_gpt13``, ``train_llama``,
@@ -443,11 +460,16 @@ p_g_os}_gpt355m``, ``train_pp_1f1b_gpt355m``,
 ``train_engine_dp2_gpt355m`` (the two-rank paths summed over the ranks),
 ``train_gpt355m``, ``profile_gpt355m``, ``infer_gpt355m``,
 ``infer_capi_gpt355m``, ``infer_bf16_store_gpt355m`` (K1 only: 24 a
-call), and 0 on ``zoo_forward``, ``zoo_train``,
-``train_yoloe_stream`` and ``train_ocr_stream``; on
+call), ``train_fused_encoder_bert`` (graphed),
+``train_fused_encoder_bert_eager``, ``decode_fused_gpt355m`` (K1 only: 24
+a decode step), and 0 on ``zoo_forward``, ``zoo_train``,
+``train_yoloe_stream``, ``train_ocr_stream``,
+``train_fused_encoder_bert_kernel_off`` and
+``decode_fused_gpt355m_kernel_off``; on
 a graphed path the eager first
 step's launches plus the replayed ones; and ``bert_case``, their times at
-BERT's shape; K4's paths add ``serve_fleet_reload``; K4 and K5 record
+BERT's shape, and K1's ``decode_case`` (Sq 1, Sk 160); K4's paths add
+``serve_fleet_reload``; K4 and K5 record
 the distributed paths' 0; then the embedding backward kernel, which
 replaces no Pallas kernel, with its launches on every training path
 above, counted the same way, and on the repeats of (c) alone) and
@@ -4177,8 +4199,8 @@ def phase_distributed(torch, card):
 
 # the depth of the earlier count-free paths, cut so the smoke stays well
 # inside its limit as phases are added (widths and checks unchanged)
-BUCKET_LAYERS = 6          # of Llama-0.76B's 12 (PR 21)
-STATE_LAYERS = 12          # of gpt13's 24 (PR 21)
+BUCKET_LAYERS = 3          # of Llama-0.76B's 12 (6 in PR 21, 3 in PR 22)
+STATE_LAYERS = 6           # of gpt13's 24 (12 in PR 21, 6 in PR 22)
 
 
 def bucket_independence(torch, card):
@@ -4398,6 +4420,71 @@ def phase_deploy_i(torch, card):
     return r
 
 
+def phase_incubate_j(torch, card):
+    """Phase 26 (module docstring): ``tools/incubate_drills.py``'s three
+    parts, then K1 timed at the decode shape (the last decode step's q,
+    k, v; from graph replays) beside its bound, its plain version and
+    SDPA's forward. Prints
+    one JSON line a part and a summary; returns the drills' record
+    (``launches`` by path) with ``k1_decode``."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.tools import incubate_drills as d
+
+    if d.K1_BF16_TOL != FLASH_TOL["bf16"]:
+        fail("incubate (j): the drills' K1 tolerance is not phase 3b's")
+    t0 = time.perf_counter()
+    try:
+        r = d.run("cuda", small=False, log=log)
+    except (d.DrillFailed, RuntimeError, ValueError) as e:
+        fail(f"incubate (j): {e}")
+    q, k, v = r.pop("k1_decode_inputs")
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    bound, bound_by = flash_bounds(torch, q, k, False, None)["flash_fwd"]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # a call at this shape is a few microseconds of device work, less than
+    # the host's time to issue it: device times from graph replays, and
+    # K1's eager time (host-bound) beside them
+    k1 = {"shape": {"q": list(q.shape), "k": list(k.shape),
+                    "dtype": str(q.dtype)},
+          "ms": graph_ms(torch, lambda: fa.flash_fwd(q, k, v)),
+          "eager_ms": cuda_ms(torch, lambda: fa.flash_fwd(q, k, v)),
+          "plain_ms": graph_ms(torch, lambda: fa.ref_flash_fwd(
+              q, k, v, False, scale)),
+          "library_ms": graph_ms(torch, lambda: sdpa(qh, kh, vh)),
+          "bound_ms": bound, "bound_by": bound_by,
+          "max_abs_err": r["decode"]["k1_max_abs_err"]}
+    r["k1_decode"] = k1
+    del q, k, v, qh, kh, vh
+    a, b, c = r["encoder"], r["decode"], r["rest"]
+    log(f"incubate (j) ({card}): (a) fused encoder, 12 layers at BERT-base "
+        f"width, B 32, S 128 ({a['padded_share']:.3f} of the keys padded): "
+        f"graphed = eager bit for bit over {len(a['losses_eager'])} steps, "
+        f"step ms eager {a['step_ms_eager']:.2f} / graphed "
+        f"{a['step_ms_graphed']:.2f}, capture {a['capture_s']:.2f} s, "
+        f"K1/K2/K3 {a['launches_graphed']['flash_fwd']}/"
+        f"{a['launches_graphed']['flash_dq']}/"
+        f"{a['launches_graphed']['flash_dkv']}; kernels off "
+        f"{a['step_ms_kernel_off']:.2f} ms a step, losses "
+        f"{a['kernel_off_rel']:.2e} off (limit {d.KERNEL_OFF_RTOL}); (b) "
+        f"fused decode at GPT-355M width, B 8: {b['step_ms']:.2f} ms a "
+        f"decode step ({b['step_ms_kernel_off']:.2f} kernels off), K1 "
+        f"{b['launches']['flash_fwd']} over {b['decode_steps']} steps at Sq "
+        f"{b['k1_sq']}, Sk {b['k1_sk']}, {b['k1_calls_checked']} calls "
+        f"against the plain K1: max abs {b['k1_max_abs_err']:.3e}, rel "
+        f"{b['k1_max_rel_err']:.3e}; kernels-off worst step "
+        f"{b['kernel_off_rel_max']:.3e} (limit {d.DECODE_REL}); K1 at the "
+        f"decode shape {k1['ms']:.4f} ms replayed, {k1['eager_ms']:.4f} "
+        f"eager (bound {k1['bound_ms']:.4f}, {k1['bound_by']}; plain "
+        f"{k1['plain_ms']:.4f}, SDPA {k1['library_ms']:.4f}, replayed); "
+        f"(c) against the CPU "
+        + json.dumps({n: round(x["rel"], 9) for n, x in c.items()})
+        + "; seconds "
+        + json.dumps({k: round(v, 1) for k, v in r["seconds"].items()})
+        + f", phase {time.perf_counter() - t0:.1f} s")
+    return r
+
+
 def log_sep_moe(card, r):
     """One line of the sequence- and expert-parallel drills' readings."""
     ring, sep, moe = r["ring"], r["sep"], r["moe"][0]
@@ -4504,7 +4591,10 @@ def main():
     torch.cuda.empty_cache()
     # GPT-355M exported and served (K1 only), and its profiled bench step
     deploy_paths = timed(phase_deploy_i, torch, card)["launches"]
-    zoo_paths = zoo_paths | deploy_paths
+    torch.cuda.empty_cache()
+    # the fused encoder trained, the fused decoder, the rest of incubate
+    incubate = timed(phase_incubate_j, torch, card)
+    zoo_paths = zoo_paths | deploy_paths | incubate["launches"]
     dp13 = distributed["dp_gpt13"]
     dist_flash = {"train_dp_gpt13": dp13["flash_launches"],
                   **distributed["drills"]["flash_launches"],
@@ -4604,6 +4694,9 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            # K1 at the fused decoder's last step (Sq 1, Sk 160, bf16)
+            **({"decode_case": incubate["k1_decode"]}
+               if kname == "flash_fwd" else {}),
             # BERT-base's shape (B 32, S 128, 12 heads of 64, bf16,
             # non-causal, dropout 0.1), timed the same way
             "bert_case": {

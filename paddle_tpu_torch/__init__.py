@@ -59,15 +59,17 @@ nets, PP-YOLOE and PP-OCR), the detection ops (``vision.ops``) and
 deployment and observability: ``jit.save``/``jit.load`` on
 ``torch.export`` (K1 an operator of the exported graph), ``inference``
 with its ``Predictor`` and C API, ``profiler`` on ``torch.profiler``,
-``device.cuda``, QAT/PTQ.
+``device.cuda``, QAT/PTQ; and ``incubate`` (the fused transformer layers
+on K1-K3, ``autotune``, the optimizers with BFGS/L-BFGS, ``asp``,
+``autograd``, the segment and graph ops) with ``geometric`` and
+``nn.functional.flash_attn_unpadded``.
 
 Every entry point runs on ``cuda`` unless given ``device="cpu"`` or told
 ``set_device("cpu")`` (:mod:`.device`); kernels are built from ``csrc/``
 with ``nvcc`` at first use (:mod:`.ops._build`). Not ported yet, of the
 JAX package's namespace: ``static``, ``vision``'s ``transforms``,
-``datasets`` and image backend, ``incubate`` beyond its MoE,
-``distribution``, ``fft``, ``signal``, ``sparse``, ``onnx`` and the rest
-of ``utils``.
+``datasets`` and image backend, ``distribution``, ``fft``, ``signal``,
+``sparse``, ``onnx`` and the rest of ``utils``.
 """
 import torch as _torch
 
@@ -99,7 +101,7 @@ from . import callbacks, hapi  # noqa: E402
 from .hapi import Model  # noqa: E402
 from . import distributed  # noqa: E402
 from .distributed import DataParallel  # noqa: E402
-from . import incubate  # noqa: E402
+from . import geometric, incubate  # noqa: E402
 from . import (inference, loadgen, profiler, quantization,  # noqa: E402
                regularizer, sysconfig, utils, version)
 from .hapi import summary  # noqa: E402
@@ -135,7 +137,7 @@ __all__ = (["default_device", "resolve_device", "set_device", "get_device",
             "amp", "jit", "linalg", "models", "nn", "optimizer", "vision",
             "set_flags", "get_flags", "save", "load", "checkpoint", "io",
             "metric", "callbacks", "hapi", "Model", "distributed",
-            "DataParallel", "incubate", "CPUPlace", "CUDAPlace",
+            "DataParallel", "geometric", "incubate", "CPUPlace", "CUDAPlace",
             "CUDAPinnedPlace", "TPUPlace", "LazyGuard", "batch",
             "check_shape", "disable_signal_handler", "get_cuda_rng_state",
             "set_cuda_rng_state", "set_printoptions", "is_compiled_with_cuda",

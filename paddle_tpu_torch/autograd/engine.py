@@ -130,12 +130,23 @@ def writes_in_place(v: torch.Tensor) -> bool:
 def inplace_rebind(x: Tensor, out: Tensor) -> Tensor:
     """Give ``x`` the value of ``out`` (module docstring): in place when
     :func:`writes_in_place` and shape and dtype allow, else by
-    rebinding."""
+    rebinding. A trainable leaf given a value with no graph to it (a
+    fill, an ``assign`` of a constant) stays a trainable leaf, as the JAX
+    package's cell keeps its ``stop_gradient`` when no node was
+    recorded: written in place when it can be, else a new leaf."""
     old, new = x._value, out._value
-    if (writes_in_place(old) and old.shape == new.shape
-            and old.dtype == new.dtype):
+    same = old.shape == new.shape and old.dtype == new.dtype
+    if writes_in_place(old) and same:
         if new.data_ptr() != old.data_ptr():
             old.copy_(new)
+        return x
+    if (old.requires_grad and old.is_leaf and not new.requires_grad
+            and new.is_floating_point()):
+        if same and old._base is None:
+            with torch.no_grad():
+                old.copy_(new)
+        else:
+            x._value = new.detach().requires_grad_(True)
         return x
     x._value = new
     return x

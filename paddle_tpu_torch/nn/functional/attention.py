@@ -12,7 +12,11 @@ set False (``framework/flags.py``) sends every call to :func:`_sdpa_ref`
 on every device, a switch the user sets; left True (the default), a CUDA
 tensor's call launches the kernels or raises.
 
-Both functionals take facade tensors (``paddle.Tensor``) as well as
+``flash_attn_unpadded`` is dense attention over packed sequences, each
+token attending only within its own sequence, as the JAX package
+computes it: no varlen kernel on either side.
+
+The functionals take facade tensors (``paddle.Tensor``) as well as
 torch tensors, and return what they were given (``tensor.facade_io``).
 """
 from __future__ import annotations
@@ -27,7 +31,8 @@ from ...generator import next_seed
 from ...ops.flash_attention import NEG_INF, flash_attention_bshd, keep_mask
 from ...tensor import facade_io
 
-__all__ = ["scaled_dot_product_attention", "flash_attention"]
+__all__ = ["scaled_dot_product_attention", "flash_attention",
+           "flash_attn_unpadded"]
 
 # FLAGS_use_pallas_flash_attention (framework/flags.py)
 pallas_flash_enabled = True
@@ -112,3 +117,35 @@ def flash_attention(query, key, value, dropout: float = 0.0,
     generator)."""
     return scaled_dot_product_attention(query, key, value, None, dropout,
                                         causal, training), None
+
+
+@facade_io
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale: float = None,
+                        dropout: float = 0.0, causal: bool = False,
+                        return_softmax: bool = False, training: bool = True,
+                        name=None):
+    """Attention over packed ``[total, H, D]`` tokens, sequence ``i``
+    spanning ``cu_seqlens_q[i]:cu_seqlens_q[i + 1]`` (the JAX package's
+    segment-masked dense attention, ``attention.py:174``): scores
+    outside a token's sequence, and with ``causal`` above the diagonal,
+    are -1e30; softmax in f32. As there, ``cu_seqlens_k``, the maximum
+    lengths and ``dropout`` are taken and ignored. Returns ``(out,
+    None)``."""
+    q, k, v = cast_inputs("flash_attn_unpadded", query, key, value)
+    total, _, d = q.shape
+    cu = torch.as_tensor(getattr(cu_seqlens_q, "_value", cu_seqlens_q),
+                         device=q.device).to(torch.int64)
+    starts = cu[1:-1]
+    starts = starts[starts < total]
+    seg = torch.zeros(total, dtype=torch.int32, device=q.device).index_add(
+        0, starts, torch.ones_like(starts, dtype=torch.int32)).cumsum(0)
+    s = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.einsum("qhd,khd->hqk", q, k) * s
+    same = seg[:, None] == seg[None, :]
+    if causal:
+        pos = torch.arange(total, device=q.device)
+        same = same & (pos[:, None] >= pos[None, :])
+    logits = torch.where(same[None], logits, NEG_INF)
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.einsum("hqk,khd->qhd", probs, v), None

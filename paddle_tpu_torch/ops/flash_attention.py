@@ -509,7 +509,15 @@ class FlashAttentionFunction(torch.autograd.Function):
     the saved (q, k, v, O, LSE). Replaces the JAX package's two
     ``custom_vjp``s (with and without key padding): the seed and the mask
     get no gradient. The seed tensor is kept for the backward, which
-    reads the same device cell as the forward."""
+    reads the same device cell as the forward.
+
+    The backward has no derivative of its own: run with ``create_graph``
+    its gradients come out of :class:`_FirstOrderOnly`, whose backward
+    raises, so a second derivative through attention (a Hessian, a
+    double-vjp forward gradient) raises, as JAX's forward mode over the
+    ``custom_vjp`` does. Differentiated as plain ops, the CPU version
+    missed LSE's dependence on q and k (a wrong Hessian), and K2/K3's
+    outputs carry no graph at all."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, dropout_p, dropout_seed,
@@ -528,9 +536,30 @@ class FlashAttentionFunction(torch.autograd.Function):
         if do.stride(-1) != 1 or (do.dtype == torch.bfloat16
                                   and not _aligned16(do)):
             do = do.contiguous()
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, causal, scale, dropout_p,
-                               seed, ctx.kpad)
+        with torch.no_grad():
+            dq, dk, dv = flash_bwd(q, k, v, o, lse, do, causal, scale,
+                                   dropout_p, seed, ctx.kpad)
+        if torch.is_grad_enabled():  # a backward with create_graph
+            dq, dk, dv = _FirstOrderOnly.apply(q, k, v, do, dq, dk, dv)
         return dq, dk, dv, None, None, None, None, None
+
+
+class _FirstOrderOnly(torch.autograd.Function):
+    """``(dq, dk, dv)`` as they are, tied to ``(q, k, v, dO)``; its
+    backward raises: flash attention has no second derivative."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, do, dq, dk, dv):
+        return dq.clone(), dk.clone(), dv.clone()
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            "no second derivative through flash attention: its backward "
+            "(K2, K3) is not differentiable, as the JAX package's "
+            "custom_vjp has no forward-mode rule; switch the kernels off "
+            "(incubate.set_config({'kernel': {'enable': False}})) for the "
+            "dense attention's")
 
 
 def flash_attention_bshd(q, k, v, causal: bool = False,
