@@ -275,8 +275,9 @@ Phases, in order; any failure exits non-zero before the result line:
    functionals and ``paddle.linalg``) on ``cuda`` against the CPU,
    outputs and input grads at ``EXT_TOL``.
 21. Train chaos (``phase_train_chaos``, ``tools/train_chaos.py --model
-   bert_base``): BERT-base (110.1 M parameters, B 32, S 128, O2 bf16
-   with master weights, dropout 0.1, AdamW) (a) fine-tuned through
+   bert_base``): BERT-base (at its width, ``CHAOS_LAYERS`` of its 12
+   layers; B 32, S 128, O2 bf16 with master weights, dropout 0.1, AdamW)
+   (a) fine-tuned through
    ``hapi.Model.fit(epochs=2, checkpoint_dir=, sentinel=TrainSentinel())``
    over a shuffled ``io.DataLoader``, in a child SIGKILLed mid-epoch 1
    after epoch 0 committed and then resumed: parameters, moments, epoch
@@ -293,8 +294,10 @@ Phases, in order; any failure exits non-zero before the result line:
    parameters and moments equal an uninterrupted child's bit for bit.
    K1-K3 launch on every path and in every child, the plain versions
    never; no ``nvcc`` run.
-22. Distributed (``phase_distributed``): (a) gpt13's bench step under
-   ``DataParallel`` at world size 1 on NCCL (``init_parallel_env`` in
+22. Distributed (``phase_distributed``), each model at its width and a
+   cut depth: gpt13 ``DP13_LAYERS`` of 24, GPT-355M
+   ``dist_drills.DRILL_LAYERS`` of 24, Llama-0.76B's ``sep`` drill
+   ``SEP_LAYERS`` of 12. (a) gpt13's bench step under ``DataParallel`` at world size 1 on NCCL (``init_parallel_env`` in
    this process through ``fleet.init``, ``fleet.distributed_model`` and
    ``distributed_optimizer``), 3 eager steps then 5 ``StaticFunction``
    calls (the reduction captured in the graph), against the plain step
@@ -358,8 +361,8 @@ Phases, in order; any failure exits non-zero before the result line:
    on the expert gradients, gshard's capacity counted per rank), timed
    beside the local path. Prints each part's seconds.
 23. Distributed (g) (``phase_distributed_g``, ``tools/ps_engine_drills.py``):
-   (a) gpt13 (O2 bf16, AdamW, B 8, S 1024, the cross entropy over its
-   logits as ``Engine``'s loss) through ``auto_parallel.Engine`` at world
+   (a) gpt13 (``ENGINE_LAYERS`` of its 24 layers, O2 bf16, AdamW, B 8,
+   S 1024, the cross entropy over its logits as ``Engine``'s loss) through ``auto_parallel.Engine`` at world
    size 1 on NCCL: ``fit`` 4 steps (graphed after the first), every loss
    and parameter bit for bit with the same step by hand under
    ``jit.to_static``; ``evaluate``, ``predict``, ``save``/``load`` of the
@@ -443,6 +446,24 @@ Phases, in order; any failure exits non-zero before the result line:
    the masked softmax, the segment and graph ops on 100,000 edges,
    ``FusedEcMoe``, the optimizers, BFGS/L-BFGS and ``asp`` on the card
    against the CPU. Prints one JSON line a part.
+27. Static (k) (``phase_static_k``, ``tools/static_drills.py``): (a)
+   GPT-355M (``bench --model gpt``'s width, f32) built as a static
+   Program (``static.data`` ids and labels ``[None, 1024]``,
+   ``AdamW(1e-4).minimize(loss)``) and run by ``Executor.run``: four
+   steps at B 4, two at B 2 (two captures), every loss and parameter bit
+   for bit the port's eager dygraph loop from the same seed, K1-K3 24 a
+   step; (b) a ``jit.to_static`` greedy decode over that model (B 4, L
+   256, a 32-token prompt; ``while cur < L and not paddle.all(done)``
+   converted by dy2static into one WHILE node of the graph,
+   ``csrc/graph_cond.cu``), three calls on one captured graph (an early
+   stop, a run to L, zero trips) bit for bit the Python loop on the
+   card, K1 captured 24 times; (c) ``cond``/``case``/``switch_case``/
+   ``while_loop`` in ``to_static`` and in an Executor program, every
+   branch replayed, a ``cond`` in a WHILE body, the gradient through a
+   captured ``cond`` equal to eager, a host read in a captured branch
+   refused with RuntimeError; (d) the WHILE node's ms a trip against the
+   plain loop's. Prints one JSON line a part and a summary with the
+   capture seconds, the step ms and the ms a decode trip.
 
 The last two lines are the kernels' JSON record (K1-K3 with their
 launches by path: ``train_gpt13``, ``train_llama``,
@@ -465,15 +486,19 @@ call), ``train_fused_encoder_bert`` (graphed),
 a decode step), and 0 on ``zoo_forward``, ``zoo_train``,
 ``train_yoloe_stream``, ``train_ocr_stream``,
 ``train_fused_encoder_bert_kernel_off`` and
-``decode_fused_gpt355m_kernel_off``; on
+``decode_fused_gpt355m_kernel_off``, ``train_static_gpt355m`` (24 a step)
+and ``decode_static_gpt355m`` (K1: the eager first call's, then 24 a
+trip of the captured WHILE body); on
 a graphed path the eager first
 step's launches plus the replayed ones; and ``bert_case``, their times at
 BERT's shape, and K1's ``decode_case`` (Sq 1, Sk 160); K4's paths add
 ``serve_fleet_reload``; K4 and K5 record
 the distributed paths' 0; then the embedding backward kernel, which
 replaces no Pallas kernel, with its launches on every training path
-above, counted the same way, and on the repeats of (c) alone) and
-{"ok": true, "device": {...}}.
+above, counted the same way, and on the repeats of (c) alone; and the
+WHILE node of ``csrc/graph_cond.cu``, which replaces no Pallas kernel
+either (the JAX package's ``lax.while_loop``), with its executions on
+the decode path) and {"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -3671,11 +3696,12 @@ def phase_train_chaos(torch, card):
 
 
 DP13_EAGER, DP13_GRAPHED = 3, 5   # eager steps, then StaticFunction calls
+DP13_LAYERS = 6            # of gpt13's 24: the depth cut, widths whole
 
 
 def dp13_run(torch, wrap, level=None):
     """gpt13's bench step (O2 bf16, no master weights, fused CE, B 8, S
-    1024) from ``bench.build``'s state: ``DP13_EAGER`` eager steps, then
+    1024; its first ``DP13_LAYERS`` layers) from ``bench.build``'s state: ``DP13_EAGER`` eager steps, then
     ``DP13_GRAPHED`` calls of ``jit.StaticFunction`` (a warm-up, a
     capture, replays), on the bench's batch. With ``wrap`` the model and
     optimizer go through ``fleet.init`` (dp 1: ``init_parallel_env`` on
@@ -3686,6 +3712,8 @@ def dp13_run(torch, wrap, level=None):
     a graph cannot replay). Returns the losses, host copies of every
     parameter after the eager steps and after the graphed ones, the step
     times and the launch counts of the run."""
+    import dataclasses
+
     import numpy as np
 
     import paddle_tpu_torch as paddle
@@ -3697,6 +3725,7 @@ def dp13_run(torch, wrap, level=None):
     from paddle_tpu_torch.ops import paged_attention as pa
 
     cfg, B, S, _ = bench.SETUPS["gpt13"](False)
+    cfg = dataclasses.replace(cfg, num_layers=DP13_LAYERS)
     model, opt = bench.build(cfg, "cuda", bench.MASTER_WEIGHT["gpt13"])
     net = model
     if wrap:
@@ -4200,7 +4229,7 @@ def phase_distributed(torch, card):
 # the depth of the earlier count-free paths, cut so the smoke stays well
 # inside its limit as phases are added (widths and checks unchanged)
 BUCKET_LAYERS = 3          # of Llama-0.76B's 12 (6 in PR 21, 3 in PR 22)
-STATE_LAYERS = 6           # of gpt13's 24 (12 in PR 21, 6 in PR 22)
+STATE_LAYERS = 3           # of gpt13's 24 (12, then 6, before)
 
 
 def bucket_independence(torch, card):
@@ -4485,6 +4514,44 @@ def phase_incubate_j(torch, card):
     return r
 
 
+def phase_static_k(torch, card):
+    """Phase 27 (module docstring): ``tools/static_drills.py``'s four
+    parts. Prints one JSON line a part and a summary; returns the drills'
+    record (``launches`` by path)."""
+    from paddle_tpu_torch.tools import static_drills as d
+
+    t0 = time.perf_counter()
+    try:
+        r = d.run("cuda", small=False, log=log)
+    except (d.DrillFailed, RuntimeError, ValueError) as e:
+        fail(f"static (k): {e}")
+    a, b, c, w = r["train"], r["decode"], r["control_flow"], r["while_node"]
+    log(f"static (k) ({card}): (a) GPT-355M f32 through Executor.run, "
+        f"{len(a['losses'])} steps (B {list(d.TRAIN_B)}): losses and "
+        f"{a['params']} parameters bit for bit the eager loop "
+        f"{a['losses_equal'] and not a['params_differing']}, "
+        f"{a['captures']} captures ("
+        + ", ".join(f"{x:.2f}" for x in a["capture_s"])
+        + f" s), step ms replayed at B 4 {a['step_ms_replayed_b4']:.2f}, "
+        f"build {a['build_s']:.2f} s, K1/K2/K3 "
+        f"{a['launches']['flash_fwd']}/{a['launches']['flash_dq']}/"
+        f"{a['launches']['flash_dkv']}; (b) to_static greedy decode B "
+        f"{d.DECODE_B}, L {d.DECODE_L}: trips " + json.dumps(b["trips"])
+        + f", tokens and cur bit for bit the Python loop, "
+        f"{b['ms_per_trip']:.3f} ms a decode trip (ms a call "
+        + json.dumps({k: round(v, 2) for k, v in b["ms_per_call"].items()})
+        + f"), capture {sum(b['capture_s']):.2f} s, K1 captured "
+        f"{b['k1_captured']}, WHILE node executions "
+        f"{b['launches']['while_nodes']}; (c) control flow "
+        + json.dumps({k: v for k, v in c.items() if k != "cond_gradients"},
+                     default=str)
+        + f"; (d) WHILE node {w['ms_per_trip'] * 1e3:.2f} us a trip, plain "
+        f"loop {w['plain_ms_per_trip'] * 1e3:.2f} us; seconds "
+        + json.dumps({k: round(v, 1) for k, v in r["seconds"].items()})
+        + f", phase {time.perf_counter() - t0:.1f} s")
+    return r
+
+
 def log_sep_moe(card, r):
     """One line of the sequence- and expert-parallel drills' readings."""
     ring, sep, moe = r["ring"], r["sep"], r["moe"][0]
@@ -4594,7 +4661,11 @@ def main():
     torch.cuda.empty_cache()
     # the fused encoder trained, the fused decoder, the rest of incubate
     incubate = timed(phase_incubate_j, torch, card)
-    zoo_paths = zoo_paths | deploy_paths | incubate["launches"]
+    torch.cuda.empty_cache()
+    # GPT-355M trained through a static Program, its to_static decode
+    static_k = timed(phase_static_k, torch, card)
+    zoo_paths = (zoo_paths | deploy_paths | incubate["launches"]
+                 | static_k["launches"])
     dp13 = distributed["dp_gpt13"]
     dist_flash = {"train_dp_gpt13": dp13["flash_launches"],
                   **distributed["drills"]["flash_launches"],
@@ -4754,6 +4825,25 @@ def main():
         **{k: k6["kernel"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms")},
+    })
+    w = static_k["while_node"]
+    kernels.append({
+        "name": "graph_cond_while", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/graph_cond.cu",
+        # no Pallas kernel: the JAX package's tensor while is XLA's
+        # lax.while_loop, here a WHILE node of the captured graph
+        "replaces": "paddle_tpu/static/nn/control_flow.py:315",
+        # the node's executions in the decode path's replays
+        "launches": static_k["decode"]["launches"]["while_nodes"],
+        "launches_by_path": {
+            "decode_static_gpt355m":
+                static_k["decode"]["launches"]["while_nodes"]},
+        "trips": static_k["decode"]["trips"],
+        "max_abs_err": w["max_abs_err"],
+        # a trip of a one-add body against the host loop's trip
+        "ms": w["ms_per_trip"], "plain_ms": w["plain_ms_per_trip"],
+        "bound_ms": w["bound_ms_per_trip"], "bound_by": w["bound_by"],
+        "library_ms": None,
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -62,12 +62,16 @@ with its ``Predictor`` and C API, ``profiler`` on ``torch.profiler``,
 ``device.cuda``, QAT/PTQ; and ``incubate`` (the fused transformer layers
 on K1-K3, ``autotune``, the optimizers with BFGS/L-BFGS, ``asp``,
 ``autograd``, the segment and graph ops) with ``geometric`` and
-``nn.functional.flash_attn_unpadded``.
+``nn.functional.flash_attn_unpadded``; and ``static`` (``Program``,
+``Executor``, ``static.nn`` with its control flow, ``StaticRNN``, the
+sequence ops, the legacy API), ``enable_static``/``disable_static`` and
+``jit``'s dy2static pass, tensor control flow becoming conditional nodes
+of the captured CUDA graph.
 
 Every entry point runs on ``cuda`` unless given ``device="cpu"`` or told
 ``set_device("cpu")`` (:mod:`.device`); kernels are built from ``csrc/``
 with ``nvcc`` at first use (:mod:`.ops._build`). Not ported yet, of the
-JAX package's namespace: ``static``, ``vision``'s ``transforms``,
+JAX package's namespace: ``vision``'s ``transforms``,
 ``datasets`` and image backend, ``distribution``, ``fft``, ``signal``,
 ``sparse``, ``onnx`` and the rest of ``utils``.
 """
@@ -107,6 +111,21 @@ from . import (inference, loadgen, profiler, quantization,  # noqa: E402
 from .hapi import summary  # noqa: E402
 from .nn import ParamAttr  # noqa: E402
 from .utils import flops  # noqa: E402
+from . import static  # noqa: E402
+
+
+def disable_static(place=None):
+    """``paddle.disable_static``: back to dygraph (the default); ops stop
+    recording into the default main program."""
+    static._disable_static()
+
+
+def enable_static():
+    """``paddle.enable_static``: ops outside any ``program_guard`` record
+    into ``static.default_main_program()`` (``static/record.py``). The
+    JAX package needs no switch, its tape records every op; the port
+    records only while a program is open."""
+    static._enable_static()
 
 
 def is_compiled_with_cuda() -> bool:
@@ -144,5 +163,6 @@ __all__ = (["default_device", "resolve_device", "set_device", "get_device",
             "is_compiled_with_tpu", "is_compiled_with_xpu", "ParamAttr",
             "inference", "loadgen", "profiler", "quantization",
             "regularizer", "sysconfig", "utils", "version", "summary",
-            "flops", "device"]
+            "flops", "device", "static", "enable_static",
+            "disable_static"]
            + [n for n in ops.__all__ if n not in ("to_tensor",)])

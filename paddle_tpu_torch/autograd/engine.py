@@ -48,6 +48,7 @@ from typing import Callable, Sequence
 import torch
 
 from .. import amp
+from .. import tensor as _tensor
 from ..tensor import Tensor, unwrap
 
 __all__ = ["apply_op", "inplace_rebind", "writes_in_place", "backward",
@@ -105,7 +106,11 @@ def apply_op(fn: Callable, tensors: Sequence[Tensor], attrs: dict = None,
              differentiable: bool = True, name: str = ""):
     """Run one op: ``fn(*values, **attrs)`` on the tensors' torch values
     (amp-cast under ``name``); a tuple or list of outputs comes back as a
-    tuple of Tensors."""
+    tuple of Tensors. While a static program records, the op is one node
+    of it (``static/record.py``)."""
+    if _tensor.op_observers:
+        for obs in _tensor.op_observers:
+            obs(tensors)
     vals = [t._value for t in tensors]
     if amp._state.get() is not None:
         vals = amp.cast_inputs(name, *vals)
@@ -115,8 +120,13 @@ def apply_op(fn: Callable, tensors: Sequence[Tensor], attrs: dict = None,
     if benchmark_sync_enabled:
         _benchmark_sync(outs)
     if isinstance(outs, (tuple, list)):
-        return tuple(_wrap_out(o, differentiable, vals) for o in outs)
-    return _wrap_out(outs, differentiable, vals)
+        out = tuple(_wrap_out(o, differentiable, vals) for o in outs)
+    else:
+        out = _wrap_out(outs, differentiable, vals)
+    rec = _tensor.program_recorder
+    if rec is not None and rec.records():
+        rec.op(fn, attrs, differentiable, name, tensors, out)
+    return out
 
 
 def writes_in_place(v: torch.Tensor) -> bool:

@@ -75,7 +75,8 @@ def is_grad_enabled() -> bool:
 
 
 def in_dynamic_mode() -> bool:
-    """Always eager: the port has no static mode yet."""
+    """True, as the JAX package's: ops run eagerly in either mode (under
+    ``enable_static`` they are also recorded into the default program)."""
     return True
 
 

@@ -8,8 +8,9 @@ input signature (:mod:`.static_function`), with ``InputSpec``,
 ladders first, so a stream of shapes captures one graph per bucket.
 
 ``save``, ``load`` and ``TranslatedLayer`` (:mod:`.save_load`) write and
-read the deployment artifact on ``torch.export``. Not ported yet: the
-``dy2static`` AST pass.
+read the deployment artifact on ``torch.export``. The ``dy2static`` AST
+pass (:mod:`.dy2static`) rewrites Python control flow on tensor values
+for ``to_static``; ``save`` does not export such a forward yet.
 """
 from __future__ import annotations
 

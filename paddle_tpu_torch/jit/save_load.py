@@ -189,8 +189,9 @@ def save(layer, path: str, input_spec: Optional[Sequence] = None, **config):
         if _data_dependent(err):
             raise ValueError(
                 "jit.save cannot export a forward whose Python control flow "
-                "depends on tensor values (the dy2static pass is not "
-                f"ported): {err}") from err
+                "depends on tensor values: exporting the dy2static-converted "
+                "forward (through torch.cond/torch.while_loop) is not ported "
+                f"yet: {err}") from err
         raise
     finally:
         if was_training:

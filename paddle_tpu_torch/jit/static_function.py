@@ -40,10 +40,16 @@ at the capture, as they happen once at a JAX trace.
 Nothing falls back: a capture that fails (a host read of a device value
 such as ``.item()``, ``bool(tensor)`` or ``.numpy()`` inside the
 function, or an operation a graph cannot hold) raises a RuntimeError
-naming the function; Python control flow on tensor values needs the
-``dy2static`` pass, which is not ported yet. On CPU tensors the function
-runs eagerly on every call (there is no graph), with the same signature
-cache, counts and state-in-place contract.
+naming the function. Python control flow on tensor values is rewritten
+by the ``dy2static`` AST pass (:mod:`.dy2static`, when ``dy2static`` is
+true and ``PADDLE_TPU_DY2STATIC`` is not ``"0"``) into
+``static.nn.cond``/``while_loop``, which the capture holds as
+conditional nodes of the graph (``ops/graph_cond.py``): the predicate is
+read on the device at every replay. A signature's eager first call takes
+one branch of each; the others are warmed in a throwaway relaxed
+capture (``graph_cond.warm_up``) so that the capture builds nothing. On
+CPU tensors the function runs eagerly on every call (there is no graph),
+with the same signature cache, counts and state-in-place contract.
 
 Each captured program increments ``paddle_tpu_jit_compiles_total{fn,
 source="fresh"}`` once (on the CPU, the call that would capture). A CUDA
@@ -72,9 +78,8 @@ bounds, since a counter cannot see a kernel launched through ctypes;
 ``peak_bytes`` (the device memory allocated at the peak of that call, on
 the card; None on the CPU). Unlike XLA's, the count leaves out the
 elementwise work (activations, norms, the optimizer's update). Before
-any call it is None. Not ported: ``lower``, ``jit.save``/``load`` and
-the ``dy2static`` AST pass (``BucketedFunction`` is in
-:mod:`.bucketing`).
+any call it is None. Not ported: ``lower`` (``jit.save``/``load`` are
+in :mod:`.save_load`, ``BucketedFunction`` in :mod:`.bucketing`).
 """
 from __future__ import annotations
 
@@ -93,6 +98,8 @@ from ..metrics import get_registry
 from ..nn.layer_base import Layer
 from ..ops import embedding_grad as _eg
 from ..ops import flash_attention as _fa
+from ..ops import graph_cond as _gc
+from . import dy2static as _dy2static
 from ..ops import paged_attention as _pa
 from ..optimizer.optimizer import Optimizer, _value
 from ..tensor import Tensor
@@ -338,6 +345,7 @@ class _Program:
         self.flash_calls: Dict[str, int] = {}
         self.paged_calls = 0
         self.embedding_calls = 0
+        self.while_nodes = 0
         self.capture_s: Optional[float] = None
         self.cost: Optional[dict] = None
         self._staging: Dict[torch.device, tuple] = {}
@@ -431,21 +439,37 @@ class _FlopCount:
 
 
 # ------------------------------------------------------ StaticFunction
+_warming = 0
+
+
+def warming() -> bool:
+    """Whether a signature's eager first call on the card is running: the
+    control flow it runs warms the branches it does not take."""
+    return _warming > 0
+
+
 class StaticFunction:
     """The imperative ``function`` captured per input signature (module
     docstring). ``observe`` lists objects (models, optimizers) whose
     state the step uses beyond what the function's closure reaches.
     ``input_spec``, ``build_strategy``, ``property``, ``full_graph``,
-    ``warmup``, ``dy2static``, ``cache_dir`` and ``cache_key_extra`` are
-    taken for the JAX package's API: every signature's first call runs
-    eagerly whatever ``warmup`` says, and there is no AST pass and no
-    persistent cache."""
+    ``warmup``, ``cache_dir`` and ``cache_key_extra`` are taken for the
+    JAX package's API: every signature's first call runs eagerly whatever
+    ``warmup`` says, and there is no persistent cache. ``dy2static``
+    applies the AST pass (module docstring)."""
 
     def __init__(self, function: Callable, input_spec=None,
                  build_strategy=None, property=False, full_graph=True,
                  observe: Sequence[Any] = (), warmup: bool = True,
                  dy2static: bool = True, cache_dir: Optional[str] = None,
                  cache_key_extra: Optional[str] = None):
+        if dy2static and os.environ.get("PADDLE_TPU_DY2STATIC") != "0":
+            # Python if/while on tensor values into static.nn control
+            # flow (jit/dy2static.py); Python-bool control flow keeps its
+            # meaning, and a function without source is left as it is
+            from .dy2static import ast_transform
+
+            function = ast_transform(function)
         self._fn = function
         self._input_spec = input_spec
         self._observe = list(observe)
@@ -552,6 +576,12 @@ class StaticFunction:
             prog = self._cache[key] = _Program()
         prog.calls += 1
         device = _device_of(tensors, self._opts, self._modules)
+        with _dy2static.flag_device(device):
+            return self._call(prog, device, tensors, meta, spec, args,
+                              kwargs)
+
+    def _call(self, prog: _Program, device: torch.device, tensors, meta,
+              spec, args, kwargs):
         if prog.calls == 1:
             return self._first_call(prog, device, args, kwargs)
         if device.type != "cuda" or self.eager_reason is not None:
@@ -576,6 +606,7 @@ class StaticFunction:
         _fa.count_replays(prog.flash_calls)
         _pa.count_replays(prog.paged_calls)
         _eg.count_replays(prog.embedding_calls)
+        _gc.count_replays(prog.while_nodes)
         return _rebuild_out(prog.out_spec,
                             [t.detach().clone() for t in prog.outputs])
 
@@ -590,11 +621,16 @@ class StaticFunction:
         parameter's grad accumulator to the stream it ran on, and one
         still alive at the capture must be on the capture's stream (one
         on the default stream would pull it into the graph)."""
+        global _warming
         current = torch.cuda.current_stream(device)
         side = self._side_stream(device)
         side.wait_stream(current)
-        with torch.cuda.stream(side), prog.tape.open("fill"):
-            out = self._fn(*args, **kwargs)
+        _warming += 1
+        try:
+            with torch.cuda.stream(side), prog.tape.open("fill"):
+                out = self._fn(*args, **kwargs)
+        finally:
+            _warming -= 1
         current.wait_stream(side)
         out = _detached(out)
         for t in _flatten_out(out)[0]:
@@ -637,6 +673,7 @@ class StaticFunction:
         flash_before = dict(_fa.captured_launches)
         paged_before = _pa.captured_launches
         embedding_before = _eg.captured_launches
+        while_before = _gc.captured_launches
         graph = torch.cuda.CUDAGraph()
         # no cyclic collection inside the capture: a graph dropped in a
         # reference cycle and destroyed mid-capture invalidates it
@@ -654,8 +691,9 @@ class StaticFunction:
                 "A captured function must not read a device value on the "
                 "host (.item(), bool(tensor), .numpy(), float(tensor)) nor "
                 "run an operation a graph cannot hold; Python control flow "
-                "on tensor values needs the dy2static pass, which is not "
-                "ported yet") from e
+                "on tensor values is captured only where the dy2static pass "
+                "converted it (a tensor if/while in the function's own "
+                "source) or where it calls static.nn.cond/while_loop") from e
         finally:
             if gc_was_on:
                 gc.enable()
@@ -666,6 +704,7 @@ class StaticFunction:
                             for k in _fa.KERNELS}
         prog.paged_calls = _pa.captured_launches - paged_before
         prog.embedding_calls = _eg.captured_launches - embedding_before
+        prog.while_nodes = _gc.captured_launches - while_before
         prog.capture_s = time.perf_counter() - t0
         prog.built = True
         self._count_compile()

@@ -95,8 +95,14 @@ class Optimizer:
                  weight_decay=None, grad_clip=None,
                  name: Optional[str] = None):
         if parameters is None:
-            raise ValueError("pass parameters=model.parameters() (or "
-                             "model.named_parameters())")
+            from .. import tensor as _tensor
+
+            if _tensor.program_recorder is None:
+                raise ValueError("pass parameters=model.parameters() (or "
+                                 "model.named_parameters())")
+            # a static program's minimize() collects them (static
+            # contract: every trainable parameter the loss reaches)
+            parameters = []
         parameters = list(parameters)
         # per-parameter overrides of the param-group API, by index:
         # [{'params': [...], 'learning_rate': mult, 'weight_decay': wd}]
@@ -307,7 +313,40 @@ class Optimizer:
                  no_grad_set=None):
         """Apply the grads a prior ``loss.backward()`` made (the
         reference's dygraph contract: it never runs autodiff itself);
-        raises if there are none."""
+        raises if there are none.
+
+        While a static program records (``static.program_guard`` or
+        ``enable_static``), it is declarative instead, as the JAX
+        package's ``optimizer.py:292-325``: the loss and this optimizer
+        register with the program, on ``parameters``, else this
+        optimizer's own, else every trainable parameter the loss reaches,
+        less ``no_grad_set``; ``Executor.run`` then makes the step."""
+        from .. import tensor as _tensor
+
+        if _tensor.program_recorder is not None:
+            from ..static import _collect_parameters, default_main_program
+
+            prog = default_main_program()
+            prog.loss = loss
+            prog.optimizer = self
+            if parameters is not None:
+                plist = list(parameters)
+            elif self._parameter_list:
+                plist = list(self._parameter_list)
+            else:
+                plist = _collect_parameters(loss)
+            if no_grad_set:
+                frozen_ids = {id(p) for p in no_grad_set
+                              if not isinstance(p, str)}
+                frozen_names = {p for p in no_grad_set if isinstance(p, str)}
+                plist = [p for p in plist
+                         if id(p) not in frozen_ids
+                         and getattr(p, "name", None) not in frozen_names]
+            named = _named(plist)
+            self._names = [n for n, _ in named]
+            self._parameter_list = [p for _, p in named]
+            self._materialize_accumulators()
+            return None, []
         if not any(_value(p).grad is not None for p in self._parameter_list):
             raise RuntimeError(
                 "Optimizer.minimize found no gradients: call loss.backward() "

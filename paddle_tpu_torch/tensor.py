@@ -42,6 +42,27 @@ __all__ = ["Tensor", "Parameter", "to_tensor", "unwrap", "facade_io"]
 
 _uid_counter = itertools.count()
 
+# The hooks of the static-graph front end, read by :func:`facade_io` and
+# ``autograd.engine.apply_op``, the port's two op entries: the open
+# program's recorder (``static/record.py``) and the observers of control
+# flow's capture discovery (``static/nn/control_flow.py``), each called
+# with the Tensors an op reads.
+program_recorder = None
+op_observers: list = []
+# conditional-node bodies being captured on this process's card
+# (``ops/graph_cond.py``): a host read there raises before it reaches
+# the device
+capturing_bodies = 0
+
+
+def _no_host_read(v: torch.Tensor) -> None:
+    if capturing_bodies and v.is_cuda:
+        raise RuntimeError(
+            "a tensor cond/while captured as a conditional node of a CUDA "
+            "graph cannot read a device value on the host (.item(), "
+            "bool(tensor), .numpy(), float(tensor)): the predicate is read "
+            "on the device at every replay")
+
 
 def _from_numpy(arr: np.ndarray, dtype, device,
                 copy: bool = False) -> torch.Tensor:
@@ -206,10 +227,16 @@ class Tensor:
             self._value.grad = None
 
     def detach(self) -> "Tensor":
+        if program_recorder is not None:  # an op of the program too
+            from .autograd.engine import apply_op
+
+            return apply_op(torch.Tensor.detach, [self],
+                            differentiable=False, name="detach")
         return Tensor._wrap(self._value.detach())
 
     # ------------------------------------------------------ conversion
     def numpy(self) -> np.ndarray:
+        _no_host_read(self._value)
         v = self._value.detach()
         if v.dtype == torch.bfloat16:
             v = v.float()
@@ -218,6 +245,7 @@ class Tensor:
         return v.cpu().numpy()
 
     def item(self):
+        _no_host_read(self._value)
         return self._value.detach().item()
 
     def tolist(self):
@@ -269,6 +297,7 @@ class Tensor:
         return rows(self._value.shape[0])
 
     def __bool__(self):
+        _no_host_read(self._value)
         return bool(self._value)
 
     def __int__(self):
@@ -353,9 +382,18 @@ def facade_io(fn):
     ``forward``) takes Tensors in place of torch tensors as arguments and,
     when it was given any, returns Tensors in place of the torch tensors
     it returns (in tuples and lists too). Called with torch tensors only,
-    it is ``fn`` unchanged."""
+    it is ``fn`` unchanged. While a static program records, the call is
+    one node of it (``static/record.py``)."""
     @functools.wraps(fn)
     def call(*args, **kwargs):
+        if op_observers:
+            cells = [v for v in (*args, *kwargs.values())
+                     if isinstance(v, Tensor)]
+            for obs in op_observers:
+                obs(cells)
+        rec = program_recorder
+        if rec is not None and rec.records():
+            return rec.call(fn, args, kwargs)
         args, fa = _unwrap_all(args)
         vals, fk = _unwrap_all(list(kwargs.values()))
         out = fn(*args, **dict(zip(kwargs, vals)))

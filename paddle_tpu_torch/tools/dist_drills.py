@@ -10,7 +10,8 @@ refuses two ranks on one device); each rank runs:
 (a) every collective of ``tools/dist_cases.py`` on this rank's tensors,
     each held against the value worked out from both ranks' inputs;
 (b) GPT-355M (``tools/bench_generate.py``'s widths: vocab 50304, hidden
-    1024, 24 layers, 16 heads; 1024 positions) under ``fleet.init`` with
+    1024, 16 heads; 1024 positions; its first ``DRILL_LAYERS`` of 24
+    layers) under ``fleet.init`` with
     ``dp_degree`` 2 and ``fleet.distributed_model``, O2 bf16 with master
     weights and AdamW (lr 1e-4): a global batch of 8 rows at S 1024,
     each rank its 4 through ``DistributedBatchSampler`` and a
@@ -76,7 +77,8 @@ from typing import Dict
 
 import numpy as np
 
-__all__ = ["run", "rank_main", "gpt355m_config", "LR", "STEPS"]
+__all__ = ["run", "rank_main", "gpt355m_config", "DRILL_LAYERS", "LR",
+           "STEPS"]
 
 LR = 1e-4
 STEPS = 2
@@ -91,12 +93,18 @@ WEIGHT_TOL = 5e-2     # mean |master - one model's master|, in units of lr
 EPS1 = 1e-8 / math.sqrt(1 - 0.999)
 
 
+# the depth of GPT-355M in the two-rank drills (here, ``zero_pp_drills``
+# and ``ps_engine_drills``): widths and checks as at 24 layers, the depth
+# cut so the smoke's run stays well inside its time limit
+DRILL_LAYERS = 4
+
+
 def gpt355m_config(small: bool):
     from ..models import GPTConfig
 
     return GPTConfig(vocab_size=256 if small else 50304,
                      hidden_size=64 if small else 1024,
-                     num_layers=2 if small else 24,
+                     num_layers=2 if small else DRILL_LAYERS,
                      num_heads=4 if small else 16,
                      max_position_embeddings=32 if small else 1024,
                      hidden_dropout_prob=0.0, attention_dropout_prob=0.0)

@@ -5,10 +5,11 @@ a Wide&Deep CTR trainer under the launcher's ``ps`` mode, and ``rpc``.
     python -m paddle_tpu_torch.tools.ps_engine_drills            # on the card
     python -m paddle_tpu_torch.tools.ps_engine_drills --small --device cpu
 
-(a) gpt13 (``bench_gpt13``'s GPT-3 XL: vocab 50304, hidden 2048, 24
-    layers, 16 heads, O2 bf16 without master weights, AdamW lr 1e-4) at B
-    8, S 1024 through ``auto_parallel.Engine`` in this process, at world
-    size 1 (``Engine`` runs ``fleet.init``: NCCL on the card). The model
+(a) gpt13 (``bench_gpt13``'s GPT-3 XL: vocab 50304, hidden 2048, 16
+    heads, its first ``ENGINE_LAYERS`` of 24 layers, O2 bf16 without
+    master weights, AdamW lr 1e-4) at B 8, S 1024 through
+    ``auto_parallel.Engine`` in this process, at world size 1
+    (``Engine`` runs ``fleet.init``: NCCL on the card). The model
     given to ``Engine`` is the GPT under ``amp.auto_cast`` O2
     (``O2Forward``) and its loss ``lm_loss``: the cross entropy over the
     logits, since ``Engine``'s step calls ``loss(model(inputs),
@@ -85,6 +86,7 @@ of the update; the control reads 1.0 (no update at all).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -105,6 +107,9 @@ CTR_LR = 0.05         # (c): SGD on the tables and on the trunk
 CTR_TOL = 5e-3        # (c): the rows' updates against the dense twin's
 CTR_STEPS = 200
 ENGINE_STEPS = 4
+# the depth of (a)'s gpt13: widths and checks as at 24 layers, the depth
+# cut so the smoke's run stays well inside its time limit
+ENGINE_LAYERS = 6
 GLOBAL_BATCH = 8
 
 # PaddleRec models/rank/wide_deep/config.yaml (Criteo): sparse_feature_
@@ -217,6 +222,8 @@ def engine_gpt13(device: str, small: bool) -> dict:
     from ..io import DataLoader
 
     cfg, B, S, _ = bench.SETUPS["gpt13"](small)
+    if not small:
+        cfg = dataclasses.replace(cfg, num_layers=ENGINE_LAYERS)
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab_size, (B, S + 1))
     loader = DataLoader(_Rows(tokens), batch_size=B, shuffle=False,

@@ -15,19 +15,19 @@ layer at GPT-355M's width.
     exceed it. The ring's forward and backward (every rank's loop, one
     after another) are timed beside the one-call kernels.
 (b) Two gloo ranks (NCCL refuses two ranks on one card) of Llama-0.76B,
-    ``bench --model llama``'s configuration (hidden 2048, 12 layers, 16
-    heads, intermediate 5632, vocab 32000, full recompute, fused CE, O2
-    bf16) at B 1, S 8192, so each rank holds 4096 positions: through
-    ``fleet.init(sep_degree=2)`` and ``fleet.distributed_model`` the loss
-    and every leaf's gradient (summed over ``sep`` by the reducer) against
+    ``bench --model llama``'s configuration (hidden 2048, 16 heads,
+    intermediate 5632, vocab 32000, full recompute, fused CE, O2 bf16;
+    its first ``SEP_LAYERS`` of 12 layers) at B 1, S 8192, so each rank
+    holds 4096 positions: through ``fleet.init(sep_degree=2)`` and
+    ``fleet.distributed_model`` the loss and every leaf's gradient (summed over ``sep`` by the reducer) against
     one model's full-sequence loss and gradients on the card with the same
     weights, by relative norm within ``SEP_GRAD_TOL``, before any
     optimizer step. Controls that must exceed it: each rank attending its
     own block alone (no block from the other rank), and RoPE at the
     chunk's local positions. Each rank's K1-K3 launches are counted (rank
     0 runs its diagonal block, rank 1 the past block and its diagonal: 3
-    K1 a layer over both, twice under the full recompute, 72 in all; 36
-    each of K2 and K3), with the step's seconds and the bytes each rank
+    K1 a layer over both, twice under the full recompute, 6 a layer in
+    all; 3 a layer each of K2 and K3), with the step's seconds and the bytes each rank
     sent around the ring (staged through the host on gloo).
 (c) Two gloo ranks of ``MoELayer`` at GPT-355M's width (d_model 1024,
     d_hidden 4096, 8 gelu ``ExpertLayer``s, 4 a rank, f32), B 8 x S 1024
@@ -82,6 +82,9 @@ LOSS_TOL = 5e-3       # nats, the sep loss against one model's
 MOE_TOL = 1e-5        # the MoE output, loss and gradients (f32), by norm
 GSHARD_CAP = (0.2, 0.4)
 P = 4                 # the ring of (a)
+# the depth of (b)'s Llama-0.76B: widths and checks as at 12 layers, the
+# depth cut so the smoke's run stays well inside its time limit
+SEP_LAYERS = 2
 
 
 def _ra():
@@ -241,7 +244,8 @@ def _llama_config(small: bool):
         return llama_tiny(recompute=True, fused_loss=True,
                           sequence_parallel=True), 128
     S = 8192
-    return LlamaConfig(vocab_size=32000, hidden_size=2048, num_layers=12,
+    return LlamaConfig(vocab_size=32000, hidden_size=2048,
+                       num_layers=SEP_LAYERS,
                        num_heads=16, num_key_value_heads=16,
                        max_position_embeddings=S, recompute=True,
                        fused_loss=True, sequence_parallel=True), S

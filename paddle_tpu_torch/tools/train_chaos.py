@@ -30,8 +30,9 @@ asserting what its JAX counterpart asserts:
    (skip, rollback, LR re-ramp and widened skip, abort), counters exact.
 
 With ``--model bert_base`` it runs the same contracts at BERT-base's
-full width (``bench.bert_setup``: 110.1 M parameters, B 32, S 128, O2
-bf16 with master weights, dropout 0.1, AdamW; ``--small``: ``bert_tiny``
+full width (``bench.bert_setup``: hidden 768, 12 heads, B 32, S 128, O2
+bf16 with master weights, dropout 0.1, AdamW) and its first
+``CHAOS_LAYERS`` of 12 layers (``--small``: ``bert_tiny``
 at B 4, for a rehearsal on the CPU), ``BERT_DRILLS``:
 
 - ``fit-resume``: ``BertForSequenceClassification`` (2 labels) through
@@ -71,6 +72,7 @@ only when every scenario or drill passed. ``--device`` defaults to
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import os
@@ -552,6 +554,9 @@ def run_scenarios(device="cuda", names=None, log=print) -> int:
 # ──────────────────────────────── BERT-base ────────────────────────────────
 
 FIT_STEPS = 8   # a fit epoch's steps: 256 rows at B 32
+# BERT-base's depth in the drills: widths and checks as at 12 layers, the
+# depth cut so the smoke's run stays well inside its time limit
+CHAOS_LAYERS = 2
 FIT_LR = 5e-5
 PRETRAIN_LR = 1e-4
 
@@ -565,6 +570,8 @@ def _bert_shapes(small: bool):
     from .. import bench
 
     cfg, B, S, _steps = bench.bert_setup(small)
+    if not small:
+        cfg = dataclasses.replace(cfg, num_layers=CHAOS_LAYERS)
     return cfg, B, S
 
 

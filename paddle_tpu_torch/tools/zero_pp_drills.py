@@ -6,8 +6,9 @@ checkpoint, and GPT-355M pipelined over the two.
 
 Two processes (``distributed.spawn``) share the card over ``gloo``
 (NCCL refuses two ranks on one device). The model and its training are
-``tools/dist_drills.py``'s: GPT-355M (vocab 50304, hidden 1024, 24
-layers, 16 heads, 1024 positions, dropout 0), O2 bf16 with master
+``tools/dist_drills.py``'s: GPT-355M (vocab 50304, hidden 1024, 16
+heads, 1024 positions, dropout 0; its first ``DRILL_LAYERS`` of 24
+layers), O2 bf16 with master
 weights, AdamW (lr 1e-4), a global batch of 8 rows at S 1024 from seed 7.
 
 (b) ZeRO. ``DataParallel`` runs 3 steps (each rank its 4 rows), then
@@ -30,7 +31,7 @@ weights, AdamW (lr 1e-4), a global batch of 8 rows at S 1024 from seed 7.
     more step from the restored state must equal ``DataParallel``'s third
     step bit for bit. A copy with one of rank 1's shard files removed
     must be refused.
-(d) Pipelines at ``pp`` 2, 12 layers a stage, 4 microbatches of 2 rows
+(d) Pipelines at ``pp`` 2, half the layers a stage, 4 microbatches of 2 rows
     (the strategy's ``accumulate_steps``, which ``fleet.distributed_model``
     passes to the config), the whole batch on both stages. The model's
     own path: ``GPTForCausalLM`` built under the ``pp`` mesh, wrapped by

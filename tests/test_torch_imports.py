@@ -805,11 +805,67 @@ def test_deployment_slice_modules_import_no_jax():
 
 
 # the JAX package's top-level names the port still lacks (ROADMAP Queue 1
-# item 16(e)-(k)); the deployment slice ported 24 of the 41 before it,
-# the incubate slice ``geometric``
-TOP_LEVEL_QUEUED = {"audio", "cost_model", "dataset", "disable_static",
-                    "distribution", "enable_static", "fft", "hub", "native",
-                    "onnx", "reader", "signal", "sparse", "static", "text"}
+# item 16(f)-(k)); the deployment slice ported 24 of the 41 before it,
+# the incubate slice ``geometric``, the static slice ``static``,
+# ``enable_static`` and ``disable_static``
+TOP_LEVEL_QUEUED = {"audio", "cost_model", "dataset", "distribution", "fft",
+                    "hub", "native", "onnx", "reader", "signal", "sparse",
+                    "text"}
+
+
+def test_static_slice_modules_import_no_jax():
+    """The static slice: every new module is walked by the probe (no jax)
+    and names no forbidden import."""
+    new = ["static", "static.record", "static.legacy", "static.nn",
+           "static.nn.common", "static.nn.control_flow", "static.nn.rnn",
+           "static.nn.sequence_lod", "jit.dy2static", "ops.graph_cond",
+           "tools.static_drills"]
+    for m in new:
+        path = PKG.joinpath(*m.split("."))
+        path = path / "__init__.py" if path.is_dir() else path.with_suffix(
+            ".py")
+        assert path.exists(), path
+        assert not [n for _, n in _imports(path) if _forbidden(n)]
+    probe = ("import importlib, sys\n"
+             + "".join(f"importlib.import_module('paddle_tpu_torch.{m}')\n"
+                       for m in new)
+             + "bad = [m for m in sys.modules if m.split('.')[0] in "
+               "('jax', 'jaxlib', 'paddle_tpu')]\n"
+               "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, cwd=str(REPO), env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert (PKG / "csrc" / "graph_cond.cu").exists()
+
+
+def test_static_entry_points_need_a_card(no_cuda):
+    """``static.Executor()`` and ``static.data`` resolve to the card,
+    unless told the CPU; ``Executor("cpu")`` and ``CPUPlace()`` run on
+    it."""
+    import paddle_tpu_torch as paddle
+
+    with pytest.raises(RuntimeError):
+        paddle.static.Executor()
+    with pytest.raises(RuntimeError):
+        with paddle.static.program_guard(paddle.static.Program()):
+            paddle.static.data("x", [2])
+    for place in ("cpu", paddle.CPUPlace()):
+        assert paddle.static.Executor(place).device.type == "cpu"
+    prev = paddle.device._current
+    paddle.set_device("cpu")
+    try:
+        main = paddle.static.Program()
+        with paddle.static.program_guard(main):
+            x = paddle.static.data("x", [2])
+            y = x * 2.0
+        (out,) = paddle.static.Executor().run(
+            main, feed={"x": np.ones(2, np.float32)}, fetch_list=[y])
+    finally:
+        paddle.device._current = prev
+    np.testing.assert_array_equal(out, [2.0, 2.0])
 
 
 def test_top_level_gap_is_the_queued_names():
