@@ -6,8 +6,10 @@
 Phases, in order; any failure exits non-zero before the result line:
 
 1. Device: the card's name and power limit (nvidia-smi); TF32 off.
-2. Build: every CUDA source under paddle_tpu_torch/csrc/, one nvcc each,
-   all started together, into build/paddle_tpu_torch/.
+2. Build: every CUDA source under paddle_tpu_torch/csrc/, one nvcc a
+   part of a source (``paged_attention.cu`` 7, ``flash_attention.cu`` 3,
+   the others 1: ``ops/_build.py`` ``PARTS``), all started together,
+   then one link a source, into build/paddle_tpu_torch/.
 3. Kernels against their plain PyTorch versions on the card, with
    timings, the card's bound and, where one PyTorch call computes the
    same function, its time:
@@ -464,6 +466,28 @@ Phases, in order; any failure exits non-zero before the result line:
    refused with RuntimeError; (d) the WHILE node's ms a trip against the
    plain loop's. Prints one JSON line a part and a summary with the
    capture seconds, the step ms and the ms a decode trip.
+28. Export (l) (``phase_export_l``, ``tools/export_drills.py``): (a) phase
+   27's ``to_static`` greedy decode over GPT-355M (B 4, L 256, a 32-token
+   prompt) saved by ``jit.save``: one ``while_loop`` node whose body holds
+   24 ``paddle_tpu_torch::flash_fwd`` nodes; loaded by ``jit.load`` on the
+   card, its three calls give phase 27's tokens and ``cur`` (the Python
+   loop's and the replayed WHILE node's) bit for bit, K1 24 launches a
+   trip; a small Layer with a tensor ``if`` saved and loaded, both
+   branches equal to eager; (b) ``onnx.export_decode`` of GPT-355M at B 1
+   in f32 from the card: four decode steps after a 16-token prompt in the
+   numpy evaluator on the host against the card's eager step, equal
+   tokens, caches within 1e-4 by norm; ``onnx.export`` of MobileNetV2 at
+   B 1, 224 x 224, logits within 1e-4 by norm; every op type one the JAX
+   converter emits; (c) an ASR front end (B 8 x 160,000 samples, n_fft
+   512, hop 160: ``stft``/``istft``, ``LogMelSpectrogram`` with 80 mels,
+   ``MFCC`` with 40), ``viterbi_decode`` at B 64, T 128, 52 tags and the
+   ``fft`` family's gradients on the card against the CPU, Viterbi paths
+   equal. Part (b) runs in a child process started just before phase 21
+   and waited for just after it (``clock: onnx_child``): its exports are
+   host-bound tracing, beside drills that mostly wait on their own
+   children. Each path's launches are counted from 0 just before it and
+   read just after (in the child for (b)). Prints one JSON line a part
+   and a summary; the phase's clock line adds the child's seconds.
 
 The last two lines are the kernels' JSON record (K1-K3 with their
 launches by path: ``train_gpt13``, ``train_llama``,
@@ -488,7 +512,9 @@ a decode step), and 0 on ``zoo_forward``, ``zoo_train``,
 ``train_fused_encoder_bert_kernel_off`` and
 ``decode_fused_gpt355m_kernel_off``, ``train_static_gpt355m`` (24 a step)
 and ``decode_static_gpt355m`` (K1: the eager first call's, then 24 a
-trip of the captured WHILE body); on
+trip of the captured WHILE body), ``export_decode_loaded_gpt355m`` (K1:
+24 a trip of the loaded ``while_loop``), and 0 on
+``onnx_trace_gpt355m``, ``onnx_trace_mobilenet_v2`` and ``spectral``; on
 a graphed path the eager first
 step's launches plus the replayed ones; and ``bert_case``, their times at
 BERT's shape, and K1's ``decode_case`` (Sq 1, Sk 160); K4's paths add
@@ -4552,6 +4578,53 @@ def phase_static_k(torch, card):
     return r
 
 
+def phase_export_l(torch, card, onnx):
+    """Phase 28 (module docstring): ``tools/export_drills.py``'s three
+    parts, (b) the record of ``onnx``, the ``OnnxChild`` that ran beside
+    phase 21. Prints one JSON line a part and a summary; returns the
+    drills' record (``launches`` by path)."""
+    from paddle_tpu_torch.tools import export_drills as d
+
+    t0 = time.perf_counter()
+    try:
+        r = d.run("cuda", small=False, log=log, onnx=onnx)
+    except (d.DrillFailed, RuntimeError, ValueError,
+            NotImplementedError) as e:
+        fail(f"export (l): {e}")
+    a, o, c = r["control_flow"], r["onnx"], r["spectral"]
+    g, m = o["gpt_decode"], o["mobilenet_v2"]
+    log(f"export (l) ({card}): (a) GPT-355M to_static greedy decode saved "
+        f"by jit.save in {a['export_s']:.2f} s ({a['pdmodel_bytes']} bytes "
+        f".pdmodel, {a['pdiparams_bytes']} .pdiparams), while_loop nodes "
+        f"{a['nodes']['while_loop']} with K1 nodes "
+        f"{a['nodes']['flash_fwd_in_body']} in the body, loaded in "
+        f"{a['load_s']:.2f} s; trips " + json.dumps(a["trips"])
+        + ", tokens and cur bit for bit phase 27's Python loop and WHILE "
+        f"node, K1 " + json.dumps(a["k1_by_case"])
+        + f"; {a['ms_per_trip_loaded']:.3f} ms a trip loaded against "
+        f"{a['ms_per_trip_captured']:.3f} ms captured; gated layer "
+        + json.dumps(a["gated_branches_equal"])
+        + f"; (b) ONNX GPT-355M decode step: {g['nodes']} nodes, "
+        f"{g['bytes']} bytes, export {g['export_s']:.2f} s, read "
+        f"{g['read_s']:.2f} s, {len(g['tokens'])} steps evaluated in "
+        f"{g['eval_s']:.2f} s, tokens (card, onnx) "
+        + json.dumps(g["tokens"]) + f", caches {g['caches_rel']:.2e} by "
+        f"norm; MobileNetV2 224: {m['nodes']} nodes, {m['bytes']} bytes, "
+        f"export {m['export_s']:.2f} s, evaluated in {m['eval_s']:.2f} s, "
+        f"logits {m['logits_rel']:.2e} by norm (the child process "
+        f"{o['child_s']:.1f} s from its start, beside phase 21); launches "
+        + json.dumps(r["launches"]) + "; op types "
+        + json.dumps(sorted(set(g["op_types"]) | set(m["op_types"])))
+        + "; (c) spectral card against CPU " + json.dumps(
+            {k: f"{v:.2e}" for k, v in c["diffs"].items()})
+        + ", Viterbi paths equal, card ms " + json.dumps(
+            {k: round(v, 3) for k, v in c["ms"].items()})
+        + "; seconds " + json.dumps(
+            {k: round(v, 1) for k, v in r["seconds"].items()})
+        + f", phase {time.perf_counter() - t0:.1f} s")
+    return r
+
+
 def log_sep_moe(card, r):
     """One line of the sequence- and expert-parallel drills' readings."""
     ring, sep, moe = r["ring"], r["sep"], r["moe"][0]
@@ -4579,14 +4652,27 @@ def log_sep_moe(card, r):
         f"{1e3 * moe['gshard']['local_s']:.1f} ms")
 
 
-def timed(phase, *args):
-    """``phase(*args)``, printing its wall seconds and the run's so far."""
+def timed(phase, *args, note=""):
+    """``phase(*args)``, printing its wall seconds, ``note`` and the
+    run's so far."""
     t0 = time.perf_counter()
     out = phase(*args)
     t1 = time.perf_counter()
-    log(f"clock: {phase.__name__} {t1 - t0:.1f} s, at "
+    log(f"clock: {phase.__name__} {t1 - t0:.1f} s{note}, at "
         f"{t1 - CLOCK_T0:.1f} s")
     return out
+
+
+def onnx_child(child):
+    """Waits for phase 28's ONNX child (``export_drills.OnnxChild``) and
+    returns it; its clock line is the wait beyond phase 21."""
+    from paddle_tpu_torch.tools import export_drills as d
+
+    try:
+        child.result()
+    except d.DrillFailed as e:
+        fail(f"export (l): {e}")
+    return child
 
 
 CLOCK_T0 = time.perf_counter()
@@ -4645,7 +4731,13 @@ def main():
     flag_launches, _ = timed(phase_flags, torch, card)
     torch.cuda.empty_cache()
     timed(phase_nn_extended_ops, torch, card)
+    # phase 28's ONNX part in a child process beside phase 21: host-bound
+    # tracing while the chaos drills wait on their own children
+    from paddle_tpu_torch.tools import export_drills
+
+    onnx = export_drills.OnnxChild("cuda")
     chaos = timed(phase_train_chaos, torch, card)
+    timed(onnx_child, onnx)
     torch.cuda.empty_cache()
     distributed = timed(phase_distributed, torch, card)
     torch.cuda.empty_cache()
@@ -4664,8 +4756,13 @@ def main():
     torch.cuda.empty_cache()
     # GPT-355M trained through a static Program, its to_static decode
     static_k = timed(phase_static_k, torch, card)
+    torch.cuda.empty_cache()
+    # that decode saved and loaded, ONNX from the card, the spectral paths
+    export_l = timed(phase_export_l, torch, card, onnx,
+                     note=f" (its ONNX part {onnx.result()['child_s']:.1f}"
+                     " s in a child beside phase_train_chaos)")
     zoo_paths = (zoo_paths | deploy_paths | incubate["launches"]
-                 | static_k["launches"])
+                 | static_k["launches"] | export_l["launches"])
     dp13 = distributed["dp_gpt13"]
     dist_flash = {"train_dp_gpt13": dp13["flash_launches"],
                   **distributed["drills"]["flash_launches"],

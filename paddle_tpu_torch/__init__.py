@@ -66,14 +66,17 @@ on K1-K3, ``autotune``, the optimizers with BFGS/L-BFGS, ``asp``,
 ``Executor``, ``static.nn`` with its control flow, ``StaticRNN``, the
 sequence ops, the legacy API), ``enable_static``/``disable_static`` and
 ``jit``'s dy2static pass, tensor control flow becoming conditional nodes
-of the captured CUDA graph.
+of the captured CUDA graph; and ``jit.save`` of that control flow as
+``torch.cond``/``torch.while_loop`` nodes of the exported program,
+``onnx`` (``export``, ``export_decode``) on the exported graph, and the
+spectral families ``fft``, ``signal``, ``audio`` and ``text``.
 
 Every entry point runs on ``cuda`` unless given ``device="cpu"`` or told
 ``set_device("cpu")`` (:mod:`.device`); kernels are built from ``csrc/``
 with ``nvcc`` at first use (:mod:`.ops._build`). Not ported yet, of the
 JAX package's namespace: ``vision``'s ``transforms``,
-``datasets`` and image backend, ``distribution``, ``fft``, ``signal``,
-``sparse``, ``onnx`` and the rest of ``utils``.
+``datasets`` and image backend, ``distribution``, ``sparse`` and the rest
+of ``utils``.
 """
 import torch as _torch
 
@@ -112,6 +115,7 @@ from .hapi import summary  # noqa: E402
 from .nn import ParamAttr  # noqa: E402
 from .utils import flops  # noqa: E402
 from . import static  # noqa: E402
+from . import audio, fft, onnx, signal, text  # noqa: E402
 
 
 def disable_static(place=None):
@@ -164,5 +168,5 @@ __all__ = (["default_device", "resolve_device", "set_device", "get_device",
             "inference", "loadgen", "profiler", "quantization",
             "regularizer", "sysconfig", "utils", "version", "summary",
             "flops", "device", "static", "enable_static",
-            "disable_static"]
+            "disable_static", "audio", "fft", "onnx", "signal", "text"]
            + [n for n in ops.__all__ if n not in ("to_tensor",)])

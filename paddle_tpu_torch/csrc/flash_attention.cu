@@ -91,12 +91,20 @@
 //
 // Interface: plain C functions returning cudaError_t, bound with ctypes.
 // The caller allocates every output and passes PyTorch's current stream.
+//
+// Build: three translation units compiled in parallel and linked into one
+// library (ops/_build.py PARTS): -DPTC_PART=0 holds K1, 1 K2, 2 K3, each
+// with its six (dtype, D) instantiations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#ifndef PTC_PART
+#error "build with -DPTC_PART=0, 1 or 2 (ops/_build.py PARTS)"
+#endif
 
 namespace {
 
@@ -1590,11 +1598,13 @@ bool bad_args(const Args& a, int D, int dtype) {
     default: return cudaErrorInvalidValue;                             \
   }
 
+#if PTC_PART == 0
 cudaError_t run_fwd(const void* q, const void* k, const void* v,
                     const void* kpad, void* o, void* lse, const Layout& lay,
                     const Args& a, int D, int dtype, cudaStream_t s) {
   FLASH_DISPATCH(fwd, q, k, v, kpad, o, lse, lay, a, s)
 }
+#elif PTC_PART == 1
 
 cudaError_t run_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
@@ -1602,6 +1612,7 @@ cudaError_t run_dq(const void* q, const void* k, const void* v,
                    const Args& a, int D, int dtype, cudaStream_t s) {
   FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, kpad, dqp, lay, a, s)
 }
+#elif PTC_PART == 2
 
 cudaError_t run_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
@@ -1609,9 +1620,11 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
                     const Args& a, int D, int dtype, cudaStream_t s) {
   FLASH_DISPATCH(dkv, q, k, v, dout, lse, delta, kpad, dkp, dvp, lay, a, s)
 }
+#endif
 
 }  // namespace
 
+#if PTC_PART == 0
 // K1. q, k, v [B, S, H, D] (strides[0..8]: batch, seq, head strides of q,
 // k, v in elements), o [B, Sq, H, D] (strides[9..11]); kpad f32 [B, Sk]
 // or null; lse f32 [B*H, Sq] contiguous. dtype 0 = f32, 1 = bf16; D in
@@ -1632,6 +1645,7 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                   static_cast<cudaStream_t>(stream)));
 }
 
+#elif PTC_PART == 1
 // K2. As K1, with dO in place of o among the strides (strides[9..11]),
 // lse and delta f32 [B*H, Sq] contiguous; writes dq [B, Sq, H, D]
 // contiguous.
@@ -1651,6 +1665,7 @@ extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
                                  static_cast<cudaStream_t>(stream)));
 }
 
+#elif PTC_PART == 2
 // K3. As K2; writes dk and dv [B, Sk, H, D] contiguous.
 extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
@@ -1668,3 +1683,4 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
                                   lay, a, D, dtype,
                                   static_cast<cudaStream_t>(stream)));
 }
+#endif

@@ -68,10 +68,20 @@
 // Interface: a plain C function returning cudaError_t, bound with ctypes.
 // The caller allocates the output and the workspace and passes PyTorch's
 // current stream.
+//
+// Build: seven translation units compiled in parallel and linked into one
+// library (ops/_build.py PARTS), since the 24 instantiations of one unit
+// put this file alone on the build's critical path. -DPTC_PART=0-5 hold
+// the kernels of one (q, kv) dtype pair each (q f32 for 0-2, bf16 for
+// 3-5; kv f32, bf16, int8 in turn), 6 the entry point.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifndef PTC_PART
+#error "build with -DPTC_PART=0 to 6 (ops/_build.py PARTS)"
+#endif
 
 namespace {
 
@@ -612,36 +622,51 @@ cudaError_t dispatch_shape(const void* q, const void* k_pool,
 #undef PAGED_LAUNCH
 }
 
-template <typename QT>
-cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* k_pool,
-                        const void* v_pool, const void* k_scale,
-                        const void* v_scale, const void* block_tables,
-                        const void* row_lens, void* out, void* ws, int T,
-                        int nh, int nkv, int hd, int page_size,
-                        int pages_per_seq, const Plan& plan, float scale,
-                        cudaStream_t stream) {
-  switch (kv_dtype) {
-    case kF32:
-      return dispatch_shape<QT, float>(q, k_pool, v_pool, k_scale, v_scale,
-                                       block_tables, row_lens, out, ws, T,
-                                       nh, nkv, hd, page_size, pages_per_seq,
-                                       plan, scale, stream);
-    case kBF16:
-      return dispatch_shape<QT, __nv_bfloat16>(
-          q, k_pool, v_pool, k_scale, v_scale, block_tables, row_lens, out,
-          ws, T, nh, nkv, hd, page_size, pages_per_seq, plan, scale, stream);
-    case kI8:
-      return dispatch_shape<QT, int8_t>(q, k_pool, v_pool, k_scale, v_scale,
-                                        block_tables, row_lens, out, ws, T,
-                                        nh, nkv, hd, page_size,
-                                        pages_per_seq, plan, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
+// The launches for one (q, kv) dtype pair (PTC_PART 0-5), the plan
+// passed as its four ints.
+#define PTC_PAGED_ARGS                                                      \
+  const void *q, const void *k_pool, const void *v_pool,                    \
+      const void *k_scale, const void *v_scale, const void *block_tables,   \
+      const void *row_lens, void *out, void *ws, int T, int nh, int nkv,    \
+      int hd, int page_size, int pages_per_seq, int n_split,                \
+      int part_pages, int rows_per_tile, int max_q, float scale,            \
+      void *stream
+#define PTC_PAGED_CALL                                                      \
+  q, k_pool, v_pool, k_scale, v_scale, block_tables, row_lens, out, ws, T, \
+      nh, nkv, hd, page_size, pages_per_seq, n_split, part_pages,           \
+      rows_per_tile, max_q, scale, stream
+extern "C" int ptc_paged_q32_kv32(PTC_PAGED_ARGS);
+extern "C" int ptc_paged_q32_kv16(PTC_PAGED_ARGS);
+extern "C" int ptc_paged_q32_kv8(PTC_PAGED_ARGS);
+extern "C" int ptc_paged_q16_kv32(PTC_PAGED_ARGS);
+extern "C" int ptc_paged_q16_kv16(PTC_PAGED_ARGS);
+extern "C" int ptc_paged_q16_kv8(PTC_PAGED_ARGS);
+
+#define PTC_PAGED_PART(NAME, QT, KVT)                                       \
+  extern "C" int NAME(PTC_PAGED_ARGS) {                                     \
+    const Plan plan{n_split, part_pages, rows_per_tile, max_q};             \
+    return static_cast<int>(dispatch_shape<QT, KVT>(                        \
+        q, k_pool, v_pool, k_scale, v_scale, block_tables, row_lens, out,   \
+        ws, T, nh, nkv, hd, page_size, pages_per_seq, plan, scale,          \
+        static_cast<cudaStream_t>(stream)));                                \
+  }
+#if PTC_PART == 0
+PTC_PAGED_PART(ptc_paged_q32_kv32, float, float)
+#elif PTC_PART == 1
+PTC_PAGED_PART(ptc_paged_q32_kv16, float, __nv_bfloat16)
+#elif PTC_PART == 2
+PTC_PAGED_PART(ptc_paged_q32_kv8, float, int8_t)
+#elif PTC_PART == 3
+PTC_PAGED_PART(ptc_paged_q16_kv32, __nv_bfloat16, float)
+#elif PTC_PART == 4
+PTC_PAGED_PART(ptc_paged_q16_kv16, __nv_bfloat16, __nv_bfloat16)
+#elif PTC_PART == 5
+PTC_PAGED_PART(ptc_paged_q16_kv8, __nv_bfloat16, int8_t)
+#endif
+
+#if PTC_PART == 6
 // out[T, nh, hd] (q's dtype) = ragged paged attention of q[T, nh, hd] over
 // k_pool/v_pool[num_pages, page_size, nkv, hd]; block_tables[T,
 // pages_per_seq] and row_lens[T] are int32; k_scale/v_scale are f32
@@ -666,26 +691,19 @@ extern "C" int paged_attention_launch(
       n_split > 65535 || nkv > 65535 || rows_per_tile < 1 ||
       rows_per_tile * groups > 16 || (n_split > 1) != (ws != nullptr) ||
       (k_scale == nullptr) != (v_scale == nullptr) ||
+      kv_dtype < kF32 || kv_dtype > kI8 ||
       (kv_dtype == kI8 && k_scale == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Plan plan{n_split, part_pages, rows_per_tile, rows_per_tile * groups};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (q_dtype) {
-    case kF32:
-      err = dispatch_kv<float>(kv_dtype, q, k_pool, v_pool, k_scale, v_scale,
-                               block_tables, row_lens, out, ws, T, nh, nkv,
-                               hd, page_size, pages_per_seq, plan, scale, s);
-      break;
-    case kBF16:
-      err = dispatch_kv<__nv_bfloat16>(kv_dtype, q, k_pool, v_pool, k_scale,
-                                       v_scale, block_tables, row_lens, out,
-                                       ws, T, nh, nkv, hd, page_size,
-                                       pages_per_seq, plan, scale, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
+  const int max_q = rows_per_tile * groups;
+  switch (q_dtype * 3 + kv_dtype) {
+    case kF32 * 3 + kF32: return ptc_paged_q32_kv32(PTC_PAGED_CALL);
+    case kF32 * 3 + kBF16: return ptc_paged_q32_kv16(PTC_PAGED_CALL);
+    case kF32 * 3 + kI8: return ptc_paged_q32_kv8(PTC_PAGED_CALL);
+    case kBF16 * 3 + kF32: return ptc_paged_q16_kv32(PTC_PAGED_CALL);
+    case kBF16 * 3 + kBF16: return ptc_paged_q16_kv16(PTC_PAGED_CALL);
+    case kBF16 * 3 + kI8: return ptc_paged_q16_kv8(PTC_PAGED_CALL);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
 }
+#endif

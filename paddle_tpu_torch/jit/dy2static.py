@@ -15,10 +15,12 @@ JAX package's, line for line) and changes only the run-time converters:
 with branch and loop bodies lifted into nested functions returning the
 names they assign. A predicate is *traced* when it is a Tensor on the
 card while its stream is being captured (a ``StaticFunction``'s capture),
-or one that derives from a placeholder of the static program being
+a tensor of a ``torch.export`` trace (``jit.save``, ``onnx.export``), or
+one that derives from a placeholder of the static program being
 recorded; then the converters call ``static.nn.cond``/``while_loop``,
-which become conditional nodes of the CUDA graph (``ops/graph_cond.py``)
-or one node of the program. Anything else is concrete: the converted
+which become conditional nodes of the CUDA graph (``ops/graph_cond.py``),
+``torch.cond``/``torch.while_loop`` nodes of the exported program, or
+one node of the static program. Anything else is concrete: the converted
 code runs the branch Python would, so the pass keeps the meaning of
 control flow on Python values and on concrete tensors (the CPU, a
 signature's eager first call). A ``for`` over a range with a traced
@@ -144,14 +146,15 @@ def _is_tensor(x) -> bool:
 
 def _is_traced_tensor(x) -> bool:
     """A Tensor whose value the host cannot read now: on the card under
-    capture, or derived from a placeholder of the program being
-    recorded."""
+    capture, a tensor of a ``torch.export`` trace, or derived from a
+    placeholder of the program being recorded."""
     if not _is_tensor(x):
         return False
     from .. import tensor as _tensor
     from ..ops import graph_cond as _gc
+    from ..static.nn.control_flow import exporting
 
-    if _gc.capturing(x._value):
+    if _gc.capturing(x._value) or exporting(x):
         return True
     rec = _tensor.program_recorder
     return rec is not None and rec.records() and rec.derived(x)

@@ -26,8 +26,19 @@ inside its ``auto_cast``, as the JAX package's bf16 programs are). A
 (``torch.export.Dim.AUTO``; its example size is 2). Flash attention is
 the operator ``paddle_tpu_torch::flash_fwd`` (K1), so the graph holds
 one node per attention call and a loaded program launches K1 on CUDA
-tensors. There is no AST pass: a forward whose Python control flow
-depends on tensor values is refused with ``ValueError``.
+tensors. As in the JAX package (``paddle_tpu/jit/__init__.py:128-133``)
+the trace runs the forward through the dy2static pass (off when
+``PADDLE_TPU_DY2STATIC=0``): Python ``if``/``while``/``for range`` on
+tensor values and ``static.nn``'s constructs become ``torch.cond`` and
+``torch.while_loop`` nodes of the program (the exporting regime of
+``static/nn/control_flow.py``), whose bodies hold K1's operator like the
+rest of the graph. A converted plain function, like a facade ``Layer``,
+gets facade Tensors (the converters dispatch on them). A torch module's
+forward (the port's models) is torch code and is traced as it is; a
+``to_static`` forward or function is already converted. Control flow the
+pass cannot convert (a host read such as ``bool(t)`` or ``t.item()``,
+control flow under ``try``) stops the trace: ``ValueError`` naming the
+source line.
 
 ``load`` (the card unless ``device="cpu"``) reads both files with
 ``framework/io.py``'s restricted unpickler, deserializes the program,
@@ -48,10 +59,11 @@ import numpy as np
 import torch
 
 from .. import dtypes
-from ..device import resolve_device
+from ..device import resolve_device, using_device
 from ..nn.layer_base import Layer
 from ..ops import flash_attention as _fa  # noqa: F401  (registers K1's op)
 from ..tensor import Parameter, Tensor
+from .dy2static import flag_device
 from .static_function import InputSpec, StaticFunction, _flatten_out, \
     _rebuild_out
 
@@ -92,8 +104,9 @@ class _Pure(torch.nn.Module):
     """``pure(params, *xs)``: the function with its parameters as inputs;
     its outputs flattened (the structure kept in ``out_spec``)."""
 
-    def __init__(self, layer, fn, names, record):
+    def __init__(self, layer, fn, names, record, wrap):
         super().__init__()
+        self._wrap = wrap
         # held outside the module tree: the program lifts no weights
         object.__setattr__(self, "_layer", layer)
         object.__setattr__(self, "_fn", fn)
@@ -113,30 +126,65 @@ class _Pure(torch.nn.Module):
             finally:
                 for n, v in zip(self._names, old):
                     state[n]._value = v
-        elif isinstance(layer, torch.nn.Module):
-            from torch.nn.utils.stateless import _reparametrize_module
-
-            with _reparametrize_module(layer, params, tie_weights=True):
-                out = self._fn(*xs)
         else:
-            out = self._fn(*xs)
+            if self._wrap:
+                xs = [Tensor._wrap(x) for x in xs]
+            if isinstance(layer, torch.nn.Module):
+                from torch.nn.utils.stateless import _reparametrize_module
+
+                with _reparametrize_module(layer, params, tie_weights=True):
+                    out = self._fn(*xs)
+            else:
+                out = self._fn(*xs)
         tensors, spec = _flatten_out(out)
         self._record(spec)
         return tuple(tensors)
 
 
-def _data_dependent(err: BaseException) -> bool:
-    """Whether the trace stopped on a value it cannot know (Python
-    control flow or a host read of a traced tensor)."""
+def _chain(err: BaseException) -> list:
     chain, e = [], err
     while e is not None and len(chain) < 8:
         chain.append(e)
         e = e.__cause__ or e.__context__
+    return chain
+
+
+def _data_dependent(err: BaseException) -> bool:
+    """Whether the trace stopped on a value it cannot know (Python
+    control flow or a host read of a traced tensor)."""
     return any(type(e).__name__ in ("GuardOnDataDependentSymNode",
                                     "DataDependentOutputException",
                                     "DataDependentOutputError")
                or "data-dependent" in str(e).lower()
-               or "data dependent" in str(e).lower() for e in chain)
+               or "data dependent" in str(e).lower() for e in _chain(err))
+
+
+def _construct(err: BaseException, fn) -> str:
+    """``file:line: source`` of the user code where the trace stopped:
+    the deepest frame outside torch and the port's op and control-flow
+    machinery (a converted function's line mapped back to its source)."""
+    import linecache
+    import traceback
+
+    skip = (os.path.dirname(torch.__file__),
+            *(os.path.join(os.path.dirname(os.path.dirname(__file__)), d)
+              for d in ("tensor.py", "autograd", "ops", "jit", "static",
+                        "nn", "amp.py")))
+    orig = getattr(fn, "__dy2static_original__", None)
+    where = None
+    for e in reversed(_chain(err)):
+        for fr in traceback.extract_tb(e.__traceback__):
+            name = fr.filename
+            if name.startswith("<dy2static:") and orig is not None:
+                first = orig.__code__.co_firstlineno
+                name = orig.__code__.co_filename
+                where = (name, first + fr.lineno - 1)
+            elif not name.startswith(skip) and not name.startswith("<"):
+                where = (name, fr.lineno)
+    if where is None:
+        return getattr(fn, "__qualname__", repr(fn))
+    line = linecache.getline(*where).strip()
+    return f"{where[0]}:{where[1]}: {line}"
 
 
 def _host_params(names, values) -> dict:
@@ -164,6 +212,14 @@ def save(layer, path: str, input_spec: Optional[Sequence] = None, **config):
     if input_spec is None:
         raise ValueError("jit.save requires input_spec (a list of "
                          "InputSpec or example tensors)")
+    converted = False
+    module = isinstance(layer, torch.nn.Module)
+    if os.environ.get("PADDLE_TPU_DY2STATIC") != "0" and not module:
+        from .dy2static import ast_transform
+
+        new = ast_transform(fn)
+        converted = getattr(new, "__dy2static_original__", None) is not None
+        fn = new
     names, values = _state(layer)
     device = values[0].device if values else resolve_device(None)
     examples = [_example(s, device) for s in input_spec]
@@ -173,13 +229,14 @@ def save(layer, path: str, input_spec: Optional[Sequence] = None, **config):
         holder["out_spec"] = spec
 
     pure = _Pure(layer if isinstance(layer, (Layer, torch.nn.Module))
-                 else None, fn, names, record)
+                 else None, fn, names, record,
+                 wrap=not module and (isinstance(layer, Layer) or converted))
     was_training = bool(getattr(layer, "training", False))
     if was_training:
         layer.eval()
     params = {n: v.detach() for n, v in zip(names, values)}
     try:
-        with torch.no_grad():
+        with torch.no_grad(), using_device(device), flag_device(device):
             ep = torch.export.export(
                 pure, (params, *[x for x, _ in examples]),
                 dynamic_shapes=({n: None for n in names},
@@ -188,10 +245,11 @@ def save(layer, path: str, input_spec: Optional[Sequence] = None, **config):
     except Exception as err:
         if _data_dependent(err):
             raise ValueError(
-                "jit.save cannot export a forward whose Python control flow "
-                "depends on tensor values: exporting the dy2static-converted "
-                "forward (through torch.cond/torch.while_loop) is not ported "
-                f"yet: {err}") from err
+                "jit.save cannot export this forward: its Python control "
+                "flow at " + _construct(err, fn) + " depends on tensor "
+                "values and the dy2static pass did not convert it (a host "
+                "read such as bool(t) or t.item(), or control flow it "
+                f"leaves as it is): {err}") from err
         raise
     finally:
         if was_training:

@@ -49,7 +49,10 @@ read on the device at every replay. A signature's eager first call takes
 one branch of each; the others are warmed in a throwaway relaxed
 capture (``graph_cond.warm_up``) so that the capture builds nothing. On
 CPU tensors the function runs eagerly on every call (there is no graph),
-with the same signature cache, counts and state-in-place contract.
+with the same signature cache, counts and state-in-place contract. Under
+a ``torch.export`` trace (``jit.save``, ``onnx.export``) a call runs the
+converted function directly, so its control flow becomes nodes of the
+exported program.
 
 Each captured program increments ``paddle_tpu_jit_compiles_total{fn,
 source="fresh"}`` once (on the CPU, the call that would capture). A CUDA
@@ -563,8 +566,10 @@ class StaticFunction:
         return out
 
     def __call__(self, *args, **kwargs):
-        if _generator._tape is not None:
-            # called from inside another step program: part of its step
+        if _generator._tape is not None or torch.compiler.is_exporting():
+            # called from inside another step program (part of its step)
+            # or from a torch.export trace (jit.save, onnx.export: the
+            # converted code's control flow becomes nodes of the program)
             return self._fn(*args, **kwargs)
         if not self._scanned:
             self._scan(args, kwargs)

@@ -5,7 +5,10 @@ own with ``nvcc``, at first use, into
 ``build/paddle_tpu_torch/lib<name>-<hash>.so`` beside the package
 (``<hash>`` covers the source and the flags, so an edited source builds
 anew), then loaded with :mod:`ctypes`. The source includes no PyTorch
-header, which keeps a build to seconds.
+header, which keeps a build to seconds. Every source is compiled as
+``PARTS`` translation units (1 unless named there; ``-c -DPTC_PART=0``,
+1, ...), all started together with the other sources', then linked into
+its one library; a source built in parts says what each part holds.
 
 The host route (:func:`load_host`) does the same for a host C++ source,
 ``csrc/<name>.cc`` (the parameter server's tables, the inference C
@@ -31,7 +34,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "HOST_FLAGS",
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "HOST_FLAGS", "PARTS",
            "HOST_EXTRA_FLAGS", "find_nvcc",
            "find_host_compiler", "library_path", "host_library_path",
            "build", "load", "load_host"]
@@ -39,8 +42,13 @@ __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "HOST_FLAGS",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 HOST_FLAGS = ("-shared", "-fPIC", "-std=c++17", "-pthread", "-O2")
+# sources built as several translation units (module docstring): as one
+# unit each, paged_attention.cu's 24 kernel instantiations and
+# flash_attention.cu's 18 held the build's critical path (58 and 30 s of
+# nvcc on an H100 host, PERF.md §6)
+PARTS = {"paged_attention": 7, "flash_attention": 3}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -68,12 +76,14 @@ def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(f" -c, parts {PARTS.get(name, 1)}, -shared link".encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile the named sources (default: every ``csrc/*.cu``) that are
-    not built yet, one ``nvcc`` per source, all started together.
+    not built yet, one ``nvcc`` per part of a source (``PARTS``), all
+    started together, then link each source's parts.
     Returns the wall seconds each build took (0.0 when already built);
     the compiler's output goes to ``<library>.log``. Raises
     ``RuntimeError`` naming the source on a failed compile."""
@@ -91,18 +101,31 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     procs = {}
     for n, out in todo.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, out)
-        nvcc_runs += 1
+        src = str(CSRC / f"{n}.cu")
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", f"-DPTC_PART={k}", "-o",
+                 f"{tmp}.{k}.o", src] for k in range(PARTS.get(n, 1))]
+        procs[n] = ([subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for cmd in cmds], tmp, out)
+        nvcc_runs += len(cmds)
     failed = []
-    for n, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+    for n, (running, tmp, out) in procs.items():
+        logs = [p.communicate()[0] for p in running]
+        rc = max(p.returncode for p in running)
+        objs = [f"{tmp}.{k}.o" for k in range(len(running))]
+        if rc == 0:  # link the parts' objects
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *objs],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            logs.append(link.stdout)
+            rc = link.returncode
+        for o in objs:
+            Path(o).unlink(missing_ok=True)
+        log = "".join(logs)
         secs[n] = time.perf_counter() - t0
         out.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
+        if rc != 0:
+            failed.append(f"{n}.cu (nvcc exit {rc}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)

@@ -3,7 +3,7 @@
 
 The JAX package runs a branch in Python when the predicate is concrete
 and lowers to ``lax.cond``/``lax.switch``/``lax.while_loop`` when it is
-traced. The port has three regimes:
+traced. The port has four regimes:
 
 - **Concrete predicate** (the CPU, or an eager call on the card): the
   chosen Python branch or a Python loop, recorded by torch autograd as
@@ -30,18 +30,38 @@ traced. The port has three regimes:
   Executor's graph on the card). The JAX package's tape records only the
   branch the build-time zeros took, so its Executor replays that branch
   for every feed; the port takes the fed predicate's branch.
+- **Exporting** (a ``torch.export`` trace, as ``jit.save`` and
+  ``onnx.export`` run it; :func:`exporting`): each construct becomes a
+  higher-order op of the exported graph, as the JAX package lowers to
+  ``lax.*`` under a trace (``:147-188``, ``:259-315``): ``cond`` is
+  ``torch.cond``, ``case`` and ``switch_case`` are nested ``torch.cond``s
+  (the JAX package's ``lax.switch``), ``while_loop`` is
+  ``torch.while_loop`` (called as the operators
+  ``torch.ops.higher_order.*``: ``torch.cond`` itself runs its branches
+  through ``torch.compile`` under a non-strict export, which cannot trace
+  the facade). The tensors the branches and bodies close over
+  (parameters, a bound ``n``) become the op's extra inputs: the branch
+  runs once on the trace's fake tensors with the tracer off to find them
+  (:func:`_closure`), and a ``TorchFunctionMode`` hands each op of the
+  traced branch its input in their place (:class:`_Lift`), so a closure
+  is never baked in as a constant. A branch or body output is a clone
+  (the ops reject an output that aliases an input, such as a carry
+  handed back unchanged), and a carry keeps its dtype, shape and device
+  across trips. The clone costs one copy of the outputs a trip.
 """
 from __future__ import annotations
 
 from typing import Callable, List, Optional, Sequence
 
 import torch
+from torch.overrides import TorchFunctionMode
+from torch.utils._pytree import tree_flatten, tree_map
 
 from ... import tensor as _tensor
 from ...ops import graph_cond as _gc
 from ...tensor import Tensor
 
-__all__ = ["cond", "while_loop", "case", "switch_case"]
+__all__ = ["cond", "while_loop", "case", "switch_case", "exporting"]
 
 
 # --------------------------------------------------------------- helpers
@@ -61,6 +81,25 @@ def _pred_value(pred) -> bool:
             return bool(pred)
         return bool(v.reshape(()))
     return bool(v)
+
+
+def exporting(*xs) -> bool:
+    """Whether a ``torch.export`` trace is running, or a value among
+    ``xs`` (Tensors or torch tensors) is one of its fake tensors: the
+    exporting regime (module docstring)."""
+    if torch.compiler.is_exporting():
+        return True
+    from torch._subclasses.fake_tensor import is_fake
+
+    return any(isinstance(v, torch.Tensor) and is_fake(v)
+               for v in (_val(x) for x in xs))
+
+
+def _exported(*preds) -> bool:
+    """The exporting regime applies: a predicate is a tensor of the
+    trace (a Python value stays concrete under export too)."""
+    return (any(isinstance(_val(p), torch.Tensor) for p in preds)
+            and exporting(*preds))
 
 
 def _captured(*preds) -> bool:
@@ -289,6 +328,169 @@ def _captured_multiway(sel: torch.Tensor, fns: Sequence[Callable],
     return rebuilds[0](outs)
 
 
+# ----------------------------------------------------- exporting regime
+class _Reads(TorchFunctionMode):
+    """The torch tensors that ops read while it is installed and that no
+    op of the block made (the block's closure: parameters, a bound),
+    except ``exclude``, first-read order."""
+
+    def __init__(self, exclude=()):
+        super().__init__()
+        self.skip = {id(t) for t in exclude}
+        self.made: list = []  # held, so that no id is reused
+        self.read: dict = {}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        for a in tree_flatten((args, kwargs))[0]:
+            if isinstance(a, torch.Tensor) and id(a) not in self.skip:
+                self.read.setdefault(id(a), a)
+        out = func(*args, **kwargs)
+        for o in tree_flatten(out)[0]:
+            if isinstance(o, torch.Tensor):
+                self.made.append(o)
+                self.skip.add(id(o))
+        return out
+
+
+class _Lift(TorchFunctionMode):
+    """Give every op of the block, in place of each tensor of
+    ``outer``, the matching one of ``inner`` (an input of the traced
+    branch or body)."""
+
+    def __init__(self, outer, inner):
+        super().__init__()
+        self.map = {id(o): i for o, i in zip(outer, inner)}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        def sub(a):
+            return self.map.get(id(a), a) if isinstance(a, torch.Tensor) \
+                else a
+        return func(*tree_map(sub, args), **tree_map(sub, kwargs or {}))
+
+
+def _closure(fn: Callable, args=()) -> List[torch.Tensor]:
+    """The tensors ``fn(*args)`` reads from outside: the function runs
+    once on the trace's fake tensors with the tracer switched off (it
+    records nothing)."""
+    from torch.fx.experimental.proxy_tensor import \
+        disable_proxy_modes_tracing
+
+    with disable_proxy_modes_tracing(), _Reads(args) as reads:
+        fn(*args)
+    return list(reads.read.values())
+
+
+def _lifted(fn: Callable, n: int, ext: Sequence[torch.Tensor]):
+    """``fn`` over its ``n`` arguments, then the values of ``ext``: what
+    the traced subgraph calls (its closure becomes inputs)."""
+    def run(*vals):
+        with _Lift(ext, vals[n:]):
+            return fn(*vals[:n])
+    return run
+
+
+def _new_values(leaves) -> List[torch.Tensor]:
+    """The torch values of ``leaves`` as new tensors of the trace: each is
+    cloned, since one that is an input of the op or a tensor read from
+    outside would alias it."""
+    out = []
+    for x in leaves:
+        v = _val(x)
+        if not isinstance(v, torch.Tensor):
+            raise TypeError(
+                f"a branch or loop body returned {type(x).__name__}: under "
+                "export every output leaf must be a Tensor")
+        out.append(v.clone())
+    return out
+
+
+def _exported_multiway(sel: torch.Tensor, fns: Sequence[Callable],
+                       name: str):
+    """``fns[sel]()`` as nested ``torch.cond`` nodes: branch ``i`` is
+    taken when ``sel == i``, the last one otherwise (module
+    docstring)."""
+    structs: dict = {}
+    rebuilds: dict = {}
+
+    def flat(i):
+        def run():
+            out = fns[i]()
+            leaves, rebuild = _flatten(out)
+            structs[i] = (_structure(out), type(out))
+            rebuilds.setdefault(i, rebuild)
+            return tuple(_new_values(leaves))
+        return run
+
+    def chain(i):
+        if i == len(fns) - 1:
+            return flat(i)()
+        # the closure of this cond: the selector (the nested conds test
+        # it) and every branch it may still take
+        ext = _closure(lambda: [sel.reshape(())]
+                       + [flat(j)() for j in range(i, len(fns))])
+        _check_structs(structs, name)
+        hit = (sel == i).reshape(())
+        return tuple(torch.ops.higher_order.cond(
+            hit, _lifted(flat(i), 0, ext),
+            _lifted(lambda: chain(i + 1), 0, ext), tuple(ext)))
+
+    outs = chain(0)
+    return rebuilds[0](list(outs))
+
+
+def _check_structs(structs, name) -> None:
+    first = structs.get(0)
+    for i, st in sorted(structs.items()):
+        if st != first:
+            raise ValueError(
+                f"{name}: branch 0 and branch {i} must return the same "
+                f"structure/shapes/dtypes; got {first[0]} vs {st[0]} (the "
+                "reference raises the same constraint for merged block "
+                "outputs)")
+
+
+def _exported_while(cond, body, loop_vars, leaves, rebuild):
+    """One ``torch.while_loop`` node over the flattened carry (module
+    docstring)."""
+    for v in leaves:
+        if not isinstance(v, (Tensor, torch.Tensor)):
+            raise TypeError(
+                "while_loop under export: every loop_vars leaf must be a "
+                f"Tensor (got {type(v).__name__}): a Python scalar would be "
+                "a constant of the graph, not a carried value")
+    n = len(leaves)
+    init = [_val(x) for x in leaves]
+    meta = [(v.shape, v.dtype) for v in init]
+
+    def cond_t(*vals):
+        r = _val(cond(*rebuild(list(vals))))
+        return r.reshape(()).to(torch.bool)
+
+    def body_t(*vals):
+        out = body(*rebuild(list(vals)))
+        out = list(out) if isinstance(out, (list, tuple)) else [out]
+        got, _ = _flatten(out)
+        if len(got) != n:
+            raise ValueError(
+                f"while_loop: body returned {len(got)} leaves, expected {n} "
+                "(must match loop_vars structure)")
+        new = _new_values(got)
+        for k, (v, (shape, dt)) in enumerate(zip(new, meta)):
+            if v.shape != shape or v.dtype != dt:
+                raise ValueError(
+                    f"while_loop: loop var {k} changed from "
+                    f"{tuple(shape)} {dt} to {tuple(v.shape)} {v.dtype} in "
+                    "the body; a carry keeps its shape and dtype")
+        return tuple(new)
+
+    ext = _closure(lambda *vs: (cond_t(*vs), body_t(*vs)), init)
+    out = torch.ops.higher_order.while_loop(
+        _lifted(cond_t, n, ext), _lifted(body_t, n, ext), tuple(init),
+        tuple(ext))
+    return rebuild(list(out))
+
+
 def _same_structure(name, fns, i, a, j, b) -> None:
     sa, sb = _structure(a), _structure(b)
     if sa != sb or type(a) is not type(b):
@@ -307,6 +509,9 @@ def _multiway(select_dev: Callable, choose: Callable, preds: Sequence,
     ``select_dev(pred values)`` gives the branch index as a device
     tensor, ``choose(preds)`` the index of concrete predicates, and
     ``public(*preds)`` calls the construct again."""
+    if _exported(*preds):
+        return _exported_multiway(select_dev([_val(p) for p in preds]), fns,
+                                  name)
     if _captured(*preds):
         return _captured_multiway(select_dev([_val(p) for p in preds]), fns,
                                   name)
@@ -476,6 +681,8 @@ def while_loop(cond, body, loop_vars, is_test: bool = False,
                          "list/tuple")
     loop_vars = list(loop_vars)
     leaves, rebuild = _flatten(loop_vars)
+    if _exported(*leaves):
+        return _exported_while(cond, body, loop_vars, leaves, rebuild)
     if _captured(*leaves):
         return _captured_while(cond, body, loop_vars, leaves, rebuild)
     rec = _recorded(*leaves)

@@ -9,8 +9,11 @@ block with a program record of its own (``static/record.py``): the step
 inputs and memories are its placeholders, and ``rnn()`` replays the
 record once a time step, feeding the step's slices and the carried
 memories, as one op (one node of an open program; torch autograd
-differentiates through the steps). Sequence inputs are time-major,
-``[T, B, ...]``.
+differentiates through the steps). Under a ``torch.export`` trace
+(``jit.save``, ``onnx.export``) the steps are one ``torch.while_loop``
+carrying the step index, the memories and the stacked outputs, as the
+JAX package's ``lax.scan`` (``paddle_tpu/static/nn/rnn.py:143``).
+Sequence inputs are time-major, ``[T, B, ...]``.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from ... import tensor as _tensor
 from ...autograd.engine import apply_op
 from ...tensor import Tensor
 from .. import record as _record
+from .control_flow import exporting, while_loop
 
 __all__ = ["StaticRNN"]
 
@@ -132,7 +136,11 @@ class StaticRNN:
         params = list({id(s[1]): s[1] for node in plan for s in node.inputs
                        if s[0] == "cell"}.values())
 
+        outs0 = [o._value for o in self._outputs]
+
         def run(*vals):
+            if exporting(*vals):
+                return exported(*vals)
             seqs = vals[:n_seq]
             carry = list(vals[n_seq:n_seq + len(self._mems)])
             steps: List[List[torch.Tensor]] = [[] for _ in range(n_out)]
@@ -145,6 +153,29 @@ class StaticRNN:
                         steps[i].append(got[i])
                     carry = got[n_out:]
             return tuple(torch.stack(s) for s in steps)
+
+        def exported(*vals):
+            # one torch.while_loop: the step index, the memories and the
+            # stacked outputs are carried (the JAX package's lax.scan)
+            seqs = vals[:n_seq]
+            mems = list(vals[n_seq:n_seq + len(self._mems)])
+            T = seqs[0].shape[0]
+            bufs = [torch.zeros((T, *o.shape), dtype=o.dtype,
+                                device=seqs[0].device) for o in outs0]
+            t0 = torch.zeros((), dtype=torch.int64, device=seqs[0].device)
+
+            def body(t, *carry):
+                idx = t.reshape(1)
+                steps = [s.index_select(0, idx)[0] for s in seqs]
+                feeds = dict(zip(names, steps + list(carry[:len(mems)])))
+                got = _record.run_plan(plan, srcs, feeds)
+                outs = [b.index_put((idx,), g.unsqueeze(0))
+                        for b, g in zip(carry[len(mems):], got[:n_out])]
+                return [t + 1, *got[n_out:], *outs]
+
+            res = while_loop(lambda t, *carry: t < T, body,
+                             [t0, *mems, *bufs])
+            return tuple(res[1 + len(mems):])
 
         ins = [x for x, _ in self._seq] + [m[1] for m in self._mems] + params
         res = apply_op(run, ins, name=self.name)

@@ -62,6 +62,8 @@ TRAIN_B = (4, 4, 4, 4, 2, 2)
 DECODE_B, DECODE_L, PROMPT = 4, 256, 32
 STOP_SEARCH = 16
 WHILE_TRIPS = 1000
+# the last decode drill's cases and tokens (decode())
+LAST_DECODE: dict = {}
 
 
 class DrillFailed(RuntimeError):
@@ -335,6 +337,11 @@ def decode(device: str, small: bool) -> dict:
             problems.append(f"plain K1 or K2/K3 ran: {counts}")
     if problems:
         raise DrillFailed("static decode: " + "; ".join(problems))
+    # for tools/export_drills.py: the same calls through a loaded program
+    LAST_DECODE.clear()
+    LAST_DECODE.update(device=str(device), small=small, cases=cases,
+                       python_loop=want, while_node=got,
+                       ms_per_trip=ms["to_L"] / max(trips["to_L"], 1))
     eager_k1 = eager_counts["flash_fwd"]
     return {"trips": trips, "final_cur": {n: g[1] for n, g in got.items()},
             "stop_token": stop, "tokens_equal": True,

@@ -816,15 +816,27 @@ def test_late_bound_globals_and_monkeypatch_work(jax_ref):
 def test_layer_method_with_tensor_branch_compiles_and_saves(jax_ref,
                                                             tmp_path):
     """The ``to_static`` part as the JAX test's; ``jit.save`` of the
-    converted forward is not ported yet, and says so."""
+    converted forward through both packages (the Layer path: its
+    parameters in the ``.pdiparams``), each loaded program taking both
+    branches as its ``to_static`` call did."""
     jm, jpos, jneg, jn = jax_ref["gated_layer"]
     m, pos, neg, n = _port("gated_layer")
     np.testing.assert_allclose(pos, jpos, rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(neg, jneg, rtol=1e-6, atol=1e-6)
     assert n == jn == 1 and not np.allclose(pos, neg)
-    with pytest.raises(ValueError, match="not ported yet"):
-        jit.save(m, str(tmp_path / "gated"),
-                 input_spec=[jit.InputSpec((2, 4), "float32")])
+    for P, layer in ((paddle, m), (pt, jm)):
+        P.jit.save(layer, str(tmp_path / P.__name__),
+                   input_spec=[P.jit.InputSpec((2, 4), "float32")])
+    tl = jit.load(str(tmp_path / "paddle_tpu_torch"), device="cpu")
+    jl = pt.jit.load(str(tmp_path / "paddle_tpu"))
+    for x, want in ((np.ones((2, 4), np.float32), pos),
+                    (-np.ones((2, 4), np.float32), neg)):
+        got = np.asarray(tl(x).numpy())
+        assert got.tobytes() == np.asarray(want, np.float32).tobytes()
+        np.testing.assert_allclose(got, np.asarray(jl(pt.to_tensor(
+            x)).numpy()), rtol=1e-5, atol=1e-6)
+    assert os.path.getsize(str(tmp_path / "paddle_tpu_torch.pdiparams")) \
+        > 100
 
 
 def test_for_over_tensor_range_compiles(jax_ref):

@@ -211,6 +211,58 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+def test_parted_source_compiles_its_parts_then_links(monkeypatch, tmp_path):
+    """Every source is compiled as its ``_build.PARTS`` units (``-c
+    -DPTC_PART=k``; one unless named there), all started together, then
+    linked into its one library; a failed part fails the source and
+    leaves no object behind. A stand-in ``nvcc`` records its
+    arguments."""
+    from paddle_tpu_torch.ops import _build
+
+    calls = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {calls}\n'
+        'case "$*" in *PTC_PART=1*) [ -n "$FAIL" ] && exit 3;; esac\n'
+        'while [ "$#" -gt 0 ]; do [ "$1" = -o ] && touch "$2"; shift; done\n')
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", os.pathsep.join([str(tmp_path),
+                                                os.environ["PATH"]]))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    assert _build.PARTS == {"paged_attention": 7, "flash_attention": 3}
+    secs = _build.build(["paged_attention", "graph_cond"])
+    assert set(secs) == {"paged_attention", "graph_cond"}
+    lines = calls.read_text().splitlines()
+    parts = [ln for ln in lines if "-DPTC_PART=" in ln]
+    assert len(parts) == 8
+    assert all(" -c " in f" {ln} " and "-shared" not in ln for ln in parts)
+    paged = [ln for ln in parts if "paged_attention.cu" in ln]
+    assert sorted(ln.split("-DPTC_PART=")[1].split()[0] for ln in paged) \
+        == [str(k) for k in range(7)]
+    whole = [ln for ln in parts if "graph_cond.cu" in ln]
+    assert len(whole) == 1 and "-DPTC_PART=0" in whole[0]
+    link = [ln for ln in lines if ln.startswith("-shared")]
+    assert sorted(ln.count(".o") for ln in link) == [1, 7]
+    # a parted source refuses a build without its part, and names each
+    for name, n in _build.PARTS.items():
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert "#error" in src and "PTC_PART == -1" not in src
+        assert all(f"PTC_PART == {k}" in src for k in range(n))
+    for n in secs:
+        assert _build.library_path(n).exists()
+    assert not list((tmp_path / "build").glob("*.o"))
+    # a failed part: the source fails, nothing is left
+    monkeypatch.setenv("FAIL", "1")
+    monkeypatch.setattr(_build, "library_path",
+                        lambda n: tmp_path / "build" / f"lib{n}-x.so")
+    with pytest.raises(RuntimeError, match="paged_attention.cu"):
+        _build.build(["paged_attention"])
+    assert not (tmp_path / "build" / "libpaged_attention-x.so").exists()
+    assert not list((tmp_path / "build").glob("*.o"))
+
+
 def test_router_and_gpt_engine_need_a_card_unless_told_cpu(no_cuda):
     """``Router.add_model`` builds its engines where ``ServingEngine``
     would: ``cuda`` unless the caller asks for the CPU; so does an engine
@@ -805,12 +857,39 @@ def test_deployment_slice_modules_import_no_jax():
 
 
 # the JAX package's top-level names the port still lacks (ROADMAP Queue 1
-# item 16(f)-(k)); the deployment slice ported 24 of the 41 before it,
+# item 16(g)-(k)); the deployment slice ported 24 of the 41 before it,
 # the incubate slice ``geometric``, the static slice ``static``,
-# ``enable_static`` and ``disable_static``
-TOP_LEVEL_QUEUED = {"audio", "cost_model", "dataset", "distribution", "fft",
-                    "hub", "native", "onnx", "reader", "signal", "sparse",
-                    "text"}
+# ``enable_static`` and ``disable_static``, the export slice ``audio``,
+# ``fft``, ``onnx``, ``signal`` and ``text``
+TOP_LEVEL_QUEUED = {"cost_model", "dataset", "distribution", "hub",
+                    "native", "reader", "sparse"}
+
+
+def test_export_slice_modules_import_no_jax():
+    """The export slice: every new module is walked by the probe (no jax)
+    and names no forbidden import."""
+    new = ["fft", "signal", "onnx", "onnx.wire", "onnx.convert", "audio",
+           "audio.functional", "audio.features", "audio.backends",
+           "audio.backends.wave_backend", "audio.datasets", "text",
+           "tools.onnx_eval", "tools.export_drills"]
+    for m in new:
+        path = PKG.joinpath(*m.split("."))
+        path = path / "__init__.py" if path.is_dir() else path.with_suffix(
+            ".py")
+        assert path.exists(), path
+        assert not [n for _, n in _imports(path) if _forbidden(n)]
+    probe = ("import importlib, sys\n"
+             + "".join(f"importlib.import_module('paddle_tpu_torch.{m}')\n"
+                       for m in new)
+             + "bad = [m for m in sys.modules if m.split('.')[0] in "
+               "('jax', 'jaxlib', 'paddle_tpu')]\n"
+               "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, cwd=str(REPO), env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
 
 
 def test_static_slice_modules_import_no_jax():

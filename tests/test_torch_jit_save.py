@@ -12,8 +12,9 @@
   eager ones (the same operators in the same order), and within 1e-5 of
   the JAX package's eager logits (``tests/test_torch_gpt.py``'s f32
   tolerance); bf16 weights cross the ``.pdiparams`` bit for bit.
-- ``to_static`` forwards and plain functions, nested outputs, and the
-  refusal of Python control flow on tensor values.
+- ``to_static`` forwards and plain functions, nested outputs, and Python
+  control flow on tensor values saved through the dy2static pass (its
+  cases are ``tests/test_torch_jit_save_control_flow.py``'s).
 """
 import io
 import os
@@ -201,14 +202,26 @@ def test_to_static_forward_and_plain_functions(tmp_path):
 
 
 def test_control_flow_on_tensor_values_is_refused(tmp_path):
+    """Python control flow on tensor values goes through the dy2static
+    pass into a ``cond`` node: the loaded program takes each branch as the
+    JAX package's loaded program does. A save without ``input_spec`` is
+    still refused, and writes nothing."""
     def branchy(x):
         if x.sum() > 0:
             return x * 2
         return x
 
-    with pytest.raises(ValueError, match="control flow"):
-        paddle.jit.save(branchy, str(tmp_path / "b"), input_spec=[
-            paddle.jit.InputSpec([2, 3], "float32")])
+    for P in (paddle, pt):
+        P.jit.save(branchy, str(tmp_path / P.__name__), input_spec=[
+            P.jit.InputSpec([2, 3], "float32")])
+    tl = paddle.jit.load(str(tmp_path / "paddle_tpu_torch"), device="cpu")
+    jl = pt.jit.load(str(tmp_path / "paddle_tpu"))
+    for v in (1.0, -1.0):
+        x = np.full((2, 3), v, "f4")
+        got = tl(x).numpy()
+        assert got.tobytes() == (x * 2 if v > 0 else x).tobytes()
+        np.testing.assert_array_equal(got, np.asarray(
+            jl(pt.to_tensor(x)).numpy()))
     with pytest.raises(ValueError, match="input_spec"):
         paddle.jit.save(branchy, str(tmp_path / "b"))
     assert not os.path.exists(str(tmp_path / "b.pdmodel"))
